@@ -1,0 +1,107 @@
+"""Top-K tail prediction CLI (serving entry point), dense on one device.
+
+Loads a reference-layout ``.pt`` checkpoint and a processed-data directory,
+encodes the whole graph once, scores every entity as tail for the given
+(head, relation) queries, and returns the K best:
+
+    python -m primekg_rgcn_tpu_torch.evaluate.predict_cli \
+        --model_path model.pt --data_dir data/processed \
+        --heads 12 844 --relation 0 --topk 10 [--device cuda|cpu] \
+        [--output predictions.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+from pathlib import Path
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Top-K tail prediction")
+    p.add_argument("--model_path", required=True,
+                   help="reference-layout .pt checkpoint")
+    p.add_argument("--data_dir", default="data/processed")
+    p.add_argument("--heads", type=int, nargs="+", required=True,
+                   help="head entity ids to query")
+    p.add_argument("--relation", type=int, default=0)
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--output", default=None,
+                   help="optional JSON file for the predictions")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(name)s - %(message)s",
+                        handlers=[logging.StreamHandler(sys.stdout)])
+    log = logging.getLogger("predict")
+
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import ModelConfig
+    from primekg_rgcn_tpu_torch.data import artifacts
+    from primekg_rgcn_tpu_torch.device import resolve_device
+    from primekg_rgcn_tpu_torch.models.rgcn import predict_all_tails
+    from primekg_rgcn_tpu_torch.train import checkpoint as ckpt
+
+    device = resolve_device(args.device)
+    payload = ckpt.load(args.model_path, device=device)
+    params = payload["params"]
+    model_cfg = ModelConfig.from_dict(payload["model_config"])
+    ds = artifacts.load_dataset(args.data_dir, require_train=False)
+    full = ds["full"] or ds["train"] or ds["test"]
+    if full is None:
+        raise SystemExit(
+            f"no graph artifacts (full_graph/train_data/test_data) found "
+            f"under {args.data_dir}")
+    graph = artifacts.split_to_rel_graph(full)
+    n = graph.num_nodes
+    for h in args.heads:
+        if not 0 <= h < n:
+            raise SystemExit(f"head id {h} out of range [0, {n})")
+    if not 0 <= args.relation < graph.num_relations:
+        raise SystemExit(f"relation {args.relation} out of range "
+                         f"[0, {graph.num_relations})")
+    graph = graph.to(device)
+
+    names = None
+    if ds.get("mappings"):
+        names = {int(i): str(v[1])
+                 for i, v in ds["mappings"]["idx2node"].items()}
+
+    heads = torch.tensor(args.heads, dtype=torch.long, device=device)
+    rels = torch.full((len(args.heads),), args.relation, dtype=torch.long,
+                      device=device)
+    with torch.no_grad():
+        all_scores = predict_all_tails(params, graph, heads, rels, model_cfg)
+        scores, ids = torch.topk(all_scores, args.topk, dim=1)
+    scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+
+    results = []
+    for qi, h in enumerate(args.heads):
+        rows = [{"tail_id": int(t), "score": float(s),
+                 **({"tail_name": names.get(int(t), "")} if names else {})}
+                for t, s in zip(ids[qi], scores[qi])]
+        results.append({"head_id": int(h),
+                        **({"head_name": names.get(int(h), "")}
+                           if names else {}),
+                        "relation": int(args.relation),
+                        "predictions": rows})
+        log.info("head %s -> top-%d tails: %s", h, args.topk,
+                 ", ".join(f"{r['tail_id']}({r['score']:.3f})"
+                           for r in rows[:5]))
+    if args.output:
+        Path(args.output).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.output, "w") as f:
+            json.dump(results, f, indent=2)
+        log.info("Wrote %s", args.output)
+    return results
+
+
+if __name__ == "__main__":
+    main()

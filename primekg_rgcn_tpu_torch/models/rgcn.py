@@ -1,0 +1,125 @@
+"""RGCN encoder + DistMult decoder, as a parameter dict and apply functions.
+
+The parameter dict has the JAX package's layout, so parameters move between
+the two packages leaf by leaf (``train/torch_interop.params_from_jax``):
+
+    {"encoder": {"node_emb": [N, d_emb],
+                 "conv1": {"w_rel" | "basis"+"coef", "w_root", "bias"},
+                 "conv2": {...}},
+     "decoder": {"rel_emb": [R, d_h]}}
+
+Architecture: node embedding table -> RGCN layer (d_emb -> d_h) -> ReLU ->
+Dropout (training only) -> RGCN layer (d_h -> d_h); DistMult decoder. The
+default config has 2,078,208 parameters, as the reference model.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from primekg_rgcn_tpu_torch.config import ModelConfig
+from primekg_rgcn_tpu_torch.data.graph import RelGraph
+from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
+                                                 distmult_score_all_tails)
+from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
+
+Params = Dict[str, Any]
+
+
+def _xavier_uniform(gen: torch.Generator, shape, fan_in: int,
+                    fan_out: int) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return (torch.rand(shape, generator=gen, dtype=torch.float32)
+            * (2 * limit) - limit)
+
+
+def _init_conv(gen: torch.Generator, din: int, dout: int, num_relations: int,
+               num_bases: Optional[int]) -> Params:
+    conv: Params = {}
+    if num_bases is None:
+        conv["w_rel"] = _xavier_uniform(gen, (num_relations, din, dout), din, dout)
+    else:
+        conv["basis"] = _xavier_uniform(gen, (num_bases, din, dout), din, dout)
+        conv["coef"] = _xavier_uniform(gen, (num_relations, num_bases),
+                                       num_relations, num_bases)
+    conv["w_root"] = _xavier_uniform(gen, (din, dout), din, dout)
+    conv["bias"] = torch.zeros(dout, dtype=torch.float32)
+    return conv
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                device="cpu") -> Params:
+    """Xavier-uniform parameters drawn from ``gen`` (a CPU generator, so a
+    seed gives the same weights on any device), placed on ``device``."""
+    params = {
+        "encoder": {
+            "node_emb": _xavier_uniform(
+                gen, (cfg.num_nodes, cfg.embedding_dim),
+                cfg.num_nodes, cfg.embedding_dim),
+            "conv1": _init_conv(gen, cfg.embedding_dim, cfg.hidden_dim,
+                                cfg.num_relations, cfg.num_bases),
+            "conv2": _init_conv(gen, cfg.hidden_dim, cfg.hidden_dim,
+                                cfg.num_relations, cfg.num_bases),
+        },
+        "decoder": {
+            "rel_emb": _xavier_uniform(
+                gen, (cfg.num_relations, cfg.hidden_dim),
+                cfg.num_relations, cfg.hidden_dim),
+        },
+    }
+    return params_to(params, device)
+
+
+def params_to(params: Params, device) -> Params:
+    """The same nested dict with every tensor on ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+def _leaves(params: Params):
+    if isinstance(params, dict):
+        for v in params.values():
+            yield from _leaves(v)
+    else:
+        yield params
+
+
+def count_params(params: Params) -> int:
+    return sum(int(p.numel()) for p in _leaves(params))
+
+
+def encoder_apply(params: Params, graph: RelGraph, cfg: ModelConfig, *,
+                  layer_fn=rgcn_layer_segment) -> torch.Tensor:
+    """Full-graph encode at inference: returns [N, hidden_dim] node
+    embeddings (embed -> conv1 -> ReLU -> conv2; dropout does not apply)."""
+    enc = params["encoder"]
+    x = layer_fn(enc["conv1"], enc["node_emb"], graph)
+    x = torch.relu(x)
+    return layer_fn(enc["conv2"], x, graph)
+
+
+def predict(params: Params, graph: RelGraph, heads, tails, rels,
+            cfg: ModelConfig, *, layer_fn=rgcn_layer_segment) -> torch.Tensor:
+    """Inference triple scoring [B]."""
+    node_emb = encoder_apply(params, graph, cfg, layer_fn=layer_fn)
+    rel_emb = params["decoder"]["rel_emb"][rels]
+    return distmult_score(node_emb[heads], node_emb[tails], rel_emb)
+
+
+def predict_all_tails(params: Params, graph: RelGraph, heads, rels,
+                      cfg: ModelConfig, *,
+                      layer_fn=rgcn_layer_segment) -> torch.Tensor:
+    """[B, N] scores of every entity as tail."""
+    node_emb = encoder_apply(params, graph, cfg, layer_fn=layer_fn)
+    rel_emb = params["decoder"]["rel_emb"][rels]
+    return distmult_score_all_tails(node_emb[heads], rel_emb, node_emb)
+
+
+def get_embeddings(params: Params, graph: RelGraph, cfg: ModelConfig, *,
+                   layer_fn=rgcn_layer_segment) -> torch.Tensor:
+    """Encoder output at inference."""
+    return encoder_apply(params, graph, cfg, layer_fn=layer_fn)

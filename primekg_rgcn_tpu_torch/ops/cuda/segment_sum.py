@@ -1,0 +1,209 @@
+"""Fused gather + sorted segment-sum: the CUDA kernel, its plain PyTorch
+version and the wrapper that picks between them by device.
+
+    out[d, :] = sum_{e in [rowptr[d], rowptr[d+1])} x[src[e], :] * scale[e]
+
+This is the counterpart of ``primekg_rgcn_tpu/ops/pallas/segment_sum.py``:
+it replaces the TPU kernel ``_segment_kernel`` (reached through
+``sorted_segment_sum_pallas``) together with the row gather in front of it.
+The kernel source is ``primekg_rgcn_tpu_torch/csrc/gather_segment_sum.cu``;
+its header comment gives the design and what bounds it on the H100 (memory
+bytes). It is built with ``nvcc`` for ``sm_90a`` at first use into
+``primekg_rgcn_tpu_torch/_build/`` and bound through ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+_PKG_DIR = Path(__file__).resolve().parents[2]
+SOURCE = _PKG_DIR / "csrc" / "gather_segment_sum.cu"
+BUILD_DIR = _PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> Path:
+    """Where the built library lives, keyed by a hash of source and flags."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libgather_segment_sum_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Tuple[Path, str]:
+    """Compile the kernel library if it is not built yet.
+
+    Returns the library's path and the compiler's output (with
+    ``verbose``, ptxas's register and spill report); empty when the library
+    was already there.
+    """
+    lib = library_path()
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+    return lib, proc.stdout + proc.stderr
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        fn = lib.gather_segment_sum_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(x, src, rowptr, scale) -> None:
+    if x.dim() != 2 or x.shape[1] < 1 or x.dtype != torch.float32:
+        raise ValueError(f"x must be float32 [rows, D>=1], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if src.dim() != 1 or src.dtype != torch.int32:
+        raise ValueError(f"src must be int32 [E], got {src.dtype} "
+                         f"{tuple(src.shape)}")
+    if rowptr.dim() != 1 or rowptr.shape[0] < 1 or rowptr.dtype != torch.int32:
+        raise ValueError(f"rowptr must be int32 [S+1], got {rowptr.dtype} "
+                         f"{tuple(rowptr.shape)}")
+    tensors = [x, src, rowptr]
+    if scale is not None:
+        if scale.dtype != torch.float32 or scale.shape != src.shape:
+            raise ValueError(f"scale must be float32 {tuple(src.shape)}, got "
+                             f"{scale.dtype} {tuple(scale.shape)}")
+        tensors.append(scale)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, src, rowptr and scale must share one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("x, src, rowptr and scale must be contiguous")
+    if x.numel() >= 2 ** 31 or src.shape[0] >= 2 ** 31:
+        raise ValueError("sizes beyond int32 indexing are not supported")
+
+
+def _check_csr_ends(src, rowptr) -> None:
+    """The CSR must cover src exactly. Checked on the host for CPU tensors;
+    on the card the kernel asserts it (and every src id) on the device, so
+    that a launch needs no synchronise."""
+    first, last = rowptr[[0, -1]].tolist()
+    if first != 0 or last != src.shape[0]:
+        raise ValueError(f"rowptr must run from 0 to len(src) = "
+                         f"{src.shape[0]}, got {first} .. {last}")
+
+
+def gather_segment_sum_plain(x: torch.Tensor, src: torch.Tensor,
+                             rowptr: torch.Tensor,
+                             scale: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain PyTorch version: index_add_ of the gathered (scaled) rows.
+
+    The CSR covers src: ``rowptr[0] == 0`` and ``rowptr[-1] == len(src)``.
+    """
+    s = rowptr.shape[0] - 1
+    counts = (rowptr[1:] - rowptr[:-1]).long()
+    dst = torch.repeat_interleave(torch.arange(s, device=x.device), counts,
+                                  output_size=src.shape[0])
+    msg = x[src]
+    if scale is not None:
+        msg = msg * scale[:, None]
+    return torch.zeros(s, x.shape[1], dtype=torch.float32,
+                       device=x.device).index_add_(0, dst, msg)
+
+
+def _vec_width(d: int, *tensors: torch.Tensor) -> int:
+    """Floats per lane: float4 from D = 128, float2 from D = 64, so that a
+    warp's 32 lanes cover a row; the vector must divide D and both row
+    tables must be aligned to it."""
+    for vec, min_d in ((4, 128), (2, 64), (4, 4), (2, 2)):
+        if d % vec == 0 and d >= min_d and all(
+                t.data_ptr() % (4 * vec) == 0 for t in tensors):
+            return vec
+    return 1
+
+
+def gather_segment_sum(x: torch.Tensor, src: torch.Tensor,
+                       rowptr: torch.Tensor,
+                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[d] = sum_{e in [rowptr[d], rowptr[d+1])} x[src[e]] * scale[e]``.
+
+    Args:
+        x: float32 [rows, D] table; every ``src`` id must index a row.
+        src: int32 [E] gather ids in destination order.
+        rowptr: int32 [S+1] CSR row pointers over src (``rowptr[0] == 0``,
+            ``rowptr[-1] == E``, non-decreasing).
+        scale: optional float32 [E] per-edge weights.
+
+    Returns float32 [S, D]. On a CPU tensor this runs the plain version; on
+    a CUDA tensor it launches the kernel or raises. A CSR that breaks the
+    contract above raises ``ValueError`` on the CPU; on the card the kernel
+    stops on a device-side assert, reported at the next synchronise.
+    """
+    _check(x, src, rowptr, scale)
+    if x.device.type == "cpu":
+        _check_csr_ends(src, rowptr)
+        return gather_segment_sum_plain(x, src, rowptr, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (scale is not None and scale.requires_grad)):
+        raise NotImplementedError(
+            "gather_segment_sum has no CUDA backward yet (the transpose-graph "
+            "backward is still to port); call it under torch.no_grad()")
+    return launch(x, src, rowptr, scale)
+
+
+def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
+           scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that ``gather_segment_sum`` has
+    checked; counts the launch."""
+    s, d = rowptr.shape[0] - 1, x.shape[1]
+    out = torch.empty(s, d, dtype=torch.float32, device=x.device)
+    if s == 0:
+        return out
+    vec = _vec_width(d, x, out)
+    lib = _load()
+    with torch.cuda.device(x.device):
+        rc = lib.gather_segment_sum_f32(
+            x.data_ptr(), src.data_ptr(), rowptr.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            s, d, x.shape[0], src.shape[0], vec,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_segment_sum launch failed: CUDA error {rc}")
+    gather_segment_sum.launches += 1
+    return out
+
+
+gather_segment_sum.launches = 0

@@ -1,5 +1,7 @@
-"""Model configuration, shared field for field with the JAX package's
-``ModelConfig`` so that a config dict moves between the two unchanged."""
+"""Model and training configuration, shared field for field with the JAX
+package's ``ModelConfig`` and ``TrainConfig`` so that a config dict moves
+between the two unchanged (fields of the JAX package that the port does not
+read are dropped on the way in)."""
 
 from __future__ import annotations
 
@@ -38,5 +40,35 @@ class ModelConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters of the full-graph trainer.
+
+    Defaults mirror the reference CLI: adam, lr 1e-3, batch 1024, one
+    negative per positive, global-norm clip 1.0, no accumulation, a
+    periodic checkpoint every 10 epochs, no early stopping.
+    """
+
+    epochs: int = 100
+    batch_size: int = 1024
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    optimizer: str = "adam"  # "adam" | "adamw" | "sgd"
+    num_neg_samples: int = 1
+    grad_clip: float = 1.0
+    gradient_accumulation_steps: int = 1
+    save_every: int = 10
+    early_stopping: int = 0
+    seed: int = 42
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TrainConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})

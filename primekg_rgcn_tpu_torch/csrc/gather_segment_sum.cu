@@ -14,6 +14,13 @@
 // schedule (_build_schedule) has no counterpart here: the CSR is the whole
 // schedule, and any edge count and any D >= 1 are accepted.
 //
+// The same kernel serves the backward (GatherSegmentSum in
+// ops/cuda/segment_sum.py, the counterpart of make_gather_segment_sum's
+// custom VJP): over the bucket's transpose CSR, x is the gradient of the
+// forward's output, src the edges' destinations in source order, rowptr the
+// CSR over the source rows and scale the per-edge scales in that order, so
+// each edge carries its output row's gradient back to its source row.
+//
 // Design: one warp per destination row, lanes across D (VEC floats per
 // lane: float4 at D = 128, float2 at D = 64), float32 register accumulator.
 // The warp loads 32 edges' (src, scale) at a time with one coalesced load

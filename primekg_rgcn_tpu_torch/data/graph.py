@@ -12,8 +12,10 @@ Mean normalisation has two storage modes:
   transpose orders, multiplied into the messages; O(E) instead of O(R*N).
 
 Besides the arrays of the JAX package's ``RelGraph`` (kept bit for bit), the
-graph carries each bucket's CSR ``rowptr`` over its N+1 destination rows:
-the schedule of the CUDA gather + segment-sum kernel.
+graph carries each bucket's CSR ``rowptr`` over its N+1 destination rows,
+the schedule of the CUDA gather + segment-sum kernel in the forward, and
+the transpose CSR ``t_rowptr`` over its N+1 source rows, the schedule of the
+same kernel in the backward.
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ class RelGraph:
         rowptr: int32[R, N+2] per-bucket CSR row pointers, offsets into the
             bucket: the edges into row d of bucket r are
             ``rowptr[r, d] <= e < rowptr[r, d+1]``; row N collects padding.
+        t_rowptr: int32[R, N+2] the transpose CSR, offsets into the bucket's
+            ``t_src``/``t_dst``: the edges out of source row s are
+            ``t_rowptr[r, s] <= e < t_rowptr[r, s+1]``; row N collects
+            padding (``t_src`` pads with N, the largest id).
         rel_offsets: (R+1,) bucket start offsets into src/dst.
         num_nodes / num_relations / num_edges: sizes (``num_edges`` counts
             real, unpadded edges).
@@ -61,6 +67,7 @@ class RelGraph:
     edge_scale: torch.Tensor
     t_edge_scale: torch.Tensor
     rowptr: torch.Tensor
+    t_rowptr: torch.Tensor
     rel_offsets: Tuple[int, ...]
     num_nodes: int
     num_relations: int
@@ -86,7 +93,7 @@ class RelGraph:
     def to(self, device) -> "RelGraph":
         """The same graph with every array on ``device``."""
         names = ("src", "dst", "t_src", "t_dst", "inv_in_deg", "edge_scale",
-                 "t_edge_scale", "rowptr")
+                 "t_edge_scale", "rowptr", "t_rowptr")
         return replace(self, **{k: getattr(self, k).to(device)
                                 for k in names})
 
@@ -150,6 +157,7 @@ def build_rel_graph(
     t_src_pad = np.full(total, sentinel, dtype=np.int32)
     t_dst_pad = np.full(total, sentinel, dtype=np.int32)
     rowptr = np.zeros((num_relations, num_nodes + 2), dtype=np.int32)
+    t_rowptr = np.zeros((num_relations, num_nodes + 2), dtype=np.int32)
     if norm_mode == "dense":
         inv_deg = np.zeros((num_relations, num_nodes + 1), dtype=np.float32)
         edge_scale = np.zeros((0,), np.float32)
@@ -171,8 +179,9 @@ def build_rel_graph(
         t_order = np.argsort(bsrc, kind="stable")
         t_src_pad[start : start + c] = bsrc[t_order]
         t_dst_pad[start : start + c] = bdst[t_order]
-        rowptr[r] = np.searchsorted(dst_pad[start : offsets[r + 1]],
-                                    np.arange(num_nodes + 2))
+        rows = np.arange(num_nodes + 2)
+        rowptr[r] = np.searchsorted(dst_pad[start : offsets[r + 1]], rows)
+        t_rowptr[r] = np.searchsorted(t_src_pad[start : offsets[r + 1]], rows)
 
         deg = np.bincount(bdst, minlength=num_nodes + 1)
         if norm_mode == "dense":
@@ -197,6 +206,7 @@ def build_rel_graph(
         edge_scale=torch.from_numpy(edge_scale),
         t_edge_scale=torch.from_numpy(t_edge_scale),
         rowptr=torch.from_numpy(rowptr),
+        t_rowptr=torch.from_numpy(t_rowptr),
         rel_offsets=tuple(offsets),
         num_nodes=int(num_nodes),
         num_relations=int(num_relations),

@@ -9,8 +9,9 @@ the two packages leaf by leaf (``train/torch_interop.params_from_jax``):
      "decoder": {"rel_emb": [R, d_h]}}
 
 Architecture: node embedding table -> RGCN layer (d_emb -> d_h) -> ReLU ->
-Dropout (training only) -> RGCN layer (d_h -> d_h); DistMult decoder. The
-default config has 2,078,208 parameters, as the reference model.
+Dropout (training only) -> RGCN layer (d_h -> d_h); DistMult decoder, with
+optional dropout on the relation embeddings in training. The default config
+has 2,078,208 parameters, as the reference model.
 """
 
 from __future__ import annotations
@@ -80,34 +81,79 @@ def params_to(params: Params, device) -> Params:
     return params.to(device)
 
 
-def _leaves(params: Params):
+def param_leaves(params: Params):
+    """The parameter tensors of the nested dict, in insertion order."""
     if isinstance(params, dict):
         for v in params.values():
-            yield from _leaves(v)
+            yield from param_leaves(v)
     else:
         yield params
 
 
 def count_params(params: Params) -> int:
-    return sum(int(p.numel()) for p in _leaves(params))
+    return sum(int(p.numel()) for p in param_leaves(params))
+
+
+def dropout(x: torch.Tensor, rate: float, *,
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability ``1 - rate`` and
+    scale it by ``1/keep``. The keep ``mask`` (bool, x's shape) is drawn
+    from ``generator`` on x's device unless the caller passes it."""
+    keep = 1.0 - rate
+    if mask is None:
+        if generator is None:
+            raise ValueError("dropout needs a generator or a mask")
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), device=x.device))
 
 
 def encoder_apply(params: Params, graph: RelGraph, cfg: ModelConfig, *,
+                  train: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  mask: Optional[torch.Tensor] = None,
                   layer_fn=rgcn_layer_segment) -> torch.Tensor:
-    """Full-graph encode at inference: returns [N, hidden_dim] node
-    embeddings (embed -> conv1 -> ReLU -> conv2; dropout does not apply)."""
+    """Full-graph encode: [N, hidden_dim] node embeddings (embed -> conv1
+    -> ReLU -> dropout -> conv2). Dropout applies only with ``train``; its
+    keep mask comes from ``generator`` or is given as ``mask``."""
     enc = params["encoder"]
     x = layer_fn(enc["conv1"], enc["node_emb"], graph)
     x = torch.relu(x)
+    if train and cfg.dropout > 0.0:
+        x = dropout(x, cfg.dropout, generator=generator, mask=mask)
     return layer_fn(enc["conv2"], x, graph)
+
+
+def model_apply(params: Params, graph: RelGraph, heads, tails, rels,
+                cfg: ModelConfig, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                enc_mask: Optional[torch.Tensor] = None,
+                dec_mask: Optional[torch.Tensor] = None,
+                layer_fn=rgcn_layer_segment) -> torch.Tensor:
+    """Training forward: encode the whole graph, score a triple batch [B].
+
+    The encoder runs over the entire message-passing graph for every batch
+    and gradients flow through it. With ``train``, encoder dropout and
+    decoder dropout (on the gathered relation embeddings) apply, with masks
+    drawn from ``generator`` (encoder first) or given as
+    ``enc_mask``/``dec_mask``.
+    """
+    node_emb = encoder_apply(params, graph, cfg, train=train,
+                             generator=generator, mask=enc_mask,
+                             layer_fn=layer_fn)
+    rel_emb = params["decoder"]["rel_emb"][rels]
+    if train and cfg.decoder_dropout > 0.0:
+        rel_emb = dropout(rel_emb, cfg.decoder_dropout, generator=generator,
+                          mask=dec_mask)
+    return distmult_score(node_emb[heads], node_emb[tails], rel_emb)
 
 
 def predict(params: Params, graph: RelGraph, heads, tails, rels,
             cfg: ModelConfig, *, layer_fn=rgcn_layer_segment) -> torch.Tensor:
-    """Inference triple scoring [B]."""
-    node_emb = encoder_apply(params, graph, cfg, layer_fn=layer_fn)
-    rel_emb = params["decoder"]["rel_emb"][rels]
-    return distmult_score(node_emb[heads], node_emb[tails], rel_emb)
+    """Inference triple scoring [B] (no dropout)."""
+    return model_apply(params, graph, heads, tails, rels, cfg,
+                       layer_fn=layer_fn)
 
 
 def predict_all_tails(params: Params, graph: RelGraph, heads, rels,

@@ -10,6 +10,11 @@ The kernel source is ``primekg_rgcn_tpu_torch/csrc/gather_segment_sum.cu``;
 its header comment gives the design and what bounds it on the H100 (memory
 bytes). It is built with ``nvcc`` for ``sm_90a`` at first use into
 ``primekg_rgcn_tpu_torch/_build/`` and bound through ``ctypes``.
+
+``GatherSegmentSum`` is the differentiable form, the counterpart of the
+``jax.custom_vjp`` in ``primekg_rgcn_tpu/ops/rgcn_segment.py``
+(``make_gather_segment_sum``): its backward is the same kernel over the
+transpose CSR, so the gradient is a sorted gather + segment-sum too.
 """
 
 from __future__ import annotations
@@ -171,16 +176,18 @@ def gather_segment_sum(x: torch.Tensor, src: torch.Tensor,
     stops on a device-side assert, reported at the next synchronise.
     """
     _check(x, src, rowptr, scale)
+    if scale is not None and scale.requires_grad:
+        raise ValueError("scale is a constant of the graph and must not "
+                         "require a gradient")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(
+            "gather_segment_sum records no gradient; differentiate through "
+            "GatherSegmentSum.apply with the transpose CSR")
     if x.device.type == "cpu":
         _check_csr_ends(src, rowptr)
         return gather_segment_sum_plain(x, src, rowptr, scale)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if torch.is_grad_enabled() and (
-            x.requires_grad or (scale is not None and scale.requires_grad)):
-        raise NotImplementedError(
-            "gather_segment_sum has no CUDA backward yet (the transpose-graph "
-            "backward is still to port); call it under torch.no_grad()")
     return launch(x, src, rowptr, scale)
 
 
@@ -207,3 +214,37 @@ def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
 
 
 gather_segment_sum.launches = 0
+
+
+Csr = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+
+
+class GatherSegmentSum(torch.autograd.Function):
+    """``gather_segment_sum`` with its transpose-graph gradient.
+
+    ``forward(x, fwd, bwd)`` with ``fwd = (src, rowptr, scale)`` over the
+    destination-sorted edges and ``bwd = (t_ids, t_rowptr, t_scale)`` the
+    same edges sorted by source: ``t_ids`` are their destinations (the rows
+    of the gradient to gather), ``t_rowptr`` the CSR over the source rows
+    and ``t_scale`` their per-edge scales in that order. The gradient of x
+    is ``gather_segment_sum(g, t_ids, t_rowptr, t_scale)``: each edge carries
+    its output row's gradient back to its source row, as
+    ``make_gather_segment_sum``'s VJP does in the JAX package. The index
+    arrays and scales are constants; only x gets a gradient. On the CPU
+    both directions run the plain version, on the card both launch the
+    kernel (and count).
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, fwd: Csr, bwd: Csr) -> torch.Tensor:
+        # gather_segment_sum checks the forward scale; the backward's is
+        # checked here, before it is needed.
+        if bwd[2] is not None and bwd[2].requires_grad:
+            raise ValueError("scale is a constant of the graph and must not "
+                             "require a gradient")
+        ctx.bwd = bwd
+        return gather_segment_sum(x, *fwd)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return gather_segment_sum(g.contiguous(), *ctx.bwd), None, None

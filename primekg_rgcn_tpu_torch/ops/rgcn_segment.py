@@ -2,17 +2,20 @@
 one fused gather + sorted segment-sum per relation bucket (the CUDA kernel
 in ``ops/cuda/segment_sum.py``, or its plain version on the CPU).
 
+- **Transpose-graph backward.** Each bucket's aggregation goes through
+  ``GatherSegmentSum``, whose backward is the same kernel over the bucket's
+  transpose CSR (edges sorted by source), as the JAX package's custom VJP
+  does: the gradient is a sorted gather + segment-sum, not a scatter.
 - **Aggregation order picked per layer.** mean_r(X) @ W_r == mean_r(X @ W_r)
   (the mean is linear), so the layer aggregates in the narrower of Din and
-  Dout: both serving layers (64 -> 128, 128 -> 128) aggregate first.
+  Dout: both default layers (64 -> 128, 128 -> 128) aggregate first.
 - **Sentinel padding.** Padding edges gather the all-zero dummy row N and
   land in the dummy output row, which is dropped.
 - **Mean normalisation.** Dense mode multiplies the aggregate by the
   ``1/in-degree`` table after the sum; edge mode passes the per-edge scale
-  into the kernel, which multiplies each gathered row.
-
-Forward only: the transpose-graph backward is still to port, so the CUDA
-wrapper refuses inputs that require a gradient.
+  into the kernel, which multiplies each gathered row. The matmuls, the
+  dense-mode multiply and the padding stay outside the Function, where
+  autograd differentiates them.
 """
 
 from __future__ import annotations
@@ -22,15 +25,32 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
-from primekg_rgcn_tpu_torch.ops.cuda.segment_sum import gather_segment_sum
+from primekg_rgcn_tpu_torch.ops.cuda.segment_sum import (
+    GatherSegmentSum, gather_segment_sum_plain)
 
 
 class AggOp(NamedTuple):
-    """One relation bucket's operands for ``gather_segment_sum``."""
+    """One relation bucket's operands for ``GatherSegmentSum``."""
 
     src: torch.Tensor               # int32[E_b], destination order
-    rowptr: torch.Tensor            # int32[N+2], CSR over N+1 rows
+    rowptr: torch.Tensor            # int32[N+2], CSR over N+1 dst rows
     scale: Optional[torch.Tensor]   # float32[E_b] in edge mode, else None
+    t_ids: torch.Tensor             # int32[E_b] destinations, source order
+    t_rowptr: torch.Tensor          # int32[N+2], CSR over N+1 src rows
+    t_scale: Optional[torch.Tensor]  # float32[E_b] in edge mode, else None
+
+
+def aggregate(x: torch.Tensor, op: AggOp) -> torch.Tensor:
+    """The bucket's gather + segment-sum of x [N+1, D], differentiable in x
+    through the transpose CSR (the kernel both ways on a CUDA tensor)."""
+    return GatherSegmentSum.apply(x, (op.src, op.rowptr, op.scale),
+                                  (op.t_ids, op.t_rowptr, op.t_scale))
+
+
+def aggregate_plain(x: torch.Tensor, op: AggOp) -> torch.Tensor:
+    """The same function through the plain version, differentiated by
+    autograd (index_add_ forward, gather + index_put backward)."""
+    return gather_segment_sum_plain(x, op.src, op.rowptr, op.scale)
 
 
 def materialize_relation_weights(
@@ -53,8 +73,11 @@ def build_layer_agg_ops(graph: RelGraph) -> List[Optional[AggOp]]:
         if e == s:
             ops.append(None)
             continue
-        ops.append(AggOp(src=graph.src[s:e], rowptr=graph.rowptr[r],
-                         scale=graph.edge_scale[s:e] if edge_norm else None))
+        ops.append(AggOp(
+            src=graph.src[s:e], rowptr=graph.rowptr[r],
+            scale=graph.edge_scale[s:e] if edge_norm else None,
+            t_ids=graph.t_dst[s:e], t_rowptr=graph.t_rowptr[r],
+            t_scale=graph.t_edge_scale[s:e] if edge_norm else None))
     return ops
 
 
@@ -64,7 +87,7 @@ def rgcn_layer_segment(
     graph: RelGraph,
     *,
     agg_ops: Optional[List[Optional[AggOp]]] = None,
-    agg_fn=gather_segment_sum,
+    agg_fn=aggregate,
 ) -> torch.Tensor:
     """Relation-typed mean-aggregated graph convolution over a RelGraph.
 
@@ -74,8 +97,9 @@ def rgcn_layer_segment(
             graph's device.
         graph: relation-bucketed graph.
         agg_ops: optional prebuilt operands from :func:`build_layer_agg_ops`.
-        agg_fn: the per-bucket gather + segment-sum; the default launches the
-            CUDA kernel on a CUDA tensor.
+        agg_fn: the per-bucket gather + segment-sum ``agg_fn(x_pad, op)``;
+            the default launches the CUDA kernel on a CUDA tensor, forward
+            and backward.
 
     Returns:
         float32 [N, Dout] updated node features.
@@ -98,19 +122,17 @@ def rgcn_layer_segment(
         if edge_norm:
             # Messages are scaled by 1/deg(dst) per edge; no table.
             if aggregate_first:
-                out = out + agg_fn(x_pad, op.src, op.rowptr, op.scale)[:n] @ w_rel[r]
+                out = out + agg_fn(x_pad, op)[:n] @ w_rel[r]
             else:
-                out = out + agg_fn((x_pad @ w_rel[r]).contiguous(), op.src,
-                                   op.rowptr, op.scale)[:n]
+                out = out + agg_fn((x_pad @ w_rel[r]).contiguous(), op)[:n]
             continue
         inv_deg = graph.inv_in_deg[r][:n, None]
         if aggregate_first:
             # mean_r(x) @ W_r : gather bandwidth scales with Din.
-            agg = agg_fn(x_pad, op.src, op.rowptr, None)[:n]
+            agg = agg_fn(x_pad, op)[:n]
             out = out + (agg * inv_deg) @ w_rel[r]
         else:
             # mean_r(x @ W_r) : gather bandwidth scales with Dout.
-            agg = agg_fn((x_pad @ w_rel[r]).contiguous(), op.src, op.rowptr,
-                         None)[:n]
+            agg = agg_fn((x_pad @ w_rel[r]).contiguous(), op)[:n]
             out = out + agg * inv_deg
     return out

@@ -1,4 +1,11 @@
-"""Checkpoint loading for the port: reference-layout ``.pt`` files only.
+"""Checkpoints of the port: reference-layout ``.pt`` files only.
+
+The trainer writes the reference's layout (``model_state_dict`` as PyG's
+RGCNConv keeps it, ``optimizer_state_dict``, ``epoch``, ``best_val_loss``,
+``best_val_acc``, ``history``, ``args`` as an ``argparse.Namespace``) plus
+``model_config`` and ``train_config`` as plain dicts and the random
+generators' states as tensors. The pickle holds nothing of this package,
+so the JAX package's ``checkpoint.load`` reads the file as it stands.
 
 The JAX package's own format (``path.msgpack`` + ``path.json``) needs flax
 to read. Convert such a checkpoint once with
@@ -7,10 +14,17 @@ to read. Convert such a checkpoint once with
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Any, Dict
 
-from primekg_rgcn_tpu_torch.train.torch_interop import load_reference_pt
+import torch
+
+from primekg_rgcn_tpu_torch.train.torch_interop import reference_from_blob
+
+# Entries of a trainer checkpoint that ``load`` passes through when present.
+TRAINER_KEYS = ("history", "optimizer_state_dict", "train_config",
+                "rng_state", "device_rng_state")
 
 
 def is_torch_checkpoint(path: Path) -> bool:
@@ -24,11 +38,27 @@ def is_torch_checkpoint(path: Path) -> bool:
     return magic in (b"PK", b"\x80\x02")
 
 
+def save(path, payload: Dict[str, Any]) -> None:
+    """Write ``payload`` with ``torch.save``, atomically: to a temporary
+    file beside ``path``, then ``os.replace``, so that a run killed while
+    saving leaves the previous file whole."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def load(path, *, device="cpu") -> Dict[str, Any]:
     """Read a reference-layout ``.pt`` checkpoint.
 
     Returns {"params", "model_config" (dict), "epoch", "best_val_loss",
-    "best_val_acc"} with the parameters on ``device``.
+    "best_val_acc"} with the parameters on ``device``, and the entries of
+    ``TRAINER_KEYS`` that the file holds (on the CPU). The file is a
+    pickle: load only trusted checkpoints.
     """
     path = Path(path)
     if not is_torch_checkpoint(path):
@@ -37,11 +67,15 @@ def load(path, *, device="cpu") -> Dict[str, Any]:
             "of the JAX package (path.msgpack + path.json) converts with: "
             "python -m primekg_rgcn_tpu.train.torch_interop export "
             f"{path} out.pt")
-    params, cfg, meta = load_reference_pt(path, device=device)
-    return {
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    params, cfg, meta = reference_from_blob(blob, device=device)
+    out = {
         "params": params,
         "model_config": cfg.to_dict(),
         "epoch": meta.get("epoch", 0),
         "best_val_loss": meta.get("best_val_loss", float("inf")),
         "best_val_acc": meta.get("best_val_acc", 0.0),
     }
+    if isinstance(blob, dict):
+        out.update({k: blob[k] for k in TRAINER_KEYS if k in blob})
+    return out

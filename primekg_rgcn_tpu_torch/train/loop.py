@@ -1,0 +1,427 @@
+"""Full-graph training on one device: optimizer, loss, step, epochs and the
+Trainer.
+
+The counterpart of ``primekg_rgcn_tpu/train/loop.py``. There an epoch is one
+jitted ``lax.scan``; here PyTorch runs eagerly, so an epoch is a Python loop
+of steps, but what the JAX host sees is kept: shuffling, negative sampling,
+the full-graph encode, the BCE loss, gradient accumulation, clipping and
+the optimizer update all stay on the device, and the host reads one
+(loss, accuracy) pair per epoch, with no ``.item()`` per step.
+
+Semantics kept from the JAX package:
+
+- every batch differentiates through the full-graph encoder forward; the
+  encoder's gradient goes through kernel B1's transpose-graph backward;
+- the last partial batch is padded with a sentinel edge index of weight 0,
+  so its loss is the mean over its real rows only;
+- gradient accumulation averages the micro-batch gradients before the clip
+  and the step;
+- the global-norm clip has no epsilon (``optax.clip_by_global_norm``);
+- adam with weight decay is coupled L2 (``torch.optim.Adam``), adamw is
+  decoupled (``torch.optim.AdamW``), sgd is plain; eps 1e-8, betas
+  (0.9, 0.999), as optax's defaults;
+- validation encodes the full graph once and scores every batch against the
+  cached embeddings.
+
+Random numbers come from two explicit generators: one on the CPU (the
+initial parameters and each epoch's permutation, the same on any device for
+a seed) and one on the training device (negatives and dropout masks).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
+from primekg_rgcn_tpu_torch.data.graph import RelGraph
+from primekg_rgcn_tpu_torch.device import resolve_device
+from primekg_rgcn_tpu_torch.models.rgcn import (Params, encoder_apply,
+                                                init_params, model_apply,
+                                                param_leaves)
+from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
+from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
+from primekg_rgcn_tpu_torch.train import checkpoint as ckpt_lib
+from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
+                                                       candidate_batch)
+from primekg_rgcn_tpu_torch.train.torch_interop import state_dict_from_params
+from primekg_rgcn_tpu_torch.utils.telemetry import (MetricsLogger,
+                                                    device_memory_stats)
+
+logger = logging.getLogger(__name__)
+
+# (heads, tails, rels, labels, weights) of one scoring batch.
+Candidates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                   torch.Tensor]
+
+
+def make_optimizer(cfg: TrainConfig, params: Params) -> torch.optim.Optimizer:
+    """The optimizer over the parameter leaves, matching the JAX package's
+    optax chain (the clip is :func:`clip_by_global_norm_`, applied by
+    :func:`apply_update` before the step)."""
+    leaves = list(param_leaves(params))
+    adam = dict(lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "adam":
+        # Coupled L2: decay joins the gradient before the moments, as
+        # add_decayed_weights before scale_by_adam.
+        return torch.optim.Adam(leaves, **adam)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(leaves, **adam)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(leaves, lr=cfg.lr,
+                               weight_decay=cfg.weight_decay)
+    raise ValueError(f"Unknown optimizer: {cfg.optimizer}")
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place by ``max_norm / norm`` where their global L2
+    norm exceeds ``max_norm``, with no epsilon, as
+    ``optax.clip_by_global_norm`` (``torch.nn.utils.clip_grad_norm_``
+    divides by ``norm + 1e-6``). Returns the norm as a 0-d tensor on the
+    device, without a host synchronise."""
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    factor = torch.where(norm > max_norm, max_norm / norm,
+                         torch.ones_like(norm))
+    for g in grads:
+        g.mul_(factor)
+    return norm
+
+
+def edges_with_sentinel(edges: np.ndarray, device) -> torch.Tensor:
+    """[E+1, 3] int64 (head, tail, rel) rows on ``device``; row E is the
+    sentinel that padded batch slots index (weight 0)."""
+    pad = np.concatenate([np.asarray(edges, np.int64),
+                          np.zeros((1, 3), np.int64)], axis=0)
+    return torch.from_numpy(pad).to(device)
+
+
+def sample_candidates(edges_pad: torch.Tensor, batch_idx: torch.Tensor,
+                      num_nodes: int, num_neg_samples: int, *,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Candidates:
+    """The batch's positives (slots equal to E are padding) and their
+    negatives, as ``candidate_batch`` lays them out."""
+    mask = batch_idx < edges_pad.shape[0] - 1
+    batch = edges_pad[batch_idx]
+    return candidate_batch(batch[:, 0], batch[:, 1], batch[:, 2], num_nodes,
+                           num_neg_samples, mask=mask, generator=generator)
+
+
+def loss_from_candidates(params: Params, graph: RelGraph, heads, tails, rels,
+                         labels, weights, model_cfg: ModelConfig, *,
+                         train: bool,
+                         generator: Optional[torch.Generator] = None,
+                         enc_mask: Optional[torch.Tensor] = None,
+                         dec_mask: Optional[torch.Tensor] = None,
+                         layer_fn=rgcn_layer_segment):
+    """Masked BCE-with-logits loss of one candidate batch through the
+    full-graph model: (loss_mean, (correct, count)), all 0-d tensors."""
+    scores = model_apply(params, graph, heads, tails, rels, model_cfg,
+                         train=train, generator=generator, enc_mask=enc_mask,
+                         dec_mask=dec_mask, layer_fn=layer_fn)
+    loss_sum, correct, count = bce_stats(scores, labels, weights)
+    return loss_sum / count.clamp(min=1.0), (correct, count)
+
+
+def update_step(params: Params, optimizer: torch.optim.Optimizer,
+                graph: RelGraph, micro_batches: Sequence[Candidates],
+                model_cfg: ModelConfig, train_cfg: TrainConfig, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One optimizer update over the micro-batches: the mean of their loss
+    gradients, clipped by global norm, then the optimizer step. The
+    gradient that was applied stays in each leaf's ``.grad``.
+
+    Returns [loss * count, correct, count] summed over the micro-batches,
+    on the device."""
+    optimizer.zero_grad(set_to_none=True)
+    stats = torch.zeros(3, device=graph.src.device)
+    for cands in micro_batches:
+        loss, (correct, count) = loss_from_candidates(
+            params, graph, *cands, model_cfg, train=True,
+            generator=generator)
+        loss.backward()
+        stats += torch.stack([loss.detach() * count, correct, count])
+    apply_update(optimizer, train_cfg, accum=len(micro_batches))
+    return stats
+
+
+def apply_update(optimizer: torch.optim.Optimizer, train_cfg: TrainConfig,
+                 accum: int = 1) -> None:
+    """Divide the summed ``.grad`` of ``accum`` micro-batches by ``accum``,
+    clip it by global norm (when ``grad_clip`` > 0) and take the optimizer
+    step."""
+    grads = [p.grad for group in optimizer.param_groups
+             for p in group["params"] if p.grad is not None]
+    if accum > 1:
+        for g in grads:
+            g.div_(accum)
+    if train_cfg.grad_clip and train_cfg.grad_clip > 0:
+        clip_by_global_norm_(grads, train_cfg.grad_clip)
+    optimizer.step()
+
+
+def train_step(params: Params, optimizer: torch.optim.Optimizer,
+               graph: RelGraph, edges_pad: torch.Tensor,
+               batch_indices: torch.Tensor, model_cfg: ModelConfig,
+               train_cfg: TrainConfig, *,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The step ``bench.py`` times: candidates for each micro-batch row of
+    ``batch_indices`` [accum, B] (indices into ``edges_pad``), then
+    :func:`update_step`. Returns its stats tensor; nothing is read back to
+    the host."""
+    micro = [sample_candidates(edges_pad, bi, graph.num_nodes,
+                               train_cfg.num_neg_samples, generator=generator)
+             for bi in batch_indices]
+    return update_step(params, optimizer, graph, micro, model_cfg, train_cfg,
+                       generator=generator)
+
+
+def build_train_epoch(graph: RelGraph, edges: np.ndarray,
+                      model_cfg: ModelConfig, train_cfg: TrainConfig,
+                      params: Params, optimizer: torch.optim.Optimizer):
+    """One training epoch over ``edges`` ([E, 3] real train edges) on the
+    graph's device. Returns ``epoch_fn(host_gen, device_gen) -> (loss,
+    acc)``, 0-d tensors on the device; the permutation comes from
+    ``host_gen`` (CPU), negatives and dropout from ``device_gen``."""
+    device = graph.src.device
+    num_edges = int(edges.shape[0])
+    b = train_cfg.batch_size
+    accum = max(int(train_cfg.gradient_accumulation_steps), 1)
+    n_steps = -(-num_edges // b)
+    n_updates = -(-n_steps // accum)
+    pad = n_updates * accum * b - num_edges
+    edges_pad = edges_with_sentinel(edges, device)
+
+    def epoch_fn(host_gen: torch.Generator, device_gen: torch.Generator):
+        perm = torch.randperm(num_edges, generator=host_gen)
+        perm = torch.cat([perm, torch.full((pad,), num_edges)])
+        batch_indices = perm.view(n_updates, accum, b).to(device)
+        stats = torch.zeros(3, device=device)
+        for u in range(n_updates):
+            stats += train_step(params, optimizer, graph, edges_pad,
+                                batch_indices[u], model_cfg, train_cfg,
+                                generator=device_gen)
+        return stats[0] / stats[2], stats[1] / stats[2]
+
+    return epoch_fn
+
+
+def build_eval_epoch(graph: RelGraph, edges: np.ndarray,
+                     model_cfg: ModelConfig, train_cfg: TrainConfig):
+    """A validation epoch: no shuffle, no dropout, one full-graph encode,
+    then every batch of ``edges`` with its sampled negatives scored against
+    the cached embeddings. Returns ``eval_fn(params, generator) -> (loss,
+    acc)``, 0-d tensors on the graph's device."""
+    device = graph.src.device
+    num_edges = int(edges.shape[0])
+    b = train_cfg.batch_size
+    n_steps = -(-num_edges // b)
+    edges_pad = edges_with_sentinel(edges, device)
+    idx = torch.cat([torch.arange(num_edges),
+                     torch.full((n_steps * b - num_edges,), num_edges)])
+    idx = idx.view(n_steps, b).to(device)
+
+    def eval_fn(params: Params, generator: torch.Generator):
+        stats = torch.zeros(3, device=device)
+        with torch.no_grad():
+            node_emb = encoder_apply(params, graph, model_cfg)
+            rel_table = params["decoder"]["rel_emb"]
+            for batch_idx in idx:
+                heads, tails, rels, labels, weights = sample_candidates(
+                    edges_pad, batch_idx, graph.num_nodes,
+                    train_cfg.num_neg_samples, generator=generator)
+                scores = distmult_score(node_emb[heads], node_emb[tails],
+                                        rel_table[rels])
+                stats += torch.stack(bce_stats(scores, labels, weights))
+        return stats[0] / stats[2], stats[1] / stats[2]
+
+    return eval_fn
+
+
+def _copy_params_(dst: Params, src: Params) -> None:
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_params_(v, src[k])
+        else:
+            v.copy_(src[k])
+
+
+class Trainer:
+    """Epochs, validation, checkpoints, early stopping and resume.
+
+    Checkpoints are reference-layout ``.pt`` files (``train/checkpoint``):
+    ``models/best_model.pt`` on each new best validation loss,
+    ``checkpoints/checkpoint_epoch_{n}.pt`` every ``save_every`` epochs and
+    ``models/final_model.pt`` at the end. Each epoch appends one event to
+    ``metrics.jsonl``.
+    """
+
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                 train_graph: RelGraph, full_graph: RelGraph,
+                 train_edges: np.ndarray, val_edges: np.ndarray,
+                 output_dir, *, device="cuda",
+                 args: Optional[argparse.Namespace] = None):
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.output_dir = Path(output_dir)
+        self.checkpoint_dir = self.output_dir / "checkpoints"
+        self.model_dir = self.output_dir / "models"
+        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self.model_dir.mkdir(parents=True, exist_ok=True)
+        # The reference's checkpoints carry the CLI namespace; a Trainer
+        # built without the CLI records the model's dimensions there.
+        self.args = args or argparse.Namespace(
+            embedding_dim=model_cfg.embedding_dim,
+            hidden_dim=model_cfg.hidden_dim, dropout=model_cfg.dropout,
+            decoder_dropout=model_cfg.decoder_dropout,
+            num_bases=model_cfg.num_bases)
+
+        self.host_gen = torch.Generator().manual_seed(train_cfg.seed)
+        self.params = init_params(self.host_gen, model_cfg,
+                                  device=self.device)
+        for p in param_leaves(self.params):
+            p.requires_grad_(True)
+        self.device_gen = torch.Generator(self.device).manual_seed(
+            int(torch.randint(2 ** 62, (1,), generator=self.host_gen)))
+        self.optimizer = make_optimizer(train_cfg, self.params)
+
+        self.train_epoch_fn = build_train_epoch(
+            train_graph.to(self.device), train_edges, model_cfg, train_cfg,
+            self.params, self.optimizer)
+        self.eval_epoch_fn = build_eval_epoch(
+            full_graph.to(self.device), val_edges, model_cfg, train_cfg)
+
+        self.best_val_loss = float("inf")
+        self.best_val_acc = 0.0
+        self.history: Dict[str, List[float]] = {
+            "train_losses": [], "val_losses": [],
+            "train_accs": [], "val_accs": [],
+        }
+        self.epoch = 0
+        self.num_train_edges = int(train_edges.shape[0])
+        self.metrics = MetricsLogger(self.output_dir / "metrics.jsonl")
+
+    # -- checkpoint plumbing -------------------------------------------------
+    def _checkpoint_payload(self) -> Dict[str, Any]:
+        return {
+            "model_state_dict": state_dict_from_params(self.params),
+            "optimizer_state_dict": self.optimizer.state_dict(),
+            "epoch": self.epoch,
+            "best_val_loss": self.best_val_loss,
+            "best_val_acc": self.best_val_acc,
+            "history": self.history,
+            "args": self.args,
+            "model_config": self.model_cfg.to_dict(),
+            "train_config": self.train_cfg.to_dict(),
+            # Generator positions, so a resumed run continues the streams
+            # instead of replaying earlier epochs' shuffles and negatives.
+            "rng_state": self.host_gen.get_state(),
+            "device_rng_state": self.device_gen.get_state(),
+        }
+
+    def save_checkpoint(self, *, is_best=False, is_final=False):
+        payload = self._checkpoint_payload()
+        if is_final:
+            ckpt_lib.save(self.model_dir / "final_model.pt", payload)
+        elif is_best:
+            ckpt_lib.save(self.model_dir / "best_model.pt", payload)
+        else:
+            ckpt_lib.save(self.checkpoint_dir /
+                          f"checkpoint_epoch_{self.epoch}.pt", payload)
+
+    def resume(self, path) -> None:
+        payload = ckpt_lib.load(path, device=self.device)
+        with torch.no_grad():
+            _copy_params_(self.params, payload["params"])
+        self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        self.epoch = payload["epoch"]
+        self.best_val_loss = payload["best_val_loss"]
+        self.best_val_acc = payload["best_val_acc"]
+        self.history = payload["history"]
+        if "rng_state" in payload:
+            self.host_gen.set_state(payload["rng_state"])
+            self.device_gen.set_state(payload["device_rng_state"])
+
+    # -- main loop -----------------------------------------------------------
+    def train(self) -> Dict[str, Any]:
+        cfg = self.train_cfg
+        logger.info("Starting training for %d epochs (batch %d, lr %g) on %s",
+                    cfg.epochs, cfg.batch_size, cfg.lr, self.device)
+        t0 = time.time()
+        epoch_times = []
+        for epoch in range(self.epoch + 1, cfg.epochs + 1):
+            self.epoch = epoch
+            te = time.time()
+            tr_loss, tr_acc = self.train_epoch_fn(self.host_gen,
+                                                  self.device_gen)
+            val_loss, val_acc = self.eval_epoch_fn(self.params,
+                                                   self.device_gen)
+            # The one host read of the epoch.
+            tr_loss, tr_acc, val_loss, val_acc = torch.stack(
+                [tr_loss, tr_acc, val_loss, val_acc]).tolist()
+            epoch_time = time.time() - te
+            epoch_times.append(epoch_time)
+
+            self.history["train_losses"].append(tr_loss)
+            self.history["val_losses"].append(val_loss)
+            self.history["train_accs"].append(tr_acc)
+            self.history["val_accs"].append(val_acc)
+
+            edges_per_s = self.num_train_edges / max(epoch_time, 1e-9)
+            logger.info(
+                "Epoch %d/%d | Time: %.2fs | Train Loss: %.4f | Train Acc: "
+                "%.4f | Val Loss: %.4f | Val Acc: %.4f | %.0f edges/s",
+                epoch, cfg.epochs, epoch_time, tr_loss, tr_acc, val_loss,
+                val_acc, edges_per_s)
+            self.metrics.log(
+                "epoch", epoch=epoch, train_loss=tr_loss, train_acc=tr_acc,
+                val_loss=val_loss, val_acc=val_acc,
+                epoch_time_s=round(epoch_time, 3),
+                edges_per_s=round(edges_per_s, 1),
+                **{f"mem_{k}": v
+                   for k, v in device_memory_stats(self.device).items()})
+
+            is_best = val_loss < self.best_val_loss
+            if is_best:
+                self.best_val_loss = val_loss
+            self.best_val_acc = max(self.best_val_acc, val_acc)
+            # The periodic snapshot is written on its schedule whether or
+            # not the epoch is also a new best, so resume points have no
+            # gaps.
+            if epoch % cfg.save_every == 0:
+                self.save_checkpoint()
+            if is_best:
+                self.save_checkpoint(is_best=True)
+
+            # Reference quirk kept for parity: the window compares against
+            # its own first element, so patience 1 always stops at the first
+            # eligible epoch.
+            if cfg.early_stopping > 0 and \
+                    len(self.history["val_losses"]) > cfg.early_stopping:
+                recent = self.history["val_losses"][-cfg.early_stopping:]
+                if all(r >= recent[0] for r in recent):
+                    logger.info("Early stopping at epoch %d", epoch)
+                    break
+
+        total = time.time() - t0
+        logger.info("Training completed in %.2fs (best val loss %.4f)",
+                    total, self.best_val_loss)
+        self.save_checkpoint(is_final=True)
+        self.metrics.close()
+        return {
+            "total_time_s": total,
+            "epoch_times_s": epoch_times,
+            "best_val_loss": self.best_val_loss,
+            "best_val_acc": self.best_val_acc,
+            "history": self.history,
+        }

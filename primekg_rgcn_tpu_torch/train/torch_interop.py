@@ -105,6 +105,12 @@ def load_reference_pt(path, *, device="cpu"
     pickle: load only trusted checkpoints.
     """
     blob = torch.load(path, map_location="cpu", weights_only=False)
+    return reference_from_blob(blob, device=device)
+
+
+def reference_from_blob(blob, *, device="cpu"
+                        ) -> Tuple[Params, ModelConfig, Dict[str, Any]]:
+    """:func:`load_reference_pt` on an already unpickled checkpoint."""
     if isinstance(blob, dict) and "model_state_dict" in blob:
         sd = blob["model_state_dict"]
         meta = {k: v for k, v in blob.items() if k != "model_state_dict"}

@@ -1,0 +1,114 @@
+"""Observability: a JSONL metrics stream, device memory counters and a
+profiler trace scope.
+
+- MetricsLogger: one JSON object per line beside the human-readable log,
+  so training curves are machine-readable.
+- device_memory_stats: the CUDA caching allocator's counters.
+- profile_trace: a ``torch.profiler`` scope (CPU and, on a card, CUDA
+  activity) that writes a Chrome trace, ``trace.json``, into its directory.
+- trace_breakdown: device time by kind and the idle share read from such a
+  trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics stream."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._f = open(self.path, "a")
+
+    def log(self, event: str, **fields: Any) -> None:
+        rec = {"event": event, "time": time.time(), **fields}
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def device_memory_stats(device) -> Dict[str, int]:
+    """Bytes in use, their high-water mark and the card's memory for a CUDA
+    device; {} for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    return {
+        "bytes_in_use": int(torch.cuda.memory_allocated(device)),
+        "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(device)),
+        "bytes_limit": int(torch.cuda.get_device_properties(device).total_memory),
+    }
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir):
+    """``torch.profiler`` scope; on exit the trace goes to
+    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing).
+    ``log_dir=None`` turns it off."""
+    if log_dir is None:
+        yield None
+        return
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(log_dir / "trace.json"))
+
+
+def _kind(event: Dict[str, Any]) -> str:
+    name = event["name"].lower()
+    if event["cat"] != "kernel":
+        return "memcpy_memset"
+    if "gather_segment_sum" in name:
+        return "gather_segment_sum"
+    if any(k in name for k in ("gemm", "cutlass", "xmma", "cublas")):
+        return "matmul"
+    if "multi_tensor_apply" in name or "adam" in name:
+        return "optimizer"
+    return "other"
+
+
+def trace_breakdown(path) -> Optional[Dict[str, Any]]:
+    """Device time by kind and the idle share of a ``profile_trace`` Chrome
+    trace: busy is the union of kernel, memcpy and memset intervals, the
+    window runs from the first device event's start to the last one's end.
+    Times in microseconds; None when the trace holds no device events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return None
+    by_kind: Dict[str, float] = {}
+    by_name: Dict[str, float] = {}
+    for e in dev:
+        by_kind[_kind(e)] = by_kind.get(_kind(e), 0.0) + e["dur"]
+        by_name[e["name"][:90]] = by_name.get(e["name"][:90], 0.0) + e["dur"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"window_us": window, "busy_us": busy,
+            "idle_share": 1.0 - busy / window, "device_events": len(dev),
+            "us_by_kind": by_kind, "top_kernels_us": dict(top)}

@@ -1,0 +1,68 @@
+"""The port's telemetry: the profiler scope and the reading of its trace."""
+
+import json
+
+import torch
+
+from primekg_rgcn_tpu_torch.utils.telemetry import (MetricsLogger,
+                                                    device_memory_stats,
+                                                    profile_trace,
+                                                    trace_breakdown)
+
+
+def _write_trace(path, events):
+    path.write_text(json.dumps({"traceEvents": events}))
+    return path
+
+
+def test_trace_breakdown_kinds_and_idle(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "gather_segment_sum_kernel",
+         "ts": 0.0, "dur": 10.0},
+        {"ph": "X", "cat": "kernel", "name": "sm90_xmma_gemm_f32",
+         "ts": 5.0, "dur": 10.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD",
+         "ts": 30.0, "dur": 5.0},
+        {"ph": "X", "cat": "kernel", "name": "multi_tensor_apply_kernel",
+         "ts": 40.0, "dur": 2.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm",
+         "ts": 0.0, "dur": 100.0},
+    ]
+    got = trace_breakdown(_write_trace(tmp_path / "t.json", events))
+    # Busy is the union of device intervals: [0, 15], [30, 35], [40, 42].
+    assert got["busy_us"] == 22.0
+    assert got["window_us"] == 42.0
+    assert abs(got["idle_share"] - 20.0 / 42.0) < 1e-12
+    assert got["device_events"] == 4
+    assert got["us_by_kind"] == {"gather_segment_sum": 10.0, "matmul": 10.0,
+                                 "memcpy_memset": 5.0, "optimizer": 2.0}
+
+
+def test_trace_breakdown_without_device_events(tmp_path):
+    events = [{"ph": "X", "cat": "cpu_op", "name": "aten::add",
+               "ts": 0.0, "dur": 3.0}]
+    assert trace_breakdown(_write_trace(tmp_path / "t.json", events)) is None
+
+
+def test_profile_trace_writes_cpu_trace(tmp_path):
+    with profile_trace(tmp_path / "prof") as prof:
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    assert prof is not None
+    assert (tmp_path / "prof" / "trace.json").exists()
+    # A CPU-only trace holds no device events.
+    assert trace_breakdown(tmp_path / "prof" / "trace.json") is None
+
+
+def test_profile_trace_off_without_dir():
+    with profile_trace(None) as prof:
+        torch.ones(2) + 1
+    assert prof is None
+
+
+def test_metrics_logger_and_cpu_memory_stats(tmp_path):
+    log = MetricsLogger(tmp_path / "m.jsonl")
+    log.log("epoch", epoch=1, loss=0.5)
+    log.close()
+    rec = json.loads((tmp_path / "m.jsonl").read_text())
+    assert rec["event"] == "epoch" and rec["loss"] == 0.5
+    assert device_memory_stats("cpu") == {}

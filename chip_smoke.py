@@ -6,8 +6,8 @@
 Phases, each printing JSON lines (any failure raises and exits non-zero):
 
 1. env: torch and CUDA versions, the card's name and power limit.
-2. build: compiles the gather + segment-sum kernel from
-   ``primekg_rgcn_tpu_torch/csrc/gather_segment_sum.cu`` with nvcc (sm_90a).
+2. build: compiles the three kernels under ``primekg_rgcn_tpu_torch/csrc/``
+   with nvcc (sm_90a), one process per source, all at once.
 3. kernel: the kernel against its plain PyTorch version on the card, at the
    six (relation bucket, D) shapes one encode of the full default model
    gives it (with those inputs), in edge-norm mode, at several widths and on
@@ -37,11 +37,34 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    for where the step's device time goes and the device's idle share.
 8. train_cli: ``train.cli.main`` on the synthetic graph at scale 0.1 for 2
    epochs at full width, then ``predict_cli.main`` from its final model.
-9. the kernel summary line, then the card line, then the result line.
+9. kernel_b2: kernel B2 (``csrc/dense_segment_sum.cu``) against its plain
+   version on the real identity-backward stream of one block-mode step
+   (774,400 rows, D = 64, N = 30,926), at the outer layer's dedup shape
+   (135,168 rows, D = 128) and on edge cases; kernel, plain and
+   ``index_add_`` times beside the bound. Children hand B2 unsorted ids and
+   B3 a window past its table; both must stop on the device-side assert.
+10. kernel_b3: kernel B3 (``csrc/window_fetch.cu``) against its plain
+   version at the window shapes of a block and a block4 step over the slim
+   CSR (their real starts) and at width 64, exactly equal; kernel, plain and
+   row-gather times beside the bound.
+11. sampled_grad: one full-size block-mode step's loss and gradients
+   through B2 and B3 and through their plain versions, over the fat CSR
+   (1 B2 launch) and the slim pairs CSR (1 B2, 2 B3); the slim loss must
+   equal the fat one.
+12. sampled_train: ``build_sampled_train_step`` at fanouts 15/10, 3
+   warm-up and 30 timed steps, block over the fat CSR, block over the slim
+   CSR and block4 over the slim CSR: step_ms, edges/s, launches per step,
+   peak memory; a 10-step profile of block over the slim CSR.
+13. sampled_cli: ``train.cli.main --sample_fanouts 15 10`` at scale 0.1 in
+   block mode, and in block4 mode with ``--sparse_emb --val_sampled``, each
+   then served by ``predict_cli.main``; B2 must launch in both.
+14. the kernel summary line, then the card line, then the result line.
 
 It needs one CUDA card and exits non-zero without one.
 """
 
+import concurrent.futures
+import contextlib
 import json
 import statistics
 import subprocess
@@ -468,6 +491,492 @@ def phase_train_cli(tmp):
     return launches
 
 
+SAMPLED_BAD_INPUT_CHILD = """
+import torch
+from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+i32 = dict(dtype=torch.int32, device="cuda")
+{case}
+torch.cuda.synchronize()
+print("no fault")
+"""
+
+SAMPLED_BAD_CASES = {
+    # B2: ids that decrease between neighbours.
+    "b2_unsorted_ids": "pds.dense_sorted_segment_sum(torch.ones(600, 64, "
+                       "device='cuda'), torch.arange(600, **i32).flip(0)"
+                       ".contiguous(), 1000)",
+    # B3: a window that runs past the record table.
+    "b3_start_past_table": "pwf.window_rows_fetch(torch.zeros(256, 2, **i32),"
+                           " torch.tensor([0, 250], **i32), 8)",
+}
+
+
+@contextlib.contextmanager
+def sampler_kernels(mode):
+    """Swap what the sampler (``data/sampling``) calls for kernels B2 and
+    B3: ``"plain"`` runs their plain versions on the card, for comparison;
+    ``("record", calls)`` records each call's inputs in ``calls`` and then
+    launches the kernel."""
+    from primekg_rgcn_tpu_torch.data import sampling
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+
+    saved = sampling.dense_sorted_segment_sum, sampling.window_rows_fetch
+    if mode == "plain":
+        sampling.dense_sorted_segment_sum = pds.dense_sorted_segment_sum_plain
+        sampling.window_rows_fetch = pwf.window_rows_fetch_plain
+    else:
+        calls = mode[1]
+
+        def b2(*args):
+            calls.setdefault("b2", []).append(args)
+            return saved[0](*args)
+
+        def b3(*args):
+            calls.setdefault("b3", []).append(args)
+            return saved[1](*args)
+
+        sampling.dense_sorted_segment_sum, sampling.window_rows_fetch = b2, b3
+    try:
+        yield
+    finally:
+        sampling.dense_sorted_segment_sum, sampling.window_rows_fetch = saved
+
+
+def fresh_params(params):
+    """A copy of the parameter dict whose leaves require a gradient."""
+    if isinstance(params, dict):
+        return {k: fresh_params(v) for k, v in params.items()}
+    return params.detach().clone().requires_grad_(True)
+
+
+def reset_counts():
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+
+    ss.gather_segment_sum.launches = 0
+    pds.dense_sorted_segment_sum.launches = 0
+    pwf.window_rows_fetch.launches = 0
+
+
+def read_counts():
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+
+    return {"B1": ss.gather_segment_sum.launches,
+            "B2": pds.dense_sorted_segment_sum.launches,
+            "B3": pwf.window_rows_fetch.launches}
+
+
+def sampled_forward_backward(step, params, cfg, pos, dev, seed=0):
+    """One sampled step's loss and gradients (no update) through
+    ``step.sample`` and ``sampled_loss``, every draw from one generator
+    seeded ``seed``. Returns (loss, {leaf: grad}, batch)."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.data.sampling import uniform_draw
+    from primekg_rgcn_tpu_torch.train.neg_sampling import candidate_batch
+    from primekg_rgcn_tpu_torch.train.sampled import sampled_loss
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    cands = candidate_batch(pos[:, 0], pos[:, 1], pos[:, 2], cfg.num_nodes, 1,
+                            generator=gen)
+    seeds = torch.cat([cands[0], cands[1]]).to(torch.int32)
+    batch = step.sample(seeds, uniform_draw(gen, dev))
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.grad = None
+    loss, _ = sampled_loss(params, batch, cands, cfg, train=True,
+                           generator=gen)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {k: p.grad.clone() for k, p in leaves}, batch
+
+
+def sampled_setup(graph, cfg, edges, dev):
+    """The parameters, a batch of 1,024 positives and the three CSRs of the
+    sampled phases: the fat CSR the step builds from the graph, and the
+    slim packed CSR in granule-pairs form."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.data.sampling import build_combined_csr
+    from primekg_rgcn_tpu_torch.models import rgcn
+
+    params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    edges_dev = torch.from_numpy(edges.astype(np.int64)).to(dev)
+    pos = edges_dev[torch.from_numpy(np.random.default_rng(0).integers(
+        0, edges.shape[0], 1024)).to(dev)]
+    slim = build_combined_csr(graph, slim=True, window_pairs=True)
+    return params, edges_dev, pos, {"fat": graph, "slim": slim}
+
+
+def b2_bound(msg, srt, n):
+    """Least time of B2, in ms, both ways: the rows of real ids, every id
+    and the output, each moved once at the HBM rate, and one float32
+    addition per real row element at the float32 peak."""
+    real = int((srt < n).sum())
+    d = msg.shape[1]
+    nbytes = real * d * 4 + srt.numel() * 4 + n * d * 4
+    return {"bytes": nbytes, "real_rows": real,
+            "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "op_ms": real * d / F32_FLOPS * 1e3}
+
+
+def b3_bound(starts, width):
+    """Least time of B3, in ms: each window's records read once and written
+    once, and the starts read once, at the HBM rate (no arithmetic)."""
+    nbytes = starts.numel() * (width * 8 * 2 + 4)
+    return {"bytes": nbytes, "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "op_ms": 0.0}
+
+
+def bound_fields(b):
+    return dict(bound_us=max(b["byte_ms"], b["op_ms"]) * 1e3,
+                bound_by="bytes" if b["byte_ms"] >= b["op_ms"] else "operations",
+                byte_us=b["byte_ms"] * 1e3, op_us=b["op_ms"] * 1e3,
+                bytes=b["bytes"])
+
+
+def phase_kernel_b2(graph, cfg, edges, dev, repo):
+    """Kernel B2 against its plain version on the card: the identity
+    backward's real id stream of one block-mode step (main path), the
+    outer layer's dedup stream at its shape, and edge cases; kernel, plain
+    and index_add_ times beside the bound; one child process hands it
+    unsorted ids and must stop on the device-side assert."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
+
+    children = {name: subprocess.Popen(
+        [sys.executable, "-c", SAMPLED_BAD_INPUT_CHILD.format(case=body)],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, body in SAMPLED_BAD_CASES.items()}
+
+    params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
+    step = build_sampled_train_step(csrs["fat"], cfg, TrainConfig(),
+                                    fanouts=(15, 10), mode="block", device=dev)
+    calls = {}
+    with sampler_kernels(("record", calls)):
+        _, _, batch = sampled_forward_backward(step, params, cfg, pos, dev)
+    (msg, srt, n), = calls["b2"]
+    outer = batch.blocks[1]
+    if not batch.blocks[0].ident or outer.ident:
+        raise AssertionError("expected an identity inner block and a dedup "
+                             "outer block")
+    gen = torch.Generator(dev).manual_seed(2)
+    dedup_ids = outer.sort_uid
+    dedup_msg = torch.randn(dedup_ids.numel(), 128, device=dev, generator=gen)
+    rows, max_err = [], 0.0
+    for name, m, s, segs in (("ident_backward/main_path", msg, srt, n),
+                             ("dedup_backward_shape", dedup_msg, dedup_ids,
+                              outer.m_in)):
+        got = pds.dense_sorted_segment_sum(m, s, segs)
+        want = pds.dense_sorted_segment_sum_plain(m, s, segs)
+        torch.cuda.synchronize()
+        err = close_scaled(got, want, f"b2/{name}")
+        max_err = max(max_err, err)
+        idx = s.clamp(max=segs)
+        buf = torch.zeros(segs + 1, m.shape[1], device=dev)
+        k_ms = cuda_ms(lambda: pds.launch(m, s, segs))
+        p_ms = cuda_ms(lambda: pds.dense_sorted_segment_sum_plain(m, s, segs))
+        l_ms = cuda_ms(lambda: buf.index_add_(0, idx, m))
+        b = b2_bound(m, s, segs)
+        runs = torch.unique_consecutive(s[s < segs], return_counts=True)[1]
+        row = dict(shape=name, rows=m.shape[0], d=m.shape[1], segments=segs,
+                   real_rows=b["real_rows"], longest_run=int(runs.max()),
+                   runs=int(runs.numel()), kernel_ms=k_ms, plain_ms=p_ms,
+                   library_ms=l_ms, max_abs_err=err, **bound_fields(b))
+        rows.append(row)
+        emit("kernel_b2_shape", **row)
+
+    rng = np.random.default_rng(3)
+
+    def case(ids, d, segs, offset=0):
+        flat = torch.rand(ids.shape[0] * d + offset, device=dev, generator=gen)
+        return (flat[offset:].view(ids.shape[0], d),
+                torch.from_numpy(ids.astype(np.int32)).to(dev), segs)
+
+    cases = {
+        "empty": case(np.zeros(0, np.int64), 64, 500),
+        "only_sentinels": case(np.full(3000, 500), 64, 500),
+        "giant_run": case(np.concatenate([np.full(20000, 123), [124, 900]]),
+                          128, 1000),
+        "distinct_ids": case(np.arange(4096) * 3, 128, 3 * 4096),
+        "odd_d": case(np.sort(rng.integers(0, 2000, 30000)), 3, 2100),
+        "unaligned_table": case(np.sort(rng.integers(0, 2000, 30000)), 128,
+                                2100, offset=1),
+        "sentinel_tail": case(np.concatenate([np.sort(rng.integers(
+            0, 5000, 40000)), np.full(30000, 5000)]), 64, 5000),
+    }
+    for name, (m, s, segs) in cases.items():
+        got = pds.dense_sorted_segment_sum(m, s, segs)
+        want = pds.dense_sorted_segment_sum_plain(m, s, segs)
+        torch.cuda.synchronize()
+        err = close_scaled(got, want, f"b2/{name}")
+        max_err = max(max_err, err)
+        emit("kernel_b2_case", case=name, rows=m.shape[0], d=m.shape[1],
+             segments=segs, max_abs_err=err)
+
+    for name, child in children.items():
+        out, _ = child.communicate(timeout=300)
+        if child.returncode == 0 or "device-side assert" not in out:
+            raise AssertionError(
+                f"bad input {name} did not stop on the device-side assert "
+                f"(exit {child.returncode}):\n{out[-2000:]}")
+        emit("sampled_kernel_bad_input", case=name,
+             exit_code=child.returncode, faulted=True)
+    return rows, max_err
+
+
+def phase_kernel_b3(graph, cfg, edges, dev):
+    """Kernel B3 against its plain version on the card, at the window
+    shapes of a block and a block4 step over the slim CSR (their real
+    starts) and at width 64; kernel, plain and row-gather times beside the
+    bound. Results must be exactly equal."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+    from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
+
+    params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
+    shapes = []
+    for mode in ("block", "block4"):
+        step = build_sampled_train_step(csrs["slim"], cfg, TrainConfig(),
+                                        fanouts=(15, 10), mode=mode,
+                                        device=dev)
+        calls = {}
+        with sampler_kernels(("record", calls)):
+            sampled_forward_backward(step, params, cfg, pos, dev)
+        for layer, (packed, starts, width) in zip(("outer", "inner"),
+                                                  calls["b3"]):
+            shapes.append((f"{mode}/{layer}", packed, starts, width))
+    packed = shapes[0][1]
+    e = int(step.csr.row_start[-1])
+    gen = torch.Generator(dev).manual_seed(4)
+    starts64 = torch.randint(0, e + 1, (30976,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    shapes.append(("width64", packed, starts64, 64))
+    rows = []
+    for name, packed, starts, width in shapes:
+        got = pwf.window_rows_fetch(packed, starts, width)
+        want = pwf.window_rows_fetch_plain(packed, starts, width)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"b3/{name}: kernel and plain differ")
+        rec = packed.view(-1, 2)
+        idx = starts.long()[:, None] + torch.arange(width, device=dev)
+        k_ms = cuda_ms(lambda: pwf.launch(rec, starts, width))
+        p_ms = cuda_ms(lambda: pwf.window_rows_fetch_plain(packed, starts,
+                                                           width))
+        l_ms = cuda_ms(lambda: rec[idx])
+        row = dict(shape=name, windows=starts.numel(), width=width,
+                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                   max_abs_err=0, **bound_fields(b3_bound(starts, width)))
+        rows.append(row)
+        emit("kernel_b3_shape", **row)
+    return rows
+
+
+def phase_sampled_grad(graph, cfg, edges, dev):
+    """One full-size block-mode step's loss and gradients through kernels
+    B2 and B3 and through their plain versions, over the fat CSR (1 B2
+    launch, no B3) and the slim pairs CSR (1 B2, 2 B3), with the same
+    parameters, batch, negatives, draws and dropout mask."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
+
+    params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
+    expect = {"fat": {"B1": 0, "B2": 1, "B3": 0},
+              "slim": {"B1": 0, "B2": 1, "B3": 2}}
+    losses, max_err, out = {}, 0.0, {}
+    for csr_name, csr in csrs.items():
+        step = build_sampled_train_step(csr, cfg, TrainConfig(),
+                                        fanouts=(15, 10), mode="block",
+                                        device=dev)
+        runs = {}
+        for impl in ("kernel", "plain"):
+            reset_counts()
+            with (sampler_kernels("plain") if impl == "plain"
+                  else contextlib.nullcontext()):
+                loss, grads, batch = sampled_forward_backward(
+                    step, params, cfg, pos, dev)
+            runs[impl] = (loss, grads, read_counts())
+        if runs["kernel"][2] != expect[csr_name] or \
+                any(runs["plain"][2].values()):
+            raise AssertionError(
+                f"sampled_grad/{csr_name}: launches kernel "
+                f"{runs['kernel'][2]}, plain {runs['plain'][2]}; expected "
+                f"{expect[csr_name]} and none")
+        if not np.isfinite(runs["kernel"][0]):
+            raise AssertionError("non-finite sampled loss")
+        np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0],
+                                   rtol=1e-5)
+        per_leaf = {}
+        for name, want in runs["plain"][1].items():
+            err = close_scaled(runs["kernel"][1][name], want,
+                               f"sampled_grad/{csr_name}/{name}")
+            max_err = max(max_err, err)
+            per_leaf[name] = {"max_abs_err": err,
+                              "max_abs": float(want.abs().max())}
+        losses[csr_name] = runs["kernel"][0]
+        out[csr_name] = dict(loss_kernel=runs["kernel"][0],
+                             loss_plain=runs["plain"][0],
+                             launches=runs["kernel"][2], leaves=per_leaf,
+                             budgets=list(step.budgets),
+                             ident_rows=batch.blocks[0].sort_uid.numel())
+    if losses["slim"] != losses["fat"]:
+        raise AssertionError(f"loss over the slim CSR {losses['slim']} != "
+                             f"over the fat CSR {losses['fat']}")
+    emit("sampled_grad", **out)
+    return max_err
+
+
+def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30):
+    """``build_sampled_train_step`` timed as the JAX package's
+    ``bench_sampled`` times it: a fresh batch of 1,024 positives drawn on
+    the host each step, 3 warm-up then 30 timed steps on the host clock;
+    block over the fat CSR, block over the slim pairs CSR (the main path of
+    kernels B2 and B3) and block4 over the slim CSR. Then a 10-step profile
+    of the main path."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
+    from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
+                                                        trace_breakdown)
+
+    tcfg = TrainConfig(batch_size=1024)
+    params0, edges_dev, _, csrs = sampled_setup(graph, cfg, edges, dev)
+    results = {}
+    for name, mode, csr in (("block/fat", "block", csrs["fat"]),
+                            ("block/slim", "block", csrs["slim"]),
+                            ("block4/slim", "block4", csrs["slim"])):
+        params = fresh_params(params0)
+        step = build_sampled_train_step(csr, cfg, tcfg, fanouts=(15, 10),
+                                        mode=mode, device=dev)
+        opt = step.init_optimizer(params)
+        gen = torch.Generator(dev).manual_seed(0)
+        rng = np.random.default_rng(0)
+
+        def one():
+            idx = torch.from_numpy(rng.integers(0, edges.shape[0],
+                                                tcfg.batch_size))
+            idx = idx.pin_memory().to(dev, non_blocking=True)
+            return step(params, opt, edges_dev[idx], gen)
+
+        first = one()
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            last = one()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        counts = read_counts()
+        first_loss, last_loss = float(first[0]), float(last[0])
+        if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
+            raise AssertionError(f"{name}: non-finite loss")
+        want = {"B1": 0, "B2": steps,
+                "B3": 2 * steps if name.endswith("slim") else 0}
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        results[name] = dict(
+            step_ms=step_ms, train_edges_per_s=tcfg.batch_size / step_ms * 1e3,
+            launches=counts,
+            launches_per_step={k: v / steps for k, v in counts.items()},
+            peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+            budgets=list(step.budgets), first_loss=first_loss,
+            last_loss=last_loss)
+        emit("sampled_train", config=name, steps=steps,
+             batch_size=tcfg.batch_size, **results[name])
+        if name == "block/slim":
+            main_counts = counts
+            prof_steps = 10
+            torch.cuda.synchronize()
+            with profile_trace(tmp / "sampled_profile"):
+                t0 = time.perf_counter()
+                for _ in range(prof_steps):
+                    one()
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
+            bd = trace_breakdown(tmp / "sampled_profile" / "trace.json")
+            if bd is None:
+                emit("sampled_train_profile", steps=prof_steps,
+                     device_events=0, idle_share="not measured")
+            else:
+                busy_ms = bd["busy_us"] / prof_steps / 1e3
+                emit("sampled_train_profile", config=name, steps=prof_steps,
+                     step_ms_under_profiler=prof_ms,
+                     device_busy_ms_per_step=busy_ms,
+                     idle_share_two_windows=1.0 - busy_ms / step_ms, **bd)
+    return results, main_counts
+
+
+def phase_sampled_cli(tmp):
+    """train.cli.main with --sample_fanouts 15 10 at synthetic scale 0.1,
+    block mode, then predict_cli from its final model; then block4 with
+    --sparse_emb --optimizer sgd --grad_clip 0 --val_sampled. B2 must
+    launch in both runs."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.evaluate import predict_cli
+    from primekg_rgcn_tpu_torch.train import cli as train_cli
+
+    base = ["--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+            "--seed", "0", "--device", "cuda", "--sample_fanouts", "15", "10"]
+    runs = {"block": ["--sample_mode", "block"],
+            "block4_sparse": ["--sample_mode", "block4", "--sparse_emb",
+                              "--optimizer", "sgd", "--grad_clip", "0",
+                              "--val_sampled", "--lr", "0.5"]}
+    launches = {}
+    for name, extra in runs.items():
+        out = tmp / f"sampled_cli_{name}"
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train_cli.main([*base, *extra, "--output_dir", str(out)])
+        seconds = time.perf_counter() - t0
+        launches[name] = read_counts()
+        hist = result["history"]
+        problems = []
+        if not np.all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
+            problems.append(f"losses {hist}")
+        for f in ("best_model.pt", "final_model.pt"):
+            if not (out / "models" / f).exists():
+                problems.append(f"missing models/{f}")
+        if launches[name]["B2"] == 0:
+            problems.append("no B2 launch")
+        served = predict_cli.main([
+            "--model_path", str(out / "models" / "final_model.pt"),
+            "--data_dir", str(out / "synthetic_data"), "--heads", "0", "7",
+            "--relation", "0", "--topk", "5", "--device", "cuda"])
+        scores = [p["score"] for q in served for p in q["predictions"]]
+        if len(scores) != 10 or not np.all(np.isfinite(scores)):
+            problems.append(f"served scores {scores}")
+        if problems:
+            raise AssertionError(f"sampled_cli/{name}: " + "; ".join(problems))
+        emit("sampled_cli", run=name, seconds=seconds,
+             launches=launches[name], history=hist,
+             epoch_time_s=result["epoch_times_s"])
+    return launches
+
+
 def main():
     import torch
 
@@ -485,7 +994,10 @@ def main():
     from primekg_rgcn_tpu_torch.data import artifacts, synthetic
     from primekg_rgcn_tpu_torch.evaluate import predict_cli
     from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+    from primekg_rgcn_tpu_torch.ops.cuda.build import vec_width
     from primekg_rgcn_tpu_torch.ops.distmult import distmult_score_all_tails
     from primekg_rgcn_tpu_torch.ops.rgcn_segment import (aggregate_plain,
                                                          build_layer_agg_ops,
@@ -511,12 +1023,15 @@ def main():
          count=torch.cuda.device_count(), nvidia_smi=card)
 
     # -- 2. build -----------------------------------------------------------
+    # One nvcc per kernel source, all started together.
     t0 = time.perf_counter()
-    lib_path, compiler_out = ss.build(verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        built = list(pool.map(lambda lib: lib.build(verbose=True),
+                              [ss.LIBRARY, pds.LIBRARY, pwf.LIBRARY]))
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         library=str(lib_path.relative_to(repo)),
-         ptxas=[ln.strip() for ln in compiler_out.splitlines()
-                if "registers" in ln or "spill" in ln])
+         libraries={str(path.relative_to(repo)): [
+             ln.strip() for ln in out.splitlines()
+             if "registers" in ln or "spill" in ln] for path, out in built})
 
     # -- 3. kernel vs plain on the card --------------------------------------
     raw = synthetic.primekg_like(seed=0, scale=1.0)
@@ -637,7 +1152,7 @@ def main():
         err = check(name, x, src, rowptr, sc)
         emit("kernel_case", case=name, edges=src.numel(), d=x.shape[1],
              rows=rowptr.numel() - 1, max_abs_err=err,
-             vec=ss._vec_width(x.shape[1], x))
+             vec=vec_width(x.shape[1], x))
 
     # Malformed inputs fault loudly on the card. A device-side assert ends
     # the CUDA context, so each case runs in a child process of its own.
@@ -755,7 +1270,15 @@ def main():
         train_launches = phase_train(graph, cfg, edges, dev, Path(tmp))
         cli_launches = phase_train_cli(Path(tmp))
 
-    # -- 9. summary ---------------------------------------------------------
+        # -- 9-13. sampled training ----------------------------------------
+        b2_rows, b2_err = phase_kernel_b2(graph, cfg, edges, dev, repo)
+        b3_rows = phase_kernel_b3(graph, cfg, edges, dev)
+        sgrad_err = phase_sampled_grad(graph, cfg, edges, dev)
+        sampled, main_counts = phase_sampled_train(graph, cfg, edges, dev,
+                                                   Path(tmp))
+        scli_launches = phase_sampled_cli(Path(tmp))
+
+    # -- 14. summary --------------------------------------------------------
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -769,7 +1292,9 @@ def main():
         "replaces": "primekg_rgcn_tpu/ops/pallas/segment_sum.py:291",
         "launches": train_launches,
         "launches_by_path": {"serve": launches, "train": train_launches,
-                             "train_cli": cli_launches},
+                             "train_cli": cli_launches,
+                             "sampled_cli": {k: v["B1"] for k, v in
+                                             scli_launches.items()}},
         "launches_per_step": {"forward": 6, "backward": 6},
         "max_abs_err": max(max_err, bwd_err, grad_err),
         "ms": total(main_rows, "kernel_ms"),
@@ -785,7 +1310,51 @@ def main():
         "per": "one training step: ms, plain_ms, bound_ms and library_ms sum "
                "the six forward launches (one encode), the bwd_ keys the six "
                "backward launches over the transpose CSR; launches is the "
-               "train phase's count"}]}), flush=True)
+               "train phase's count"}, {
+        "name": "dense_sorted_segment_sum", "id": "B2", "route": "cuda",
+        "source": "primekg_rgcn_tpu_torch/csrc/dense_segment_sum.cu",
+        "replaces": "primekg_rgcn_tpu/ops/pallas/segment_sum.py:420",
+        "launches": main_counts["B2"],
+        "launches_by_path": {
+            "sampled_train": {k: v["launches"]["B2"]
+                              for k, v in sampled.items()},
+            "sampled_cli": {k: v["B2"] for k, v in scli_launches.items()}},
+        "launches_per_step": 1,
+        "max_abs_err": max(b2_err, sgrad_err),
+        "ms": b2_rows[0]["kernel_ms"], "plain_ms": b2_rows[0]["plain_ms"],
+        "bound_ms": b2_rows[0]["bound_us"] / 1e3,
+        "bound_by": b2_rows[0]["bound_by"],
+        "library_ms": b2_rows[0]["library_ms"],
+        "dedup_shape_ms": b2_rows[1]["kernel_ms"],
+        "dedup_shape_plain_ms": b2_rows[1]["plain_ms"],
+        "dedup_shape_bound_ms": b2_rows[1]["bound_us"] / 1e3,
+        "dedup_shape_library_ms": b2_rows[1]["library_ms"],
+        "per": "one block-mode step's launch in the identity backward "
+               "(L = %d, D = %d, N = %d); library_ms is index_add_; "
+               "launches is the sampled_train block/slim count"
+               % (b2_rows[0]["rows"], b2_rows[0]["d"],
+                  b2_rows[0]["segments"])}, {
+        "name": "window_rows_fetch", "id": "B3", "route": "cuda",
+        "source": "primekg_rgcn_tpu_torch/csrc/window_fetch.cu",
+        "replaces": "primekg_rgcn_tpu/ops/pallas/window_fetch.py:92",
+        "launches": main_counts["B3"],
+        "launches_by_path": {
+            "sampled_train": {k: v["launches"]["B3"]
+                              for k, v in sampled.items()}},
+        "launches_per_step": 2,
+        "max_abs_err": 0,
+        "ms": total(b3_rows[:2], "kernel_ms"),
+        "plain_ms": total(b3_rows[:2], "plain_ms"),
+        "bound_ms": total(b3_rows[:2], "bound_us") / 1e3,
+        "bound_by": bound_by(b3_rows[:2]),
+        "library_ms": total(b3_rows[:2], "library_ms"),
+        "block4_ms": total(b3_rows[2:4], "kernel_ms"),
+        "block4_bound_ms": total(b3_rows[2:4], "bound_us") / 1e3,
+        "per": "one block-mode step over the slim CSR: ms, plain_ms, "
+               "bound_ms and library_ms sum its two launches (outer and "
+               "inner layer); library_ms is packed[starts[:, None] + "
+               "arange(F)]; launches is the sampled_train block/slim "
+               "count"}]}), flush=True)
     print(card, flush=True)
     # The run uses one card (cuda:0) whatever the machine holds.
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ the two packages leaf by leaf (``train/torch_interop.params_from_jax``):
 Architecture: node embedding table -> RGCN layer (d_emb -> d_h) -> ReLU ->
 Dropout (training only) -> RGCN layer (d_h -> d_h); DistMult decoder, with
 optional dropout on the relation embeddings in training. The default config
-has 2,078,208 parameters, as the reference model.
+has 2,078,208 parameters, as the reference model. ``encoder_apply_sampled``
+runs the same encoder over a sampled neighbourhood (``data/sampling``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ import torch
 
 from primekg_rgcn_tpu_torch.config import ModelConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
+from primekg_rgcn_tpu_torch.data.sampling import (SampledBatch,
+                                                  TableGatherSorted,
+                                                  block_aggregate)
 from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
                                                  distmult_score_all_tails)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
@@ -169,3 +173,48 @@ def get_embeddings(params: Params, graph: RelGraph, cfg: ModelConfig, *,
                    layer_fn=rgcn_layer_segment) -> torch.Tensor:
     """Encoder output at inference."""
     return encoder_apply(params, graph, cfg, layer_fn=layer_fn)
+
+
+def encoder_apply_sampled(params: Params, batch: SampledBatch,
+                          cfg: ModelConfig, *, train: bool = False,
+                          generator: Optional[torch.Generator] = None,
+                          mask: Optional[torch.Tensor] = None,
+                          x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encode only a sampled neighbourhood block (mini-batch mode):
+    [num_seeds, hidden_dim] embeddings in seed order.
+
+    Per-relation mean over the sampled neighbours, the same root, bias,
+    ReLU and dropout structure as :func:`encoder_apply`. The layer-0 table
+    is the embedding table itself for an identity innermost block, else the
+    deduped frontier's rows (sentinel rows zero), gathered with a sorted
+    backward. ``x0`` supplies those layer-0 rows directly (the sparse
+    embedding update's hook). Sentinel output rows are zeroed after every
+    layer, so the bias never leaks upward. Dropout applies only with
+    ``train``; its keep mask comes from ``generator`` or is given as
+    ``mask``.
+    """
+    enc = params["encoder"]
+    n = cfg.num_nodes
+    if getattr(batch.blocks[0], "ident", False):
+        x = x0 if x0 is not None else enc["node_emb"]
+    elif x0 is not None:
+        x = x0
+    else:
+        sentinel = (batch.frontier == n)[:, None]
+        x = TableGatherSorted.apply(enc["node_emb"],
+                                    batch.frontier.clamp(max=n - 1))
+        x = torch.where(sentinel, torch.zeros((), device=x.device), x)
+
+    layers = [enc["conv1"], enc["conv2"]]
+    if len(batch.blocks) != len(layers):
+        raise ValueError(
+            f"need {len(layers)} sampled blocks, got {len(batch.blocks)}")
+    for li, (layer, block) in enumerate(zip(layers, batch.blocks)):
+        x = block_aggregate(layer, x, block)
+        x = torch.where((block.out_ids == n)[:, None],
+                        torch.zeros((), device=x.device), x)
+        if li < len(layers) - 1:
+            x = torch.relu(x)
+            if train and cfg.dropout > 0.0:
+                x = dropout(x, cfg.dropout, generator=generator, mask=mask)
+    return x[batch.seed_gather.long()]

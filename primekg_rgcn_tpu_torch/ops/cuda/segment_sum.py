@@ -9,7 +9,8 @@ it replaces the TPU kernel ``_segment_kernel`` (reached through
 The kernel source is ``primekg_rgcn_tpu_torch/csrc/gather_segment_sum.cu``;
 its header comment gives the design and what bounds it on the H100 (memory
 bytes). It is built with ``nvcc`` for ``sm_90a`` at first use into
-``primekg_rgcn_tpu_torch/_build/`` and bound through ``ctypes``.
+``primekg_rgcn_tpu_torch/_build/`` and bound through ``ctypes``
+(``ops/cuda/build.py``).
 
 ``GatherSegmentSum`` is the differentiable form, the counterpart of the
 ``jax.custom_vjp`` in ``primekg_rgcn_tpu/ops/rgcn_segment.py``
@@ -20,78 +21,16 @@ transpose CSR, so the gradient is a sorted gather + segment-sum too.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[2]
-SOURCE = _PKG_DIR / "csrc" / "gather_segment_sum.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, check_rc,
+                                                  vec_width)
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
-        return str(Path(cuda_home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if Path("/usr/local/cuda/bin/nvcc").exists():
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def library_path() -> Path:
-    """Where the built library lives, keyed by a hash of source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgather_segment_sum_{h.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> Tuple[Path, str]:
-    """Compile the kernel library if it is not built yet.
-
-    Returns the library's path and the compiler's output (with
-    ``verbose``, ptxas's register and spill report); empty when the library
-    was already there.
-    """
-    lib = library_path()
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
-    return lib, proc.stdout + proc.stderr
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.gather_segment_sum_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = CudaLibrary("gather_segment_sum.cu", {
+    "gather_segment_sum_f32": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p)})
 
 
 def _check(x, src, rowptr, scale) -> None:
@@ -147,17 +86,6 @@ def gather_segment_sum_plain(x: torch.Tensor, src: torch.Tensor,
                        device=x.device).index_add_(0, dst, msg)
 
 
-def _vec_width(d: int, *tensors: torch.Tensor) -> int:
-    """Floats per lane: float4 from D = 128, float2 from D = 64, so that a
-    warp's 32 lanes cover a row; the vector must divide D and both row
-    tables must be aligned to it."""
-    for vec, min_d in ((4, 128), (2, 64), (4, 4), (2, 2)):
-        if d % vec == 0 and d >= min_d and all(
-                t.data_ptr() % (4 * vec) == 0 for t in tensors):
-            return vec
-    return 1
-
-
 def gather_segment_sum(x: torch.Tensor, src: torch.Tensor,
                        rowptr: torch.Tensor,
                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -199,16 +127,15 @@ def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
     out = torch.empty(s, d, dtype=torch.float32, device=x.device)
     if s == 0:
         return out
-    vec = _vec_width(d, x, out)
-    lib = _load()
+    vec = vec_width(d, x, out)
+    lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         rc = lib.gather_segment_sum_f32(
             x.data_ptr(), src.data_ptr(), rowptr.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(),
             s, d, x.shape[0], src.shape[0], vec,
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_segment_sum launch failed: CUDA error {rc}")
+    check_rc(rc, "gather_segment_sum")
     gather_segment_sum.launches += 1
     return out
 

@@ -1,22 +1,25 @@
-"""Training CLI: full-graph training on one device.
+"""Training CLI: full-graph or neighbor-sampled training on one device.
 
     python -m primekg_rgcn_tpu_torch.train.cli --epochs 100 --lr 0.001 \
         --batch_size 1024 --data_dir data/processed --output_dir output \
-        [--device cuda|cpu]
+        [--sample_fanouts 15 10 --sample_mode block] [--device cuda|cpu]
 
 The reference's flags, plus --resume, --synthetic (train on a
 PrimeKG-statistics synthetic graph and write its splits under
 ``<output_dir>/synthetic_data``), --profile_dir (a ``torch.profiler`` trace
 of the run) and --device (default ``cuda``; without a card it raises unless
-``--device cpu`` is given). Checkpoints are reference-layout ``.pt`` files
-under ``<output_dir>/models`` and ``<output_dir>/checkpoints``; the log goes
-to stdout and ``<output_dir>/training.log``.
+``--device cpu`` is given). --sample_fanouts trains with neighbor
+sampling (``train/sampled.SampledTrainer``; --sample_mode, --sparse_emb and
+--val_sampled as in the JAX CLI). Checkpoints are reference-layout ``.pt``
+files under ``<output_dir>/models`` and ``<output_dir>/checkpoints``; the
+log goes to stdout and ``<output_dir>/training.log``.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import re
 import sys
 from pathlib import Path
 
@@ -54,7 +57,30 @@ def parse_args(argv=None):
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of the run here")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    return p.parse_args(argv)
+    p.add_argument("--sample_fanouts", type=int, nargs="+", default=None,
+                   help="train with neighbor sampling at these per-relation "
+                        "fanouts, outermost layer first (e.g. "
+                        "--sample_fanouts 15 10)")
+    p.add_argument("--sample_mode", default="uniform",
+                   help="with --sample_fanouts: uniform (per-slot picks with "
+                        "replacement), block (one random aligned window of "
+                        "the merged CSR per node), blockN (N windows of F/N "
+                        "records) or truncate (the first F neighbors)")
+    p.add_argument("--sparse_emb", action="store_true",
+                   help="with --sample_fanouts and --optimizer sgd "
+                        "(grad_clip and weight_decay 0): update only the "
+                        "frontier's embedding rows each step")
+    p.add_argument("--val_sampled", action="store_true",
+                   help="with --sample_fanouts: validate through the sampled "
+                        "encoder instead of a full-graph encode")
+    args = p.parse_args(argv)
+    if not re.fullmatch(r"uniform|truncate|block([1-9]\d*)?",
+                        args.sample_mode):
+        p.error(f"invalid --sample_mode {args.sample_mode!r} "
+                f"(uniform | block | blockN | truncate)")
+    if (args.sparse_emb or args.val_sampled) and not args.sample_fanouts:
+        p.error("--sparse_emb and --val_sampled need --sample_fanouts")
+    return args
 
 
 def _load_graphs(args):
@@ -147,6 +173,7 @@ def main(argv=None):
     try:
         from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
         from primekg_rgcn_tpu_torch.train.loop import Trainer
+        from primekg_rgcn_tpu_torch.train.sampled import SampledTrainer
         from primekg_rgcn_tpu_torch.utils.telemetry import profile_trace
 
         (train_graph, full_graph, train_edges, val_edges,
@@ -163,9 +190,17 @@ def main(argv=None):
             gradient_accumulation_steps=args.gradient_accumulation_steps,
             save_every=args.save_every, early_stopping=args.early_stopping,
             seed=args.seed)
-        trainer = Trainer(model_cfg, train_cfg, train_graph, full_graph,
-                          train_edges, val_edges, args.output_dir,
-                          device=device, args=args)
+        if args.sample_fanouts:
+            trainer = SampledTrainer(
+                model_cfg, train_cfg, train_graph, full_graph, train_edges,
+                val_edges, args.output_dir,
+                fanouts=tuple(args.sample_fanouts), mode=args.sample_mode,
+                sparse_emb=args.sparse_emb, val_sampled=args.val_sampled,
+                device=device, args=args)
+        else:
+            trainer = Trainer(model_cfg, train_cfg, train_graph, full_graph,
+                              train_edges, val_edges, args.output_dir,
+                              device=device, args=args)
         if args.resume:
             trainer.resume(args.resume)
         with profile_trace(args.profile_dir):

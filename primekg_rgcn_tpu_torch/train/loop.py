@@ -270,6 +270,21 @@ class Trainer:
                  train_edges: np.ndarray, val_edges: np.ndarray,
                  output_dir, *, device="cuda",
                  args: Optional[argparse.Namespace] = None):
+        self._setup(model_cfg, train_cfg, output_dir, device, args,
+                    train_edges)
+        self.optimizer = make_optimizer(train_cfg, self.params)
+        self.train_epoch_fn = build_train_epoch(
+            train_graph.to(self.device), train_edges, model_cfg, train_cfg,
+            self.params, self.optimizer)
+        self.eval_epoch_fn = build_eval_epoch(
+            full_graph.to(self.device), val_edges, model_cfg, train_cfg)
+
+    def _setup(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
+               output_dir, device, args: Optional[argparse.Namespace],
+               train_edges: np.ndarray) -> None:
+        """What every trainer holds: device, directories, the CLI namespace,
+        both generators, the parameters (from the host generator, then the
+        device generator seeded from it), history and metrics."""
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
@@ -293,14 +308,6 @@ class Trainer:
             p.requires_grad_(True)
         self.device_gen = torch.Generator(self.device).manual_seed(
             int(torch.randint(2 ** 62, (1,), generator=self.host_gen)))
-        self.optimizer = make_optimizer(train_cfg, self.params)
-
-        self.train_epoch_fn = build_train_epoch(
-            train_graph.to(self.device), train_edges, model_cfg, train_cfg,
-            self.params, self.optimizer)
-        self.eval_epoch_fn = build_eval_epoch(
-            full_graph.to(self.device), val_edges, model_cfg, train_cfg)
-
         self.best_val_loss = float("inf")
         self.best_val_acc = 0.0
         self.history: Dict[str, List[float]] = {

@@ -73,8 +73,12 @@ def _kind(event: Dict[str, Any]) -> str:
     name = event["name"].lower()
     if event["cat"] != "kernel":
         return "memcpy_memset"
-    if "gather_segment_sum" in name:
-        return "gather_segment_sum"
+    for kernel in ("gather_segment_sum", "dense_segment_sum",
+                   "window_rows_fetch"):
+        if kernel in name:
+            return kernel
+    if "sort" in name:
+        return "sort"
     if any(k in name for k in ("gemm", "cutlass", "xmma", "cublas")):
         return "matmul"
     if "multi_tensor_apply" in name or "adam" in name:

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from primekg_rgcn_tpu.ops.pallas.segment_sum import sorted_segment_sum_pallas
+from primekg_rgcn_tpu_torch.ops.cuda import build
 from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as pss
 
 
@@ -100,12 +101,12 @@ def test_wrapper_rejects_csr_that_does_not_cover_src(rowptr):
                                    (8, 4), (6, 2), (1, 1), (3, 1)])
 def test_vector_width(d, vec):
     t = torch.zeros(4, d)
-    assert pss._vec_width(d, t) == vec
+    assert build.vec_width(d, t) == vec
 
 
 def test_library_is_keyed_by_source():
-    path = pss.library_path()
-    assert path.parent == pss.BUILD_DIR
+    path = pss.LIBRARY.library_path()
+    assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libgather_segment_sum_")
-    assert pss.SOURCE.exists()
-    assert "arch=compute_90a,code=sm_90a" in pss.NVCC_FLAGS
+    assert pss.LIBRARY.source.exists()
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -38,6 +38,26 @@ def test_trace_breakdown_kinds_and_idle(tmp_path):
                                  "memcpy_memset": 5.0, "optimizer": 2.0}
 
 
+def test_trace_breakdown_names_the_sampled_step_kernels(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "ts": 0.0, "dur": 4.0,
+         "name": "void (anonymous namespace)::dense_segment_sum_kernel<2>"
+                 "(float const*, int const*, float*, int, int, int)"},
+        {"ph": "X", "cat": "kernel", "ts": 4.0, "dur": 1.0,
+         "name": "void (anonymous namespace)::window_rows_fetch_kernel"
+                 "(int2 const*, int const*, int2*, int, int, int)"},
+        {"ph": "X", "cat": "kernel", "ts": 5.0, "dur": 2.0,
+         "name": "void cub::DeviceRadixSortOnesweepKernel<Policy>()"},
+        {"ph": "X", "cat": "kernel", "ts": 7.0, "dur": 3.0,
+         "name": "void at::native::index_elementwise_kernel<128, 4>()"},
+    ]
+    got = trace_breakdown(_write_trace(tmp_path / "t.json", events))
+    assert got["us_by_kind"] == {"dense_segment_sum": 4.0,
+                                 "window_rows_fetch": 1.0, "sort": 2.0,
+                                 "other": 3.0}
+    assert got["busy_us"] == got["window_us"] == 10.0
+
+
 def test_trace_breakdown_without_device_events(tmp_path):
     events = [{"ph": "X", "cat": "cpu_op", "name": "aten::add",
                "ts": 0.0, "dur": 3.0}]

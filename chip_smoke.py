@@ -6,7 +6,7 @@
 Phases, each printing JSON lines (any failure raises and exits non-zero):
 
 1. env: torch and CUDA versions, the card's name and power limit.
-2. build: compiles the three kernels under ``primekg_rgcn_tpu_torch/csrc/``
+2. build: compiles the four kernels under ``primekg_rgcn_tpu_torch/csrc/``
    with nvcc (sm_90a), one process per source, all at once.
 3. kernel: the kernel against its plain PyTorch version on the card, at the
    six (relation bucket, D) shapes one encode of the full default model
@@ -58,7 +58,25 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
 13. sampled_cli: ``train.cli.main --sample_fanouts 15 10`` at scale 0.1 in
    block mode, and in block4 mode with ``--sparse_emb --val_sampled``, each
    then served by ``predict_cli.main``; B2 must launch in both.
-14. the kernel summary line, then the card line, then the result line.
+14. kernel_b4: kernel B4 (``csrc/halo_exchange.cu``) against its plain
+   version, bit for bit, at the node-sharded step's shapes (n = 4 shards,
+   P = 7,736, D = 64 and 128, the real serve lists of the ``bench.py``
+   graph) and on edge cases (n = 2 and 8, P = 1, D = 8, odd D, unaligned
+   views); kernel, plain and ``copy_`` times beside the byte bound.
+15. node_grad: one node-sharded step (4 shards on the card, dropout off) on
+   given candidates through B1 and B4 (2 B1 launches per layer and bucket
+   with real edges, 4 B4 launches), against the same step through the
+   plain versions and against the full-graph step's gradients on the same
+   candidates.
+16. node_train: ``build_node_sharded_train_step`` with B4, batch 1024,
+   adam, dropout 0.5: 3 warm-up and 30 timed steps, launches per step
+   asserted, peak memory, a 10-step profile.
+17. node_serve: ``predict_cli.main --shard node --n_devices 4`` for the
+   serve phase's queries; its top-10 ids must equal the dense ones;
+   sharded encode and query times.
+18. node_cli: ``train.cli.main --shard node --n_devices 4`` at scale 0.1
+   for 2 epochs, then served with ``--shard node``.
+19. the kernel summary line, then the card line, then the result line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -553,22 +571,26 @@ def fresh_params(params):
 
 def reset_counts():
     from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
     from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
 
     ss.gather_segment_sum.launches = 0
     pds.dense_sorted_segment_sum.launches = 0
     pwf.window_rows_fetch.launches = 0
+    halo.halo_exchange.launches = 0
 
 
 def read_counts():
     from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
     from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
 
     return {"B1": ss.gather_segment_sum.launches,
             "B2": pds.dense_sorted_segment_sum.launches,
-            "B3": pwf.window_rows_fetch.launches}
+            "B3": pwf.window_rows_fetch.launches,
+            "B4": halo.halo_exchange.launches}
 
 
 def sampled_forward_backward(step, params, cfg, pos, dev, seed=0):
@@ -799,8 +821,8 @@ def phase_sampled_grad(graph, cfg, edges, dev):
     from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
 
     params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
-    expect = {"fat": {"B1": 0, "B2": 1, "B3": 0},
-              "slim": {"B1": 0, "B2": 1, "B3": 2}}
+    expect = {"fat": {"B1": 0, "B2": 1, "B3": 0, "B4": 0},
+              "slim": {"B1": 0, "B2": 1, "B3": 2, "B4": 0}}
     losses, max_err, out = {}, 0.0, {}
     for csr_name, csr in csrs.items():
         step = build_sampled_train_step(csr, cfg, TrainConfig(),
@@ -894,7 +916,7 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30):
         if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
             raise AssertionError(f"{name}: non-finite loss")
         want = {"B1": 0, "B2": steps,
-                "B3": 2 * steps if name.endswith("slim") else 0}
+                "B3": 2 * steps if name.endswith("slim") else 0, "B4": 0}
         if counts != want:
             raise AssertionError(f"{name}: launches {counts}, expected {want}")
         results[name] = dict(
@@ -976,6 +998,391 @@ def phase_sampled_cli(tmp):
              epoch_time_s=result["epoch_times_s"])
     return launches
 
+N_SHARDS = 4
+
+
+def node_launches(psg, step=True):
+    """Launches of one node-sharded step (or, ``step=False``, one encode):
+    B1 once per layer and (shard, group, relation) bucket with real edges,
+    twice in a step (forward, backward over the transpose CSR); B4 once per
+    layer, twice in a step."""
+    buckets = int((psg.rowptr_local[..., -1] > 0).sum()
+                  + (psg.rowptr_halo[..., -1] > 0).sum())
+    k = 2 if step else 1
+    return {"B1": 2 * buckets * k, "B2": 0, "B3": 0, "B4": 2 * k}
+
+
+def b4_bound(sends):
+    """Least time of B4, in ms: every send byte read once and every recv
+    byte written once at the HBM rate (no arithmetic)."""
+    nbytes = 2 * sum(t.numel() for t in sends) * 4
+    return {"bytes": nbytes, "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "op_ms": 0.0}
+
+
+def phase_kernel_b4(psg, dev):
+    """Kernel B4 against its plain version on the card, exactly equal: at
+    the node-sharded step's two shapes (the real serve lists over random
+    [n_loc + 1, D] tables, D = 64 and 128) and on edge cases; kernel, plain
+    and ``copy_`` of the same bytes timed beside the bound."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
+
+    gen = torch.Generator(dev).manual_seed(6)
+    serve = psg.serve.to(dev).long()
+    n, p = psg.n_devices, psg.halo_width
+
+    def check(name, sends):
+        got = halo.halo_exchange(sends)
+        want = halo.halo_exchange_plain(sends)
+        torch.cuda.synchronize()
+        for o, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"b4/{name}: recv {o} differs from the "
+                                     f"plain version")
+
+    rows = []
+    for d in (64, 128):
+        tables = [torch.randn(psg.n_loc + 1, d, device=dev, generator=gen)
+                  for _ in range(n)]
+        sends = [tables[i][serve[i]] for i in range(n)]
+        name = f"main_path/n{n}/P{p}/D{d}"
+        check(name, sends)
+        flat = sum(t.numel() for t in sends)
+        src = torch.randn(flat, device=dev, generator=gen)
+        dst = torch.empty_like(src)
+        row = dict(shape=name, n=n, p=p, d=d,
+                   kernel_ms=cuda_ms(lambda: halo.launch(sends)),
+                   plain_ms=cuda_ms(lambda: halo.halo_exchange_plain(sends)),
+                   library_ms=cuda_ms(lambda: dst.copy_(src)),
+                   max_abs_err=0, **bound_fields(b4_bound(sends)))
+        rows.append(row)
+        emit("kernel_b4_shape", **row)
+
+    def sends_of(n_, p_, d_, offset=0):
+        out = []
+        for _ in range(n_):
+            buf = torch.randn(n_ * p_ * d_ + offset, device=dev, generator=gen)
+            out.append(buf[offset:].view(n_, p_, d_))
+        return out
+
+    cases = {"n2": sends_of(2, 7736, 64), "n8": sends_of(8, 3872, 128),
+             "p1": sends_of(4, 1, 64), "d8": sends_of(4, 7736, 8),
+             "odd_d": sends_of(4, 999, 37),
+             "unaligned_views": sends_of(4, 7736, 64, offset=1),
+             "unaligned_odd": sends_of(3, 5, 3, offset=1)}
+    for name, sends in cases.items():
+        check(name, sends)
+        aligned = all(t.data_ptr() % 16 == 0 for t in sends)
+        emit("kernel_b4_case", case=name, n=len(sends),
+             shape=list(sends[0].shape),
+             vec=4 if sends[0].shape[2] % 4 == 0 and aligned else 1,
+             max_abs_err=0)
+    return rows
+
+
+def node_setup(cfg, edges, dev, dropout):
+    """The config with the given encoder dropout, its parameters (seed 0)
+    and the train edges with their sentinel row, on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.train import loop
+
+    ncfg = dataclasses.replace(cfg, dropout=dropout)
+    params = rgcn.init_params(torch.Generator().manual_seed(0), ncfg,
+                              device=dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    edges_pad = loop.edges_with_sentinel(edges, dev)
+    return ncfg, params, edges_pad
+
+
+def node_batch(edges_pad, idx):
+    """[B, 4] (head, tail, rel, mask) rows for edge indices ``idx``."""
+    import torch
+
+    e = edges_pad.shape[0] - 1
+    return torch.cat([edges_pad[idx], (idx < e)[:, None].long()], dim=1)
+
+
+def phase_node_grad(graph, psg, cfg, edges, dev):
+    """One node-sharded step's loss and gradients (dropout off) on given
+    candidates, through B1 and B4, against the same step through their
+    plain versions and against the full-graph step on the same candidates.
+    The update is plain SGD at lr 0, so every run starts from the same
+    parameters and leaves its gradient in ``.grad``."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.ops.cuda.halo import halo_exchange_plain
+    from primekg_rgcn_tpu_torch.ops.rgcn_segment import aggregate_plain
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.parallel.node_shard import (
+        build_node_sharded_train_step)
+    from primekg_rgcn_tpu_torch.train import loop
+
+    ncfg, params, edges_pad = node_setup(cfg, edges, dev, dropout=0.0)
+    leaves = list(named_leaves(params))
+    tcfg = TrainConfig(optimizer="sgd", lr=0.0, grad_clip=0.0)
+    opt = loop.make_optimizer(tcfg, params)
+    mesh = make_mesh(N_SHARDS, dev)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(
+        0, edges.shape[0], 1024)).to(dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    steps = {"kernel": build_node_sharded_train_step(mesh, psg, ncfg, tcfg),
+             "plain": build_node_sharded_train_step(
+                 mesh, psg, ncfg, tcfg, agg_fn=aggregate_plain,
+                 exchange_fn=halo_exchange_plain)}
+    cands = steps["kernel"].draw(node_batch(edges_pad, idx), gen)
+    runs = {}
+    for name, step in steps.items():
+        reset_counts()
+        stats = step.update(params, opt, cands)
+        torch.cuda.synchronize()
+        runs[name] = (float(stats[0] / stats[2]),
+                      {k: p.grad.clone() for k, p in leaves}, read_counts())
+    opt.zero_grad(set_to_none=True)
+    full = tuple(torch.cat([c[i] for c in cands]) for i in range(5))
+    loss, _ = loop.loss_from_candidates(params, graph, *full, ncfg,
+                                        train=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    runs["full_graph"] = (loss.item(), {k: p.grad.clone() for k, p in leaves},
+                          None)
+    if runs["kernel"][2] != node_launches(psg) or \
+            any(runs["plain"][2].values()):
+        raise AssertionError(
+            f"node_grad launches: kernel {runs['kernel'][2]}, plain "
+            f"{runs['plain'][2]}; expected {node_launches(psg)} and none")
+    if not np.isfinite(runs["kernel"][0]):
+        raise AssertionError("non-finite node-sharded loss")
+    out, max_err = {}, 0.0
+    for ref in ("plain", "full_graph"):
+        np.testing.assert_allclose(runs["kernel"][0], runs[ref][0], rtol=1e-5)
+        per_leaf = {}
+        for k, want in runs[ref][1].items():
+            err = close_scaled(runs["kernel"][1][k], want,
+                               f"node_grad/{ref}/{k}")
+            max_err = max(max_err, err)
+            per_leaf[k] = {"max_abs_err": err,
+                           "max_abs": float(want.abs().max())}
+        out[ref] = dict(loss=runs[ref][0], leaves=per_leaf)
+    emit("node_grad", loss_kernel=runs["kernel"][0],
+         launches=runs["kernel"][2], against=out)
+    return max_err
+
+
+def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
+    """``build_node_sharded_train_step`` with B4 at batch 1024, adam and
+    dropout 0.5: a fresh host batch each step, 3 warm-up then 30 timed
+    steps on the host clock, the launches of every kernel counted and
+    asserted; then a 10-step profile."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.parallel.node_shard import (
+        build_node_sharded_train_step)
+    from primekg_rgcn_tpu_torch.train import loop
+    from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
+                                                        trace_breakdown)
+
+    tcfg = TrainConfig(batch_size=1024)
+    ncfg, params, edges_pad = node_setup(cfg, edges, dev, dropout=0.5)
+    step = build_node_sharded_train_step(make_mesh(N_SHARDS, dev), psg, ncfg,
+                                         tcfg)
+    opt = loop.make_optimizer(tcfg, params)
+    gen = torch.Generator(dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def one():
+        idx = torch.from_numpy(rng.integers(0, edges.shape[0],
+                                            tcfg.batch_size))
+        idx = idx.pin_memory().to(dev, non_blocking=True)
+        return step(params, opt, node_batch(edges_pad, idx), gen)
+
+    first = one()
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        last = one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = read_counts()
+    want = {k: v * steps for k, v in node_launches(psg).items()}
+    if counts != want:
+        raise AssertionError(f"node_train: launches {counts}, expected {want}")
+    first_loss = float(first[0] / first[2])
+    last_loss = float(last[0] / last[2])
+    if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
+        raise AssertionError(f"node_train: non-finite loss {first_loss}, "
+                             f"{last_loss}")
+    result = dict(steps=steps, batch_size=tcfg.batch_size, shards=N_SHARDS,
+                  step_ms=step_ms,
+                  train_edges_per_s=tcfg.batch_size / step_ms * 1e3,
+                  launches=counts,
+                  launches_per_step={k: v / steps for k, v in counts.items()},
+                  peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+                  first_loss=first_loss, last_loss=last_loss)
+    emit("node_train", **result)
+
+    prof_steps = 10
+    torch.cuda.synchronize()
+    with profile_trace(tmp / "node_profile"):
+        t0 = time.perf_counter()
+        for _ in range(prof_steps):
+            one()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
+    bd = trace_breakdown(tmp / "node_profile" / "trace.json")
+    if bd is None:
+        emit("node_train_profile", steps=prof_steps, device_events=0,
+             idle_share="not measured")
+    else:
+        busy_ms = bd["busy_us"] / prof_steps / 1e3
+        b4_us = bd["us_by_kind"].get("halo_exchange", 0.0)
+        emit("node_train_profile", steps=prof_steps,
+             step_ms_under_profiler=prof_ms, device_busy_ms_per_step=busy_ms,
+             idle_share_two_windows=1.0 - busy_ms / step_ms,
+             b4_share_of_busy=b4_us / bd["busy_us"], **bd)
+    return counts
+
+
+def untied_ids_equal(got_s, got_i, ref_s, ref_i):
+    """Top-K ids equal where the reference's neighbouring scores are
+    further apart than rtol 1e-4 of the row's scale (the serve phase's
+    rule); returns whether they are equal everywhere."""
+    import numpy as np
+
+    np.testing.assert_allclose(got_s, ref_s, **TOL)
+    tol = TOL["rtol"] * (np.abs(ref_s) + np.abs(ref_s).max())
+    gaps = np.abs(np.diff(ref_s))
+    tied = np.zeros(len(ref_s), bool)
+    tied[1:] |= gaps <= tol[1:]
+    tied[:-1] |= gaps <= tol[:-1]
+    if not np.array_equal(got_i[~tied], ref_i[~tied]):
+        raise AssertionError(f"top-K ids {got_i.tolist()} vs dense "
+                             f"{ref_i.tolist()}")
+    return bool(np.array_equal(got_i, ref_i))
+
+
+def phase_node_serve(tmp, psg, cfg, heads, served, dev):
+    """``predict_cli.main --shard node --n_devices 4`` for the serve phase's
+    queries (3 relations, 8 heads, top-10) from the same checkpoint and
+    data: the launches of one encode per call, ids equal to the dense
+    serve's; then the sharded encode and query timed."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.evaluate import predict_cli
+    from primekg_rgcn_tpu_torch.evaluate.sharded_ranking import (
+        build_sharded_topk)
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.parallel.node_shard import (
+        build_node_sharded_forward)
+    from primekg_rgcn_tpu_torch.train import checkpoint
+
+    topk = len(served[0][0]["predictions"])
+    per_call, exact, cli_s = [], [], []
+    for r in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        got = predict_cli.main([
+            "--model_path", str(tmp / "model.pt"), "--data_dir", str(tmp),
+            "--heads", *map(str, heads), "--relation", str(r),
+            "--topk", str(topk), "--device", "cuda", "--shard", "node",
+            "--n_devices", str(N_SHARDS)])
+        cli_s.append(time.perf_counter() - t0)
+        per_call.append(read_counts())
+        if per_call[-1] != node_launches(psg, step=False):
+            raise AssertionError(f"node_serve relation {r}: launches "
+                                 f"{per_call[-1]}")
+        for res, ref in zip(got, served[r]):
+            g = res["predictions"]
+            w = ref["predictions"]
+            if not np.all(np.isfinite([x["score"] for x in g])):
+                raise AssertionError("non-finite sharded scores")
+            exact.append(untied_ids_equal(
+                np.array([x["score"] for x in g]),
+                np.array([x["tail_id"] for x in g]),
+                np.array([x["score"] for x in w]),
+                np.array([x["tail_id"] for x in w])))
+
+    params = checkpoint.load(tmp / "model.pt", device=dev)["params"]
+    mesh = make_mesh(N_SHARDS, dev)
+    encode = build_node_sharded_forward(mesh, psg, cfg, gather=False)
+    q_heads = torch.tensor(heads, device=dev)
+    rels = torch.zeros(len(heads), dtype=torch.long, device=dev)
+    with torch.no_grad():
+        encode_ms = host_ms(lambda: encode(params))
+        emb_dm = encode(params)
+        query = build_sharded_topk(mesh, emb_dm, params["decoder"]["rel_emb"],
+                                   cfg.num_nodes, topk)
+        query_ms = cuda_ms(lambda: query(q_heads, rels))
+    emit("node_serve", shards=N_SHARDS, relations_served=3,
+         queries_per_call=len(heads), topk=topk, launches_per_call=per_call,
+         ids_equal_dense_exactly=all(exact), cli_seconds=cli_s,
+         encode_ms=encode_ms, query_ms=query_ms)
+    return per_call
+
+
+def phase_node_cli(tmp):
+    """train.cli.main --shard node --n_devices 4 at
+    synthetic scale 0.1 for 2 epochs, then predict_cli --shard node from
+    its final model; B4 must launch in both."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.evaluate import predict_cli
+    from primekg_rgcn_tpu_torch.train import cli as train_cli
+
+    out = tmp / "node_cli"
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_cli.main([
+        "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+        "--seed", "0", "--device", "cuda", "--shard", "node",
+        "--n_devices", str(N_SHARDS), "--output_dir", str(out)])
+    seconds = time.perf_counter() - t0
+    train_counts = read_counts()
+    hist = result["history"]
+    problems = []
+    if not np.all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
+        problems.append(f"losses {hist}")
+    for f in ("best_model.pt", "final_model.pt"):
+        if not (out / "models" / f).exists():
+            problems.append(f"missing models/{f}")
+    if train_counts["B4"] == 0:
+        problems.append("no B4 launch in training")
+    reset_counts()
+    served = predict_cli.main([
+        "--model_path", str(out / "models" / "final_model.pt"),
+        "--data_dir", str(out / "synthetic_data"), "--heads", "0", "7",
+        "--relation", "0", "--topk", "5", "--device", "cuda",
+        "--shard", "node", "--n_devices", str(N_SHARDS)])
+    serve_counts = read_counts()
+    scores = [p["score"] for q in served for p in q["predictions"]]
+    if len(scores) != 10 or not np.all(np.isfinite(scores)):
+        problems.append(f"served scores {scores}")
+    if serve_counts["B4"] != 2:
+        problems.append(f"serve launches {serve_counts}")
+    if problems:
+        raise AssertionError("node_cli: " + "; ".join(problems))
+    emit("node_cli", seconds=seconds, launches=train_counts,
+         serve_launches=serve_counts, history=hist,
+         epoch_time_s=result["epoch_times_s"])
+    return train_counts
+
 
 def main():
     import torch
@@ -995,6 +1402,7 @@ def main():
     from primekg_rgcn_tpu_torch.evaluate import predict_cli
     from primekg_rgcn_tpu_torch.models import rgcn
     from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
     from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
     from primekg_rgcn_tpu_torch.ops.cuda.build import vec_width
@@ -1002,6 +1410,7 @@ def main():
     from primekg_rgcn_tpu_torch.ops.rgcn_segment import (aggregate_plain,
                                                          build_layer_agg_ops,
                                                          rgcn_layer_segment)
+    from primekg_rgcn_tpu_torch.parallel.node_shard import partition_nodes
     from primekg_rgcn_tpu_torch.train import checkpoint, torch_interop
 
     # float32 products in full float32 (both are PyTorch's defaults for
@@ -1025,9 +1434,9 @@ def main():
     # -- 2. build -----------------------------------------------------------
     # One nvcc per kernel source, all started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        built = list(pool.map(lambda lib: lib.build(verbose=True),
-                              [ss.LIBRARY, pds.LIBRARY, pwf.LIBRARY]))
+    libraries = [ss.LIBRARY, pds.LIBRARY, pwf.LIBRARY, halo.LIBRARY]
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(lambda lib: lib.build(verbose=True), libraries))
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          libraries={str(path.relative_to(repo)): [
              ln.strip() for ln in out.splitlines()
@@ -1278,6 +1687,29 @@ def main():
                                                    Path(tmp))
         scli_launches = phase_sampled_cli(Path(tmp))
 
+        # -- 14-18. node-sharded training and serving ------------------------
+        t0 = time.perf_counter()
+        psg = partition_nodes(graph, N_SHARDS)
+        emit("node_partition", seconds=time.perf_counter() - t0,
+             shards=N_SHARDS, n_loc=psg.n_loc, halo_width=psg.halo_width,
+             offsets_local=list(psg.offsets_local),
+             offsets_halo=list(psg.offsets_halo),
+             real_local_edges=int((psg.dst_local < psg.n_loc).sum()),
+             real_halo_edges=int((psg.dst_halo < psg.n_loc).sum()),
+             real_serve_slots=int((psg.serve < psg.n_loc).sum()))
+        b4_rows = phase_kernel_b4(psg, dev)
+        ngrad_err = phase_node_grad(graph, psg, cfg, edges, dev)
+        node_counts = phase_node_train(psg, cfg, edges, dev, Path(tmp))
+        node_data = Path(tmp) / "node_serve"
+        node_data.mkdir()
+        artifacts.save_split_npz(node_data / "full_graph.npz", split)
+        artifacts.save_mappings(node_data / "mappings.json",
+                                synthetic.synthetic_mappings(raw))
+        torch_interop.save_reference_pt(params, cfg, node_data / "model.pt")
+        nserve_counts = phase_node_serve(node_data, psg, cfg, heads, served,
+                                         dev)
+        ncli_counts = phase_node_cli(Path(tmp))
+
     # -- 14. summary --------------------------------------------------------
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1294,9 +1726,12 @@ def main():
         "launches_by_path": {"serve": launches, "train": train_launches,
                              "train_cli": cli_launches,
                              "sampled_cli": {k: v["B1"] for k, v in
-                                             scli_launches.items()}},
+                                             scli_launches.items()},
+                             "node_train": node_counts["B1"],
+                             "node_serve": [c["B1"] for c in nserve_counts],
+                             "node_cli": ncli_counts["B1"]},
         "launches_per_step": {"forward": 6, "backward": 6},
-        "max_abs_err": max(max_err, bwd_err, grad_err),
+        "max_abs_err": max(max_err, bwd_err, grad_err, ngrad_err),
         "ms": total(main_rows, "kernel_ms"),
         "bwd_ms": total(bwd_rows, "kernel_ms"),
         "wrapper_ms": total(main_rows, "wrapper_ms"),
@@ -1354,7 +1789,27 @@ def main():
                "bound_ms and library_ms sum its two launches (outer and "
                "inner layer); library_ms is packed[starts[:, None] + "
                "arange(F)]; launches is the sampled_train block/slim "
-               "count"}]}), flush=True)
+               "count"}, {
+        "name": "halo_exchange", "id": "B4", "route": "cuda",
+        "source": "primekg_rgcn_tpu_torch/csrc/halo_exchange.cu",
+        "replaces": "primekg_rgcn_tpu/ops/pallas/halo.py:60",
+        "launches": node_counts["B4"],
+        "launches_by_path": {"node_train": node_counts["B4"],
+                             "node_serve": [c["B4"] for c in nserve_counts],
+                             "node_cli": ncli_counts["B4"]},
+        "launches_per_step": {"forward": 2, "backward": 2},
+        "max_abs_err": 0,
+        "ms": total(b4_rows, "kernel_ms"),
+        "plain_ms": total(b4_rows, "plain_ms"),
+        "bound_ms": total(b4_rows, "bound_us") / 1e3,
+        "bound_by": bound_by(b4_rows),
+        "library_ms": total(b4_rows, "library_ms"),
+        "per": "one encode over %d shards (P = %d): ms, plain_ms, bound_ms "
+               "and library_ms sum its two launches (D = 64 and 128); a "
+               "training step runs each twice (forward, backward); "
+               "library_ms is one copy_ of the same bytes; launches is the "
+               "node_train count" % (b4_rows[0]["n"], b4_rows[0]["p"])}]}),
+        flush=True)
     print(card, flush=True)
     # The run uses one card (cuda:0) whatever the machine holds.
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
-"""Top-K tail prediction CLI (serving entry point), dense on one device.
+"""Top-K tail prediction CLI (serving entry point).
 
 Loads a reference-layout ``.pt`` checkpoint and a processed-data directory,
 encodes the whole graph once, scores every entity as tail for the given
-(head, relation) queries, and returns the K best:
+(head, relation) queries, and returns the K best: dense on one device, or
+node-sharded (``--shard node``: the node-partitioned encode with the halo
+exchange, kernel B4, and a distributed top-K, so no shard holds the [N, D]
+table or a [B, N] score row; every shard lives on the one ``--device``):
 
     python -m primekg_rgcn_tpu_torch.evaluate.predict_cli \
         --model_path model.pt --data_dir data/processed \
         --heads 12 844 --relation 0 --topk 10 [--device cuda|cpu] \
-        [--output predictions.json]
+        [--shard node --n_devices 4] [--output predictions.json]
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ def parse_args(argv=None):
     p.add_argument("--relation", type=int, default=0)
     p.add_argument("--topk", type=int, default=10)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--shard", choices=["none", "node"], default="none")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="shards of --shard node (0 = the visible devices)")
     p.add_argument("--output", default=None,
                    help="optional JSON file for the predictions")
     return p.parse_args(argv)
@@ -67,7 +73,6 @@ def main(argv=None):
     if not 0 <= args.relation < graph.num_relations:
         raise SystemExit(f"relation {args.relation} out of range "
                          f"[0, {graph.num_relations})")
-    graph = graph.to(device)
 
     names = None
     if ds.get("mappings"):
@@ -77,9 +82,30 @@ def main(argv=None):
     heads = torch.tensor(args.heads, dtype=torch.long, device=device)
     rels = torch.full((len(args.heads),), args.relation, dtype=torch.long,
                       device=device)
-    with torch.no_grad():
-        all_scores = predict_all_tails(params, graph, heads, rels, model_cfg)
-        scores, ids = torch.topk(all_scores, args.topk, dim=1)
+    if args.shard == "node":
+        from primekg_rgcn_tpu_torch.evaluate.sharded_ranking import (
+            build_sharded_topk)
+        from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+        from primekg_rgcn_tpu_torch.parallel.node_shard import (
+            build_node_sharded_forward, partition_nodes)
+
+        try:
+            mesh = make_mesh(args.n_devices or None, device)
+        except ValueError as exc:
+            raise SystemExit(f"--shard node: {exc}") from exc
+        nsg = partition_nodes(graph, mesh.n_shards)
+        with torch.no_grad():
+            emb_dm = build_node_sharded_forward(
+                mesh, nsg, model_cfg, gather=False)(params)
+            topk = build_sharded_topk(mesh, emb_dm,
+                                      params["decoder"]["rel_emb"], n,
+                                      args.topk)
+            scores, ids = topk(heads, rels)
+    else:
+        with torch.no_grad():
+            all_scores = predict_all_tails(params, graph.to(device), heads,
+                                           rels, model_cfg)
+            scores, ids = torch.topk(all_scores, args.topk, dim=1)
     scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
 
     results = []

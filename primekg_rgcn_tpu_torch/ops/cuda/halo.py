@@ -1,0 +1,150 @@
+"""Halo exchange of the node-sharded layer: the CUDA kernel, its plain
+PyTorch version and the wrapper that picks between them by device.
+
+    recv[o][d] = send[d][o]   for every pair of shards (d, o)
+
+``send[d]`` is shard d's float32 [n, P, D] (block o: the P rows d serves to
+peer o); ``recv[o]`` is shard o's [n, P, D] (block d: what d sent it). This
+is the counterpart of ``pallas_halo_exchange`` in
+``primekg_rgcn_tpu/ops/pallas/halo.py``: it replaces the TPU kernel
+``_halo_kernel``, with the semantics of a tiled ``lax.all_to_all`` over the
+mesh axis. One process drives every shard and the shards' tensors all lie
+on the mesh's one device, so the exchange is one launch over the n * n
+pairs (``csrc/halo_exchange.cu``; its header comment gives the design and
+what bounds it on the H100: memory bytes). It is built with ``nvcc`` for
+``sm_90a`` at first use into ``primekg_rgcn_tpu_torch/_build/`` and bound
+through ``ctypes`` (``ops/cuda/build.py``).
+
+``HaloExchange`` is the differentiable form, the counterpart of the
+``jax.custom_vjp`` around the TPU kernel: the exchange permutes blocks, so
+its transpose is the same exchange applied to the gradients, and the
+backward launches the kernel too.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
+
+import torch
+
+from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
+
+# The kernel's parameter block holds this many send and recv pointers.
+MAX_SHARDS = 64
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = CudaLibrary("halo_exchange.cu", {
+    "halo_exchange_f32": (_p, _p, _p, _i, ctypes.c_longlong, _i, _i, _p)})
+
+
+def halo_schedule(n: int) -> List[Tuple[str, int]]:
+    """The TPU kernel's event order for an ``n``-shard exchange:
+    ``[("start", 0), ..., ("start", n-2), ("local_copy", -1), ("wait", 0),
+    ..., ("wait", n-2)]``. Transfer i of shard s goes to peer
+    ``(s + 1 + i) % n``; the CUDA kernel issues its blocks in this order
+    (:func:`step_offsets`)."""
+    events: List[Tuple[str, int]] = [("start", i) for i in range(n - 1)]
+    events.append(("local_copy", -1))
+    events.extend(("wait", i) for i in range(n - 1))
+    return events
+
+
+def step_offsets(n: int) -> List[int]:
+    """The kernel's grid steps from ``halo_schedule(n)``'s copy events: at
+    step i (``blockIdx.z``) shard s copies its block for peer
+    ``(s + offsets[i]) % n``: ``1 + i`` for ("start", i), 0 for the local
+    copy. Waits have no step: the kernel's end completes every pair."""
+    return [1 + i if kind == "start" else 0
+            for kind, i in halo_schedule(n) if kind != "wait"]
+
+
+def _check(sends: Sequence[torch.Tensor]) -> None:
+    n = len(sends)
+    if not 1 <= n <= MAX_SHARDS:
+        raise ValueError(f"need 1 to {MAX_SHARDS} shards, got {n}")
+    shape = tuple(sends[0].shape)
+    for s in sends:
+        if s.dtype != torch.float32 or s.dim() != 3 or s.shape[0] != n:
+            raise ValueError(f"each send must be float32 [{n}, P, D], got "
+                             f"{s.dtype} {tuple(s.shape)}")
+        if tuple(s.shape) != shape:
+            raise ValueError(f"sends differ in shape: {tuple(s.shape)} vs "
+                             f"{shape}")
+        if s.device != sends[0].device:
+            raise ValueError("every send must lie on the mesh's one device")
+        if not s.is_contiguous():
+            raise ValueError("sends must be contiguous")
+
+
+def halo_exchange_plain(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Plain PyTorch version: ``recv[o] = stack([send[d][o] for d])``
+    (autograd differentiates it)."""
+    n = len(sends)
+    return [torch.stack([sends[d][o] for d in range(n)]) for o in range(n)]
+
+
+def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Exchange the shards' halo rows: ``recv[o][d] = sends[d][o]``.
+
+    Args:
+        sends: one float32 [n, P, D] contiguous tensor per shard, all of one
+            shape and on one device.
+
+    Returns the n recv tensors, each of its own allocation. On CPU tensors
+    this runs the plain version; on CUDA tensors it launches the kernel or
+    raises. It records no gradient: differentiate through
+    ``HaloExchange.apply``.
+    """
+    _check(sends)
+    if torch.is_grad_enabled() and any(s.requires_grad for s in sends):
+        raise ValueError("halo_exchange records no gradient; differentiate "
+                         "through HaloExchange.apply")
+    dev = sends[0].device
+    if dev.type == "cpu":
+        return halo_exchange_plain(sends)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return launch(sends)
+
+
+def launch(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Launch the kernel on CUDA tensors that ``halo_exchange`` has
+    checked; counts the launch."""
+    n, p, d = sends[0].shape
+    recvs = [torch.empty_like(sends[0]) for _ in range(n)]
+    if p * d == 0:
+        return recvs
+    ptrs = [s.data_ptr() for s in sends] + [r.data_ptr() for r in recvs]
+    vec = 4 if d % 4 == 0 and all(q % 16 == 0 for q in ptrs) else 1
+    table = ctypes.c_uint64 * n
+    lib = LIBRARY.load()
+    with torch.cuda.device(sends[0].device):
+        rc = lib.halo_exchange_f32(
+            table(*ptrs[:n]), table(*ptrs[n:]),
+            (ctypes.c_int * n)(*step_offsets(n)), n, p, d, vec,
+            torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "halo_exchange")
+    halo_exchange.launches += 1
+    return recvs
+
+
+halo_exchange.launches = 0
+
+
+class HaloExchange(torch.autograd.Function):
+    """``halo_exchange`` with its gradient: ``HaloExchange.apply(*sends)``
+    returns the n recv tensors. The gradient of ``send[d][o]`` is that of
+    ``recv[o][d]``, so the backward is the same exchange over the recv
+    gradients (an output without a gradient contributes zeros). On the CPU
+    both directions run the plain version, on the card both launch the
+    kernel (and count)."""
+
+    @staticmethod
+    def forward(ctx, *sends: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        ctx.set_materialize_grads(True)
+        return tuple(halo_exchange(sends))
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return tuple(halo_exchange([g.contiguous() for g in grads]))

@@ -1,0 +1,530 @@
+"""Node-sharded RGCN with a halo exchange, one process driving the shards.
+
+The counterpart of ``primekg_rgcn_tpu/parallel/node_shard.py``:
+
+- Nodes are partitioned contiguously over the mesh's n shards; shard d owns
+  feature rows [d*n_loc, (d+1)*n_loc) (the last shard padded).
+- Edges live with their destination's owner, so aggregation writes are
+  local. Each shard's edges are pre-split into a LOCAL-source group (both
+  endpoints owned here) and a HALO-source group.
+- The only exchange is the **halo exchange**: before aggregating, each shard
+  sends the rows its peers' edges need (precomputed, deduped, padded serve
+  lists) through one exchange per layer, ``HaloExchange``
+  (``ops/cuda/halo.py``): kernel B4 on the card, its plain version on the
+  CPU.
+- Every index is computed once on the host by :func:`partition_nodes`, with
+  the arrays of the JAX partitioner bit for bit (``pallas=False``). In place
+  of the Pallas schedules, each (shard, group, relation) bucket carries the
+  CSR ``rowptr`` over its n_loc + 1 destination rows and the transpose CSR
+  ``t_rowptr`` over its table's rows (n_loc + 1 local, n*P + 1 halo), so
+  ``GatherSegmentSum`` runs kernel B1 both ways, per shard. The CSRs cover
+  each bucket's real edges only, and a bucket without real edges is
+  skipped: the sentinel padding, which the JAX layer gathers and drops, up
+  to a cap set by the fullest shard, would all fall on the dummy row, and
+  B1 walks a row with one warp (174,336 padding edges on one bucket of the
+  ``bench.py`` graph at n = 4). Padding adds exactly zero either way.
+
+All shards of a mesh live on one device (``parallel/mesh.py``): a sharded
+function is a loop over the shards and the collectives are plain functions.
+The relation loop is unrolled; the JAX package's ``lax.scan`` path for
+uniform caps (R >= 16, the config-5 graph) is not ported yet
+(``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
+from primekg_rgcn_tpu_torch.data.graph import RelGraph, edge_arrays_from_graph
+from primekg_rgcn_tpu_torch.models.rgcn import Params, dropout
+from primekg_rgcn_tpu_torch.ops.cuda.halo import HaloExchange
+from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
+from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
+    AggOp, aggregate, materialize_relation_weights)
+from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, all_gather, psum
+from primekg_rgcn_tpu_torch.train.loop import Candidates, apply_update
+from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
+                                                       candidate_batch)
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class NodeShardedGraph:
+    """Shard-major node partition + halo metadata.
+
+    n_loc: rows per shard (the last shard padded).
+    Local-source group (needs no received row):
+        src_local: int32[n, E_l] indices into [x_local (n_loc) | zero (1)].
+        dst_local: int32[n, E_l] local destination rows (sentinel = n_loc).
+        offsets_local: per-relation offsets along E_l.
+    Halo-source group (needs the exchange):
+        src_halo: int32[n, E_h] indices into the received halo table
+            [halo rows (n*P) | zero sentinel (1)].
+        dst_halo: int32[n, E_h] local destination rows (sentinel = n_loc).
+        offsets_halo: per-relation offsets along E_h.
+    t_src_* / t_dst_*: the same edges sorted by source within each
+        (shard, relation) bucket (the transpose, for the backward).
+    inv_deg: float32[n, R, n_loc + 1] local reciprocal in-degrees over both
+        groups.
+    serve: int32[n, n, P] local row ids each shard serves to each peer
+        (sentinel n_loc -> the zero row).
+    rowptr_local / rowptr_halo: int32[n, R, n_loc + 2] each bucket's CSR
+        of its real edges over its n_loc + 1 destination rows, offsets into
+        the bucket (the padding after ``rowptr[..., -1]`` is left out).
+    t_rowptr_local: int32[n, R, n_loc + 2] the transpose CSR over the local
+        table's n_loc + 1 rows; t_rowptr_halo: int32[n, R, n*P + 2] over
+        the halo table's n*P + 1 rows (real edges only, as above).
+    halo_width: P (per peer-pair request capacity).
+    """
+
+    src_local: torch.Tensor
+    dst_local: torch.Tensor
+    src_halo: torch.Tensor
+    dst_halo: torch.Tensor
+    t_src_local: torch.Tensor
+    t_dst_local: torch.Tensor
+    t_src_halo: torch.Tensor
+    t_dst_halo: torch.Tensor
+    inv_deg: torch.Tensor
+    serve: torch.Tensor
+    rowptr_local: torch.Tensor
+    t_rowptr_local: torch.Tensor
+    rowptr_halo: torch.Tensor
+    t_rowptr_halo: torch.Tensor
+    offsets_local: Tuple[int, ...]
+    offsets_halo: Tuple[int, ...]
+    n_loc: int
+    halo_width: int
+    num_nodes: int
+    num_relations: int
+    n_devices: int
+    uniform_caps: bool
+
+    _TENSORS = ("src_local", "dst_local", "src_halo", "dst_halo",
+                "t_src_local", "t_dst_local", "t_src_halo", "t_dst_halo",
+                "inv_deg", "serve", "rowptr_local", "t_rowptr_local",
+                "rowptr_halo", "t_rowptr_halo")
+
+    def to(self, device) -> "NodeShardedGraph":
+        """The same partition with every array on ``device``."""
+        return replace(self, **{k: getattr(self, k).to(device)
+                                for k in self._TENSORS})
+
+
+def partition_nodes(graph: RelGraph, n_devices: int, *,
+                    pad_multiple: int = 256,
+                    uniform_caps: Optional[bool] = None) -> NodeShardedGraph:
+    """Host-side partitioner (runs once per graph and mesh size), on the CPU.
+
+    ``uniform_caps`` pads every relation bucket to the same capacity, the
+    layout of the JAX package's ``lax.scan`` layer; default on when
+    num_relations >= 16. The port's layer runs the unrolled relation loop
+    only and refuses a uniform-caps partition.
+    """
+    n = n_devices
+    if uniform_caps is None:
+        uniform_caps = graph.num_relations >= 16
+    num_nodes = graph.num_nodes
+    r_count = graph.num_relations
+    n_loc = -(-num_nodes // n)
+
+    src_g, dst_g, rel_g = edge_arrays_from_graph(graph)
+    owner_dst = dst_g // n_loc
+
+    # Per-shard edge lists sorted by (rel, dst), split by source locality.
+    per_dev = []
+    counts_l = np.zeros((n, r_count), np.int64)
+    counts_h = np.zeros((n, r_count), np.int64)
+    for d in range(n):
+        mask = owner_dst == d
+        s, t, r = src_g[mask], dst_g[mask], rel_g[mask]
+        # One combined-key sort (r < R, t < num_nodes: collision-free).
+        order = np.argsort(r.astype(np.int64) * num_nodes + t,
+                           kind="stable")
+        s, t, r = s[order], t[order], r[order]
+        is_local = s // n_loc == d
+        per_dev.append(((s[is_local], t[is_local], r[is_local]),
+                        (s[~is_local], t[~is_local], r[~is_local])))
+        counts_l[d] = np.bincount(r[is_local], minlength=r_count)
+        counts_h[d] = np.bincount(r[~is_local], minlength=r_count)
+
+    def _caps(counts):
+        caps = [max(_round_up(int(counts[:, r].max()), pad_multiple),
+                    pad_multiple) for r in range(r_count)]
+        if uniform_caps:
+            caps = [max(caps)] * r_count
+        offsets = [0]
+        for c in caps:
+            offsets.append(offsets[-1] + c)
+        return offsets
+
+    offs_l = _caps(counts_l)
+    offs_h = _caps(counts_h)
+    e_l, e_h = offs_l[-1], offs_h[-1]
+
+    # Halo requests: req[d][o] = sorted unique global ids d needs from o.
+    req = [[np.zeros(0, np.int64) for _ in range(n)] for _ in range(n)]
+    for d in range(n):
+        remote = per_dev[d][1][0]
+        for o in range(n):
+            req[d][o] = np.unique(remote[remote // n_loc == o])
+    halo_p = max(max((len(req[d][o]) for o in range(n)), default=0)
+                 for d in range(n))
+    halo_p = max(_round_up(max(halo_p, 1), 8), 8)
+
+    src_local = np.full((n, e_l), n_loc, np.int32)   # sentinel -> zero row
+    dst_local = np.full((n, e_l), n_loc, np.int32)
+    src_halo = np.full((n, e_h), n * halo_p, np.int32)  # halo-table sentinel
+    dst_halo = np.full((n, e_h), n_loc, np.int32)
+    inv_deg = np.zeros((n, r_count, n_loc + 1), np.float32)
+    serve = np.full((n, n, halo_p), n_loc, np.int32)
+
+    for d in range(n):
+        (ls, lt, lr), (hs, ht, hr) = per_dev[d]
+        # Vectorised gid -> halo-slot map.
+        req_cat = np.concatenate([req[d][o] for o in range(n)]) \
+            if any(len(req[d][o]) for o in range(n)) else np.zeros(0, np.int64)
+        pos_cat = np.concatenate(
+            [o * halo_p + np.arange(len(req[d][o]), dtype=np.int64)
+             for o in range(n)]) if len(req_cat) else np.zeros(0, np.int64)
+        order = np.argsort(req_cat, kind="stable")
+        req_sorted, pos_sorted = req_cat[order], pos_cat[order]
+
+        # Edges are (rel, dst)-sorted: per-relation buckets are slices.
+        bl = np.searchsorted(lr, np.arange(r_count + 1))
+        bh = np.searchsorted(hr, np.arange(r_count + 1))
+        halo_slot_all = (pos_sorted[np.searchsorted(req_sorted, hs)]
+                         .astype(np.int32) if len(hs) else
+                         np.zeros(0, np.int32))
+
+        for r in range(r_count):
+            a, bnd = int(bl[r]), int(bl[r + 1])
+            c = bnd - a
+            off = offs_l[r]
+            src_local[d, off:off + c] = ls[a:bnd] - d * n_loc
+            dst_local[d, off:off + c] = lt[a:bnd] - d * n_loc
+
+            ah, bndh = int(bh[r]), int(bh[r + 1])
+            ch = bndh - ah
+            offh = offs_h[r]
+            if ch:
+                src_halo[d, offh:offh + ch] = halo_slot_all[ah:bndh]
+            dst_halo[d, offh:offh + ch] = ht[ah:bndh] - d * n_loc
+
+            deg = np.bincount(lt[a:bnd] - d * n_loc, minlength=n_loc + 1) \
+                + np.bincount(ht[ah:bndh] - d * n_loc, minlength=n_loc + 1)
+            nz = deg > 0
+            inv_deg[d, r, nz] = 1.0 / deg[nz]
+            inv_deg[d, r, n_loc] = 0.0
+        for o in range(n):
+            ids = req[d][o]
+            serve[o, d, : len(ids)] = ids - o * n_loc
+
+    # Per-(shard, relation, group) transpose order (sorted by source); the
+    # sentinel tails are already in place and sort last, so only each
+    # bucket's real prefix is sorted.
+    t_src_local = src_local.copy()
+    t_dst_local = dst_local.copy()
+    t_src_halo = src_halo.copy()
+    t_dst_halo = dst_halo.copy()
+    for d in range(n):
+        for r in range(r_count):
+            for (S, D_, TS, TD, offs, cnts) in (
+                    (src_local, dst_local, t_src_local, t_dst_local, offs_l,
+                     counts_l),
+                    (src_halo, dst_halo, t_src_halo, t_dst_halo, offs_h,
+                     counts_h)):
+                a = offs[r]
+                c = int(cnts[d, r])
+                if c == 0:
+                    continue
+                order = np.argsort(S[d, a:a + c], kind="stable")
+                TS[d, a:a + c] = S[d, a:a + c][order]
+                TD[d, a:a + c] = D_[d, a:a + c][order]
+
+    def csr(keys, offs, counts, rows):
+        """int32[n, R, rows + 1]: each bucket's CSR over ``rows`` rows of
+        its real, sorted ``keys`` (the padding after them left out)."""
+        out = np.zeros((n, r_count, rows + 1), np.int32)
+        ar = np.arange(rows + 1)
+        for d in range(n):
+            for r in range(r_count):
+                a = offs[r]
+                out[d, r] = np.searchsorted(keys[d, a:a + counts[d, r]], ar)
+        return out
+
+    t = torch.from_numpy
+    return NodeShardedGraph(
+        src_local=t(src_local), dst_local=t(dst_local),
+        src_halo=t(src_halo), dst_halo=t(dst_halo),
+        t_src_local=t(t_src_local), t_dst_local=t(t_dst_local),
+        t_src_halo=t(t_src_halo), t_dst_halo=t(t_dst_halo),
+        inv_deg=t(inv_deg), serve=t(serve),
+        rowptr_local=t(csr(dst_local, offs_l, counts_l, n_loc + 1)),
+        t_rowptr_local=t(csr(t_src_local, offs_l, counts_l, n_loc + 1)),
+        rowptr_halo=t(csr(dst_halo, offs_h, counts_h, n_loc + 1)),
+        t_rowptr_halo=t(csr(t_src_halo, offs_h, counts_h, n * halo_p + 1)),
+        offsets_local=tuple(offs_l), offsets_halo=tuple(offs_h),
+        n_loc=n_loc, halo_width=halo_p, num_nodes=num_nodes,
+        num_relations=r_count, n_devices=n, uniform_caps=bool(uniform_caps))
+
+
+class ShardOps(NamedTuple):
+    """One shard's operands: its serve list (int64 [n, P]) and, per
+    relation, the local and halo groups' ``GatherSegmentSum`` operands over
+    the bucket's real edges (``None`` for a bucket without any)."""
+
+    serve: torch.Tensor
+    local: List[Optional[AggOp]]
+    halo: List[Optional[AggOp]]
+
+
+def build_shard_ops(sg: NodeShardedGraph) -> List[ShardOps]:
+    """Per-shard operands on the partition's device: slices of its arrays,
+    no copies (but the serve lists, widened once for indexing). Reads each
+    bucket's real edge count back to the host once."""
+    if sg.uniform_caps:
+        raise NotImplementedError(
+            "uniform_caps partitions feed the JAX package's lax.scan layer "
+            "(_scan_accumulate), which is not ported yet (ROADMAP.md A10); "
+            "partition with uniform_caps=False")
+
+    def group(d, src, t_dst, rowptr, t_rowptr, offs):
+        ops: List[Optional[AggOp]] = []
+        for r in range(sg.num_relations):
+            s = offs[r]
+            e = s + int(rowptr[d, r, -1])
+            ops.append(None if e == s else AggOp(
+                src=src[d, s:e], rowptr=rowptr[d, r], scale=None,
+                t_ids=t_dst[d, s:e], t_rowptr=t_rowptr[d, r], t_scale=None))
+        return ops
+
+    return [ShardOps(
+        serve=sg.serve[d].long(),
+        local=group(d, sg.src_local, sg.t_dst_local, sg.rowptr_local,
+                    sg.t_rowptr_local, sg.offsets_local),
+        halo=group(d, sg.src_halo, sg.t_dst_halo, sg.rowptr_halo,
+                   sg.t_rowptr_halo, sg.offsets_halo))
+        for d in range(sg.n_devices)]
+
+
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` as ``jnp.take``: rows of ``table`` at ``ids`` of any
+    shape. Through ``index_select``, whose backward is ``index_add_``: an
+    id recurs thousands of times in a serve list (the sentinel), a fetch
+    (the sentinel) or a relation lookup, and the backward of advanced
+    indexing accumulates a repeated index serially (51 ms of a 66 ms step
+    of device time on an H100, ``bench.py`` graph, n = 4)."""
+    return table.index_select(0, ids.reshape(-1)).view(
+        *ids.shape, table.shape[1])
+
+
+def exchange(sends: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The differentiable halo exchange: ``recv[o][d] = sends[d][o]``."""
+    return list(HaloExchange.apply(*sends))
+
+
+def _one_relation(table, inv, w_r, *, op, n_loc, aggregate_first, agg_fn):
+    if aggregate_first:
+        return (agg_fn(table, op)[:n_loc] * inv) @ w_r
+    return agg_fn((table @ w_r).contiguous(), op)[:n_loc] * inv
+
+
+def _accumulate(out, table, ops, inv_deg, w_rel, n_loc, aggregate_first,
+                agg_fn):
+    """Fold one edge group's per-relation partials into ``out``.
+
+    Normalisation and the relation transform are linear, so the local and
+    halo groups are scaled and transformed separately: (l + h) * inv @ W ==
+    l * inv @ W + h * inv @ W. The JAX layer runs each relation under
+    ``jax.checkpoint``; here the backward keeps the normalised partials
+    instead of recomputing them: on an H100 at the ``bench.py`` graph
+    (n = 4) ``torch.utils.checkpoint`` cost 24 ms of host time a step and
+    saved 1.5 MB of a 596 MB peak.
+    """
+    for r, op in enumerate(ops):
+        if op is not None:
+            out = out + _one_relation(
+                table, inv_deg[r, :n_loc, None], w_rel[r], op=op,
+                n_loc=n_loc, aggregate_first=aggregate_first, agg_fn=agg_fn)
+    return out
+
+
+def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
+                       sg: NodeShardedGraph, shard_ops: Sequence[ShardOps],
+                       *, agg_fn=aggregate,
+                       exchange_fn=exchange) -> List[torch.Tensor]:
+    """One RGCN layer over every shard: ``xs[d]`` is shard d's float32
+    [n_loc, Din] rows; returns the shards' [n_loc, Dout] outputs.
+
+    The exchange comes first; then each shard aggregates its local-source
+    group (which needs no received row), then its halo-source group over
+    the received rows. Both groups normalise by the dense ``inv_deg``
+    table. ``agg_fn(table, op)`` is the per-bucket gather + segment-sum
+    (default: ``GatherSegmentSum``, kernel B1 both ways on the card);
+    ``exchange_fn(sends)`` the exchange (default: ``HaloExchange``, kernel
+    B4 both ways on the card). Only a reference passes the plain versions.
+    """
+    n, n_loc = sg.n_devices, sg.n_loc
+    w_rel = materialize_relation_weights(layer_params)
+    din, dout = w_rel.shape[1], w_rel.shape[2]
+    x_pads = [torch.cat([x, x.new_zeros(1, din)]) for x in xs]
+
+    # 1) the exchange: shard d sends rows x_pad[d][serve[d][o]] to peer o.
+    recvs = exchange_fn([_take(x_pads[d], shard_ops[d].serve)
+                         for d in range(n)])
+
+    aggregate_first = din <= dout
+    outs = []
+    for d in range(n):
+        out = xs[d] @ layer_params["w_root"] + layer_params["bias"][None, :]
+        # 2) local-source group, 3) halo-source group.
+        out = _accumulate(out, x_pads[d], shard_ops[d].local, sg.inv_deg[d],
+                          w_rel, n_loc, aggregate_first, agg_fn)
+        halo_table = torch.cat([recvs[d].reshape(-1, din),
+                                recvs[d].new_zeros(1, din)])
+        out = _accumulate(out, halo_table, shard_ops[d].halo, sg.inv_deg[d],
+                          w_rel, n_loc, aggregate_first, agg_fn)
+        outs.append(out)
+    return outs
+
+
+def sharded_encoder(params: Params, sg: NodeShardedGraph,
+                    shard_ops: Sequence[ShardOps], cfg: ModelConfig, *,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    masks: Optional[Sequence[torch.Tensor]] = None,
+                    agg_fn=aggregate,
+                    exchange_fn=exchange) -> List[torch.Tensor]:
+    """The encoder over the shards: each shard's slice of the (replicated)
+    embedding table -> conv1 -> ReLU -> dropout -> conv2; returns the
+    shards' [n_loc, hidden] rows. With ``train``, each shard's dropout mask
+    is drawn from ``generator`` in shard order, or given as ``masks[d]``."""
+    enc = params["encoder"]
+    emb = enc["node_emb"]
+    n, n_loc = sg.n_devices, sg.n_loc
+    pad = n * n_loc - cfg.num_nodes
+    if pad:
+        emb = torch.cat([emb, emb.new_zeros(pad, emb.shape[1])])
+    xs = list(emb.view(n, n_loc, -1).unbind(0))
+    xs = node_sharded_layer(enc["conv1"], xs, sg, shard_ops, agg_fn=agg_fn,
+                            exchange_fn=exchange_fn)
+    xs = [torch.relu(x) for x in xs]
+    if train and cfg.dropout > 0.0:
+        xs = [dropout(x, cfg.dropout, generator=generator,
+                      mask=None if masks is None else masks[d])
+              for d, x in enumerate(xs)]
+    return node_sharded_layer(enc["conv2"], xs, sg, shard_ops, agg_fn=agg_fn,
+                              exchange_fn=exchange_fn)
+
+
+def _on_mesh(mesh: Mesh, sg: NodeShardedGraph):
+    if sg.n_devices != mesh.n_shards:
+        raise ValueError(f"partition has {sg.n_devices} shards, mesh "
+                         f"{mesh.n_shards}")
+    sg = sg.to(mesh.device)
+    return sg, build_shard_ops(sg)
+
+
+def build_node_sharded_forward(mesh: Mesh, sg: NodeShardedGraph,
+                               model_cfg: ModelConfig, *,
+                               gather: bool = True):
+    """Full-graph encode over the shards: ``encode(params)``.
+
+    gather=True returns the [N, hidden] output; gather=False the
+    shard-major [n, n_loc, hidden] tensor, the input of
+    ``evaluate/sharded_ranking.build_sharded_topk``.
+    """
+    sg, ops = _on_mesh(mesh, sg)
+
+    def encode(params: Params) -> torch.Tensor:
+        xs = sharded_encoder(params, sg, ops, model_cfg)
+        if not gather:
+            return torch.stack(xs)
+        return torch.cat(xs)[:sg.num_nodes]
+
+    return encode
+
+
+def _fetch(x_pads: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
+           n_loc: int) -> List[torch.Tensor]:
+    """Endpoint rows for every shard's request list: all-gather the ids,
+    each shard serves its owner-masked local rows (the zero row elsewhere),
+    psum; shard d keeps row block d. Nothing builds the full table."""
+    all_ids = all_gather(ids)                      # [n, C]
+    owner = all_ids // n_loc
+    rows = [_take(x_pad, torch.where(owner == my, all_ids - my * n_loc,
+                                     n_loc))
+            for my, x_pad in enumerate(x_pads)]    # each [n, C, H]
+    full = psum(rows)
+    return list(full.unbind(0))
+
+
+def build_node_sharded_train_step(mesh: Mesh, sg: NodeShardedGraph,
+                                  model_cfg: ModelConfig,
+                                  train_cfg: TrainConfig, *,
+                                  agg_fn=aggregate, exchange_fn=exchange):
+    """Training update over the node-sharded graph:
+    ``step(params, optimizer, batch, generator) -> stats``.
+
+    ``batch`` is int64 [B, 4] (head, tail, rel, mask) on the mesh device,
+    split over the shards (B must divide by n; padding rows have mask 0).
+    ``step.draw(batch, generator)`` draws each shard's candidates
+    (``candidate_batch``, shard order); ``step.update(params, optimizer,
+    cands, generator=, enc_masks=)`` computes the update from given
+    candidates: the encode with its per-shard dropout, endpoint rows by an
+    owner-masked fetch, the loss ``sum(loss_sum) / max(sum(count), 1)``
+    with one ``backward()`` over every shard, then ``apply_update`` (clip,
+    then the optimizer). No decoder dropout, as in the JAX step. Both
+    return [loss_sum, correct, count] summed over the shards, on the
+    device (the step's mean loss is ``loss_sum / count``).
+    """
+    sg, ops = _on_mesh(mesh, sg)
+    n, n_loc = mesh.n_shards, sg.n_loc
+
+    def draw(batch: torch.Tensor,
+             generator: Optional[torch.Generator]) -> List[Candidates]:
+        b = batch.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} must divide by the {n}-shard mesh")
+        return [candidate_batch(p[:, 0], p[:, 1], p[:, 2], sg.num_nodes,
+                                train_cfg.num_neg_samples, mask=p[:, 3],
+                                generator=generator)
+                for p in batch.view(n, b // n, 4)]
+
+    def update(params: Params, optimizer: torch.optim.Optimizer,
+               cands: Sequence[Candidates], *,
+               generator: Optional[torch.Generator] = None,
+               enc_masks: Optional[Sequence[torch.Tensor]] = None
+               ) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        xs = sharded_encoder(params, sg, ops, model_cfg, train=True,
+                             generator=generator, masks=enc_masks,
+                             agg_fn=agg_fn, exchange_fn=exchange_fn)
+        x_pads = [torch.cat([x, x.new_zeros(1, x.shape[1])]) for x in xs]
+        he = _fetch(x_pads, [c[0] for c in cands], n_loc)
+        te = _fetch(x_pads, [c[1] for c in cands], n_loc)
+        rel_table = params["decoder"]["rel_emb"]
+        stats = torch.stack([
+            torch.stack(bce_stats(
+                distmult_score(h, t, _take(rel_table, c[2])), c[3], c[4]))
+            for h, t, c in zip(he, te, cands)]).sum(0)
+        (stats[0] / stats[2].clamp(min=1.0)).backward()
+        apply_update(optimizer, train_cfg)
+        return stats.detach()
+
+    def step(params: Params, optimizer: torch.optim.Optimizer,
+             batch: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        return update(params, optimizer, draw(batch, generator),
+                      generator=generator)
+
+    step.draw = draw
+    step.update = update
+    return step

@@ -74,7 +74,7 @@ def _kind(event: Dict[str, Any]) -> str:
     if event["cat"] != "kernel":
         return "memcpy_memset"
     for kernel in ("gather_segment_sum", "dense_segment_sum",
-                   "window_rows_fetch"):
+                   "window_rows_fetch", "halo_exchange"):
         if kernel in name:
             return kernel
     if "sort" in name:

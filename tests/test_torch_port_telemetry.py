@@ -58,6 +58,22 @@ def test_trace_breakdown_names_the_sampled_step_kernels(tmp_path):
     assert got["busy_us"] == got["window_us"] == 10.0
 
 
+def test_trace_breakdown_names_the_halo_exchange(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "ts": 0.0, "dur": 6.0,
+         "name": "void (anonymous namespace)::halo_exchange_kernel<float4>"
+                 "((anonymous namespace)::ShardPointers, int, long)"},
+        {"ph": "X", "cat": "kernel", "ts": 8.0, "dur": 2.0,
+         "name": "void (anonymous namespace)::gather_segment_sum_kernel<4>"
+                 "(float const*, int const*, int const*, float const*, "
+                 "float*, int, int, int, int)"},
+    ]
+    got = trace_breakdown(_write_trace(tmp_path / "t.json", events))
+    assert got["us_by_kind"] == {"halo_exchange": 6.0,
+                                 "gather_segment_sum": 2.0}
+    assert got["busy_us"] == 8.0 and got["window_us"] == 10.0
+
+
 def test_trace_breakdown_without_device_events(tmp_path):
     events = [{"ph": "X", "cat": "cpu_op", "name": "aten::add",
                "ts": 0.0, "dur": 3.0}]

@@ -12,11 +12,19 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    six (relation bucket, D) shapes one encode of the full default model
    gives it (with those inputs), in edge-norm mode, at several widths and on
    the edge cases (empty CSR, one giant row, every edge to its own row,
-   an unaligned table); per main-path shape, kernel, plain and cuSPARSE
-   times (CUDA events, median) beside the memory bound. The kernel is timed
-   bare (``launch``) and through its wrapper. Three child processes hand it
-   a CSR that does not cover ``src`` or a ``src`` id outside the table and
-   must stop on the kernel's device-side assert.
+   an unaligned table) and the cases of its edge-balanced partition (a row
+   of 200,000 edges, the gene-gene hub row alone, every edge in the last
+   row, rows alternating between empty and one edge, pieces on row
+   boundaries, fewer edges than one piece), those also over their
+   transpose CSR; two launches on the same inputs must be bit-identical.
+   Per main-path shape, kernel, plain and cuSPARSE times beside the memory
+   bound, and the hub row alone. Every per-kernel time in this script is
+   taken by ``time_calls``: the device time of the work one call launches
+   (a ``torch.profiler`` trace, median of 25 calls) and, as ``call_ms``, one
+   call from an idle stream between two CUDA events, host work included.
+   Three child processes hand it a CSR that does not cover ``src`` or a
+   ``src`` id outside the table and must stop on the kernel's device-side
+   assert.
 4. serve: the top-K serving entry point ``predict_cli.main`` on the full
    PrimeKG-shaped synthetic graph (30,926 nodes, 1,709,568 padded edges) and
    the default 64 -> 128 -> 128 model with random weights from seed 0, for
@@ -96,6 +104,10 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 WARMUP, REPS = 3, 25
+TIMES = ("ms, plain_ms and library_ms are device times (time_calls: the "
+         "median over 25 calls of the kernel, memcpy and memset time each "
+         "call launches, from a torch.profiler trace); call_ms is one call "
+         "from an idle stream between two CUDA events, host work included")
 
 
 # Child process for one malformed input: it must die on the kernel's
@@ -118,8 +130,10 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps=REPS, warmup=WARMUP):
-    """Median device time of ``fn`` in ms, one CUDA event pair per call."""
+def event_ms(fn, reps=REPS, warmup=WARMUP):
+    """Median time of one call of ``fn`` from an idle stream in ms, one CUDA
+    event pair per call: the host's work inside the call falls between the
+    two events, so it counts too."""
     import torch
 
     for _ in range(warmup):
@@ -135,6 +149,50 @@ def cuda_ms(fn, reps=REPS, warmup=WARMUP):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_calls(fns, reps=REPS, warmup=WARMUP):
+    """Each named call of ``fns`` timed two ways, in ms:
+
+    - ``<name>_ms``, its device time: the median over ``reps`` calls of the
+      summed durations of every kernel, memcpy and memset that one call
+      launches, read from a ``torch.profiler`` trace
+      (``utils/telemetry.device_us_by_range``). A call that launches
+      several kernels is charged for all of them, and for no gap between.
+      A trace that lost the events of most calls of a name is taken again.
+    - ``<name>_call_ms``: ``event_ms``, host work included.
+    """
+    import torch
+
+    from primekg_rgcn_tpu_torch.utils.telemetry import (device_us_by_range,
+                                                        profile_trace)
+
+    out = {f"{name}_call_ms": event_ms(fn, reps, warmup)
+           for name, fn in fns.items()}
+    # A trace that lost a call's device events is taken again, twice at most.
+    pending = dict(fns)
+    for _ in range(3):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_timer_") as tmp:
+            with profile_trace(tmp):
+                for name, fn in pending.items():
+                    for i in range(reps):
+                        with torch.profiler.record_function(
+                                f"timed:{name}#{i}"):
+                            fn()
+                        torch.cuda.synchronize()
+            us = device_us_by_range(Path(tmp) / "trace.json", "timed:")
+        for name in list(pending):
+            # Every timed call launches device work: a call that reads 0
+            # lost its events, and is left out of the median.
+            seen = [v for v in (us.get(f"timed:{name}#{i}", 0.0)
+                                for i in range(reps)) if v > 0]
+            if 2 * len(seen) > reps:
+                out[f"{name}_ms"] = statistics.median(seen) / 1e3
+                del pending[name]
+        if not pending:
+            return out
+    raise AssertionError(f"timing {sorted(pending)}: the profiler saw no "
+                         f"device work in most of {reps} calls, 3 times")
 
 
 def host_ms(fn, reps=10, warmup=2):
@@ -200,6 +258,20 @@ def close_scaled(got, want, name):
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
+def twice_equal(name, x, src, rowptr, scale=None):
+    """Two launches of B1 on the same inputs must agree bit for bit."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+
+    with torch.no_grad():
+        first = ss.gather_segment_sum(x, src, rowptr, scale)
+        second = ss.gather_segment_sum(x, src, rowptr, scale)
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"differ")
+
+
 def named_leaves(params, prefix=""):
     if isinstance(params, dict):
         for k, v in params.items():
@@ -238,18 +310,22 @@ def phase_kernel_bwd(graph, dev):
             torch.cuda.synchronize()
             err = close_scaled(got, want, name)
             max_err = max(max_err, err)
+            twice_equal(name, g, op.t_ids, op.t_rowptr)
             csr = library_csr(g, op.t_ids, op.t_rowptr, None)
             with torch.no_grad():
                 close_scaled(csr @ g, want, f"{name}/cusparse")
-                k_ms = cuda_ms(lambda: ss.launch(g, op.t_ids, op.t_rowptr))
-                p_ms = cuda_ms(lambda: plain(g, op.t_ids, op.t_rowptr))
-                l_ms = cuda_ms(lambda: csr @ g)
+                t = time_calls({
+                    "kernel": lambda: ss.launch(g, op.t_ids, op.t_rowptr),
+                    "plain": lambda: plain(g, op.t_ids, op.t_rowptr),
+                    "library": lambda: csr @ g})
             b = bound(g, op.t_ids, op.t_rowptr, None, n + 1)
             deg = torch.diff(op.t_rowptr[:n + 1])
             row = dict(shape=name, edges=op.t_ids.numel(), d=d,
                        max_out_degree=int(deg.max()),
-                       nonempty_rows=int((deg > 0).sum()),
-                       kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       nonempty_rows=int((deg > 0).sum()), **t,
+                       gathered_bytes=op.t_ids.numel() * d * 4,
+                       gather_tb_per_s=op.t_ids.numel() * d * 4
+                       / t["kernel_ms"] / 1e9,
                        bound_us=max(b["byte_ms"], b["op_ms"]) * 1e3,
                        bound_by="bytes" if b["byte_ms"] >= b["op_ms"] else "operations",
                        byte_us=b["byte_ms"] * 1e3, op_us=b["op_ms"] * 1e3,
@@ -709,15 +785,16 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
         max_err = max(max_err, err)
         idx = s.clamp(max=segs)
         buf = torch.zeros(segs + 1, m.shape[1], device=dev)
-        k_ms = cuda_ms(lambda: pds.launch(m, s, segs))
-        p_ms = cuda_ms(lambda: pds.dense_sorted_segment_sum_plain(m, s, segs))
-        l_ms = cuda_ms(lambda: buf.index_add_(0, idx, m))
+        t = time_calls({
+            "kernel": lambda: pds.launch(m, s, segs),
+            "plain": lambda: pds.dense_sorted_segment_sum_plain(m, s, segs),
+            "library": lambda: buf.index_add_(0, idx, m)})
         b = b2_bound(m, s, segs)
         runs = torch.unique_consecutive(s[s < segs], return_counts=True)[1]
         row = dict(shape=name, rows=m.shape[0], d=m.shape[1], segments=segs,
                    real_rows=b["real_rows"], longest_run=int(runs.max()),
-                   runs=int(runs.numel()), kernel_ms=k_ms, plain_ms=p_ms,
-                   library_ms=l_ms, max_abs_err=err, **bound_fields(b))
+                   runs=int(runs.numel()), **t, max_abs_err=err,
+                   **bound_fields(b))
         rows.append(row)
         emit("kernel_b2_shape", **row)
 
@@ -798,12 +875,12 @@ def phase_kernel_b3(graph, cfg, edges, dev):
             raise AssertionError(f"b3/{name}: kernel and plain differ")
         rec = packed.view(-1, 2)
         idx = starts.long()[:, None] + torch.arange(width, device=dev)
-        k_ms = cuda_ms(lambda: pwf.launch(rec, starts, width))
-        p_ms = cuda_ms(lambda: pwf.window_rows_fetch_plain(packed, starts,
-                                                           width))
-        l_ms = cuda_ms(lambda: rec[idx])
-        row = dict(shape=name, windows=starts.numel(), width=width,
-                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+        t = time_calls({
+            "kernel": lambda: pwf.launch(rec, starts, width),
+            "plain": lambda: pwf.window_rows_fetch_plain(packed, starts,
+                                                         width),
+            "library": lambda: rec[idx]})
+        row = dict(shape=name, windows=starts.numel(), width=width, **t,
                    max_abs_err=0, **bound_fields(b3_bound(starts, width)))
         rows.append(row)
         emit("kernel_b3_shape", **row)
@@ -1052,11 +1129,11 @@ def phase_kernel_b4(psg, dev):
         flat = sum(t.numel() for t in sends)
         src = torch.randn(flat, device=dev, generator=gen)
         dst = torch.empty_like(src)
-        row = dict(shape=name, n=n, p=p, d=d,
-                   kernel_ms=cuda_ms(lambda: halo.launch(sends)),
-                   plain_ms=cuda_ms(lambda: halo.halo_exchange_plain(sends)),
-                   library_ms=cuda_ms(lambda: dst.copy_(src)),
-                   max_abs_err=0, **bound_fields(b4_bound(sends)))
+        row = dict(shape=name, n=n, p=p, d=d, **time_calls({
+            "kernel": lambda: halo.launch(sends),
+            "plain": lambda: halo.halo_exchange_plain(sends),
+            "library": lambda: dst.copy_(src)}),
+            max_abs_err=0, **bound_fields(b4_bound(sends)))
         rows.append(row)
         emit("kernel_b4_shape", **row)
 
@@ -1329,7 +1406,7 @@ def phase_node_serve(tmp, psg, cfg, heads, served, dev):
         emb_dm = encode(params)
         query = build_sharded_topk(mesh, emb_dm, params["decoder"]["rel_emb"],
                                    cfg.num_nodes, topk)
-        query_ms = cuda_ms(lambda: query(q_heads, rels))
+        query_ms = event_ms(lambda: query(q_heads, rels))
     emit("node_serve", shards=N_SHARDS, relations_served=3,
          queries_per_call=len(heads), topk=topk, launches_per_call=per_call,
          ids_equal_dense_exactly=all(exact), cli_seconds=cli_s,
@@ -1405,7 +1482,6 @@ def main():
     from primekg_rgcn_tpu_torch.ops.cuda import halo
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
     from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
-    from primekg_rgcn_tpu_torch.ops.cuda.build import vec_width
     from primekg_rgcn_tpu_torch.ops.distmult import distmult_score_all_tails
     from primekg_rgcn_tpu_torch.ops.rgcn_segment import (aggregate_plain,
                                                          build_layer_agg_ops,
@@ -1469,50 +1545,58 @@ def main():
     max_err = 0.0
     main_rows = []
 
-    def check(name, x, src, rowptr, scale=None):
+    def check(name, x, src, rowptr, scale=None, exact=False):
         nonlocal max_err
         with torch.no_grad():
             got = kern(x, src, rowptr, scale)
             want = plain(x, src, rowptr, scale)
         torch.cuda.synchronize()
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"{name}: not equal to the plain version on "
+                                 f"inputs whose sums are exact")
         torch.testing.assert_close(got, want, **TOL, msg=lambda m: f"{name}: {m}")
         err = float((got - want).abs().max()) if got.numel() else 0.0
         max_err = max(max_err, err)
         return err
+
+    def hub_only(op):
+        """The bucket's CSR with every row emptied but its hub row."""
+        deg = torch.diff(op.rowptr)
+        hub = int(deg[:n].argmax())
+        hub_rowptr = torch.zeros_like(op.rowptr)
+        hub_rowptr[hub + 1:] = int(deg[hub])
+        return (op.src[int(op.rowptr[hub]):int(op.rowptr[hub + 1])]
+                .contiguous(), hub_rowptr)
 
     for layer, x in layer_inputs:
         for r, op in enumerate(ops):
             s = op.rowptr.numel() - 1
             name = f"layer{layer}/bucket{r}"
             err = check(name, x, op.src, op.rowptr)
+            twice_equal(name, x, op.src, op.rowptr)
             csr = library_csr(x, op.src, op.rowptr, None)
+            hub_src, hub_rowptr = hub_only(op)
             with torch.no_grad():
                 torch.testing.assert_close(csr @ x, plain(x, op.src, op.rowptr),
                                            **TOL)
-                k_ms = cuda_ms(lambda: ss.launch(x, op.src, op.rowptr))
-                w_ms = cuda_ms(lambda: kern(x, op.src, op.rowptr))
-                p_ms = cuda_ms(lambda: plain(x, op.src, op.rowptr))
-                l_ms = cuda_ms(lambda: csr @ x)
+                t = time_calls({
+                    "kernel": lambda: ss.launch(x, op.src, op.rowptr),
+                    "wrapper": lambda: kern(x, op.src, op.rowptr),
+                    "plain": lambda: plain(x, op.src, op.rowptr),
+                    "library": lambda: csr @ x,
+                    "hub_row_only": lambda: ss.launch(x, hub_src, hub_rowptr)})
             b = bound(x, op.src, op.rowptr, None, s)
             deg = torch.diff(op.rowptr[:n + 1])
-            # The hub row alone: one warp walks all of its in-edges.
-            hub = int(deg.argmax())
-            hub_rowptr = torch.zeros_like(op.rowptr)
-            hub_rowptr[hub + 1:] = int(deg[hub])
-            hub_src = op.src[int(op.rowptr[hub]):int(op.rowptr[hub + 1])].contiguous()
-            with torch.no_grad():
-                hub_ms = cuda_ms(lambda: ss.launch(x, hub_src, hub_rowptr))
+            gathered = op.src.numel() * x.shape[1] * 4
             row = dict(shape=name, edges=op.src.numel(), d=x.shape[1],
-                       max_in_degree=int(deg.max()), hub_row_only_ms=hub_ms,
-                       nonempty_rows=int((deg > 0).sum()),
-                       kernel_ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
-                       library_ms=l_ms,
+                       max_in_degree=int(deg.max()),
+                       nonempty_rows=int((deg > 0).sum()), **t,
+                       gathered_bytes=gathered,
+                       gather_tb_per_s=gathered / t["kernel_ms"] / 1e9,
                        bound_us=max(b["byte_ms"], b["op_ms"]) * 1e3,
                        bound_by="bytes" if b["byte_ms"] >= b["op_ms"] else "operations",
                        byte_us=b["byte_ms"] * 1e3, op_us=b["op_ms"] * 1e3,
-                       bytes=b["bytes"],
-                       gathered_bytes=op.src.numel() * x.shape[1] * 4,
-                       max_abs_err=err)
+                       bytes=b["bytes"], max_abs_err=err)
             main_rows.append(row)
             emit("kernel_main_path", **row)
 
@@ -1529,18 +1613,27 @@ def main():
     cases.append(("edge_norm/bucket2/D128", layer_inputs[1][1], op.src,
                   op.rowptr, scale))
 
-    def csr_case(rows, s, dst, d, scaled, offset=0):
+    def dyadic(shape, top, gen):
+        """Multiples of 1/8 in [0, top / 8]: sums of up to 2**18 products of
+        two of them are exact in float32, in any order."""
+        return torch.randint(0, top + 1, shape, device=dev,
+                             generator=gen).float() / 8
+
+    def csr_case(rows, s, dst, d, scaled, offset=0, exact=False):
         # Positive inputs keep rounding relative to the result: a sum that
         # cancels to near zero would make any absolute tolerance arbitrary.
-        flat = torch.rand(rows * d + offset, device=dev,
-                          generator=torch.Generator(dev).manual_seed(d))
+        gen = torch.Generator(dev).manual_seed(d)
+        flat = (dyadic((rows * d + offset,), 7, gen) if exact else
+                torch.rand(rows * d + offset, device=dev, generator=gen))
         x = flat[offset:].view(rows, d)
         src = torch.from_numpy(
             rng.integers(0, rows, dst.shape[0]).astype(np.int32)).to(dev)
         rowptr = torch.from_numpy(np.searchsorted(
             dst, np.arange(s + 1)).astype(np.int32)).to(dev)
-        sc = (torch.from_numpy(rng.random(dst.shape[0], dtype=np.float32)).to(dev)
-              if scaled else None)
+        sc = None
+        if scaled:
+            sc = (dyadic((dst.shape[0],), 8, gen) if exact else torch.from_numpy(
+                rng.random(dst.shape[0], dtype=np.float32)).to(dev))
         return x, src, rowptr, sc
 
     for d in (1, 3, 8, 64, 96, 128, 256):
@@ -1557,11 +1650,69 @@ def main():
     cases.append(("unaligned_table/D128", *csr_case(
         4000, 5000, np.sort(rng.integers(0, 5000, 40000)), 128, False,
         offset=1)))
-    for name, x, src, rowptr, sc in cases:
-        err = check(name, x, src, rowptr, sc)
+    # The edge-balanced partition's cases (ops/cuda/segment_sum.piece_plan):
+    # a row longer than many pieces; the gene-gene hub row alone; every
+    # edge in the last row; rows alternating between empty and one edge;
+    # pieces that start and end exactly on row boundaries (each row one
+    # piece of items, its edges and its end), and rows one edge longer, so
+    # that the boundaries drift through the rows; fewer edges than one piece
+    # (no edge at all is empty_csr above). Their inputs are multiples of 1/8 (dyadic), so every sum is exact and
+    # the kernel must equal the plain version bit for bit, whatever the
+    # order in which the pieces and their carries add up.
+    long_dst = np.sort(np.concatenate([rng.integers(0, 1000, 5000),
+                                       np.full(200000, 500)]))
+    exact = []
+    for d in (64, 128):
+        exact.append((f"long_row_200000/D{d}",
+                      *csr_case(4000, 1000, long_dst, d, d == 128, exact=True)))
+    exact.append(("last_row_all_edges/D64", *csr_case(
+        4000, 3000, np.full(50000, 2999), 64, False, exact=True)))
+    exact.append(("alternating_empty_one/D128", *csr_case(
+        4000, 20000, np.arange(0, 20000, 2), 128, True, exact=True)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows_b = 4000
+    per_row = next(k for k in range(1, 4096)
+                   if ss.piece_plan(rows_b, rows_b * k, sms)[0] == k + 1)
+    for extra, label in ((0, "on_row_boundaries"), (1, "drifting")):
+        k = per_row + extra
+        exact.append((f"pieces_{label}/{k}_per_row/D64", *csr_case(
+            4000, rows_b, np.repeat(np.arange(rows_b), k), 64, False,
+            exact=True)))
+    exact.append(("e_below_one_piece/D64", *csr_case(
+        100, 3, np.array([0, 0, 2, 2, 2]), 64, True, exact=True)))
+    hub_src, hub_rowptr = hub_only(ops[2])
+    hub_case = ("hub_row_alone/bucket2/D128", layer_inputs[1][1], hub_src,
+                hub_rowptr, None)
+
+    def transposed(name, x, src, rowptr, sc, exact_inputs=True):
+        """The case's transpose CSR, as the backward walks it: the rows of
+        x become the output rows, and each edge gathers its destination's
+        row of a gradient over the case's rows."""
+        s = rowptr.numel() - 1
+        src_h = src.cpu().numpy()
+        dst_h = np.repeat(np.arange(s), np.diff(rowptr.cpu().numpy()))
+        order = np.argsort(src_h, kind="stable")
+        t_ids = torch.from_numpy(dst_h[order].astype(np.int32)).to(dev)
+        t_rowptr = torch.from_numpy(np.searchsorted(
+            src_h[order], np.arange(x.shape[0] + 1)).astype(np.int32)).to(dev)
+        t_sc = None if sc is None else sc[torch.from_numpy(order).to(dev)]
+        gen = torch.Generator(dev).manual_seed(s)
+        shape = (max(s, 1), x.shape[1])
+        g = (dyadic(shape, 7, gen) if exact_inputs else
+             torch.rand(shape, device=dev, generator=gen))
+        return f"transpose/{name}", g, t_ids, t_rowptr, t_sc
+
+    exact += [transposed(*c) for c in exact]
+    cases += [hub_case, transposed(*hub_case, exact_inputs=False)]
+    exact_names = {c[0] for c in exact}
+    for name, x, src, rowptr, sc in cases + exact:
+        err = check(name, x, src, rowptr, sc, exact=name in exact_names)
+        twice_equal(name, x, src, rowptr, sc)
         emit("kernel_case", case=name, edges=src.numel(), d=x.shape[1],
              rows=rowptr.numel() - 1, max_abs_err=err,
-             vec=vec_width(x.shape[1], x))
+             exact=name in exact_names, vec_lanes=ss.b1_width(x.shape[1], x))
+    # The cases' tensors would otherwise count in the later phases' peaks.
+    del cases, exact, x, src, rowptr, sc, hub_src, hub_rowptr, hub_case
 
     # Malformed inputs fault loudly on the card. A device-side assert ends
     # the CUDA context, so each case runs in a child process of its own.
@@ -1660,7 +1811,7 @@ def main():
         emb = rgcn.get_embeddings(p_params, p_graph, cfg)
         rels = torch.zeros(len(heads), dtype=torch.long, device=dev)
         rel_emb = p_params["decoder"]["rel_emb"]
-        query_ms = cuda_ms(lambda: torch.topk(distmult_score_all_tails(
+        query_ms = event_ms(lambda: torch.topk(distmult_score_all_tails(
             emb[q_heads], rel_emb[rels], emb), topk, dim=1))
     emit("serve", nodes=n, padded_edges=p_graph.padded_num_edges,
          params=rgcn.count_params(p_params), relations_served=3,
@@ -1733,8 +1884,10 @@ def main():
         "launches_per_step": {"forward": 6, "backward": 6},
         "max_abs_err": max(max_err, bwd_err, grad_err, ngrad_err),
         "ms": total(main_rows, "kernel_ms"),
+        "call_ms": total(main_rows, "kernel_call_ms"),
+        "wrapper_call_ms": total(main_rows, "wrapper_call_ms"),
         "bwd_ms": total(bwd_rows, "kernel_ms"),
-        "wrapper_ms": total(main_rows, "wrapper_ms"),
+        "bwd_call_ms": total(bwd_rows, "kernel_call_ms"),
         "plain_ms": total(main_rows, "plain_ms"),
         "bwd_plain_ms": total(bwd_rows, "plain_ms"),
         "bound_ms": total(main_rows, "bound_us") / 1e3,
@@ -1745,7 +1898,7 @@ def main():
         "per": "one training step: ms, plain_ms, bound_ms and library_ms sum "
                "the six forward launches (one encode), the bwd_ keys the six "
                "backward launches over the transpose CSR; launches is the "
-               "train phase's count"}, {
+               "train phase's count. " + TIMES}, {
         "name": "dense_sorted_segment_sum", "id": "B2", "route": "cuda",
         "source": "primekg_rgcn_tpu_torch/csrc/dense_segment_sum.cu",
         "replaces": "primekg_rgcn_tpu/ops/pallas/segment_sum.py:420",
@@ -1756,7 +1909,9 @@ def main():
             "sampled_cli": {k: v["B2"] for k, v in scli_launches.items()}},
         "launches_per_step": 1,
         "max_abs_err": max(b2_err, sgrad_err),
-        "ms": b2_rows[0]["kernel_ms"], "plain_ms": b2_rows[0]["plain_ms"],
+        "ms": b2_rows[0]["kernel_ms"],
+        "call_ms": b2_rows[0]["kernel_call_ms"],
+        "plain_ms": b2_rows[0]["plain_ms"],
         "bound_ms": b2_rows[0]["bound_us"] / 1e3,
         "bound_by": b2_rows[0]["bound_by"],
         "library_ms": b2_rows[0]["library_ms"],
@@ -1766,9 +1921,9 @@ def main():
         "dedup_shape_library_ms": b2_rows[1]["library_ms"],
         "per": "one block-mode step's launch in the identity backward "
                "(L = %d, D = %d, N = %d); library_ms is index_add_; "
-               "launches is the sampled_train block/slim count"
+               "launches is the sampled_train block/slim count. "
                % (b2_rows[0]["rows"], b2_rows[0]["d"],
-                  b2_rows[0]["segments"])}, {
+                  b2_rows[0]["segments"]) + TIMES}, {
         "name": "window_rows_fetch", "id": "B3", "route": "cuda",
         "source": "primekg_rgcn_tpu_torch/csrc/window_fetch.cu",
         "replaces": "primekg_rgcn_tpu/ops/pallas/window_fetch.py:92",
@@ -1779,6 +1934,7 @@ def main():
         "launches_per_step": 2,
         "max_abs_err": 0,
         "ms": total(b3_rows[:2], "kernel_ms"),
+        "call_ms": total(b3_rows[:2], "kernel_call_ms"),
         "plain_ms": total(b3_rows[:2], "plain_ms"),
         "bound_ms": total(b3_rows[:2], "bound_us") / 1e3,
         "bound_by": bound_by(b3_rows[:2]),
@@ -1789,7 +1945,7 @@ def main():
                "bound_ms and library_ms sum its two launches (outer and "
                "inner layer); library_ms is packed[starts[:, None] + "
                "arange(F)]; launches is the sampled_train block/slim "
-               "count"}, {
+               "count. " + TIMES}, {
         "name": "halo_exchange", "id": "B4", "route": "cuda",
         "source": "primekg_rgcn_tpu_torch/csrc/halo_exchange.cu",
         "replaces": "primekg_rgcn_tpu/ops/pallas/halo.py:60",
@@ -1800,6 +1956,7 @@ def main():
         "launches_per_step": {"forward": 2, "backward": 2},
         "max_abs_err": 0,
         "ms": total(b4_rows, "kernel_ms"),
+        "call_ms": total(b4_rows, "kernel_call_ms"),
         "plain_ms": total(b4_rows, "plain_ms"),
         "bound_ms": total(b4_rows, "bound_us") / 1e3,
         "bound_by": bound_by(b4_rows),
@@ -1808,7 +1965,8 @@ def main():
                "and library_ms sum its two launches (D = 64 and 128); a "
                "training step runs each twice (forward, backward); "
                "library_ms is one copy_ of the same bytes; launches is the "
-               "node_train count" % (b4_rows[0]["n"], b4_rows[0]["p"])}]}),
+               "node_train count. " % (b4_rows[0]["n"], b4_rows[0]["p"])
+               + TIMES}]}),
         flush=True)
     print(card, flush=True)
     # The run uses one card (cuda:0) whatever the machine holds.

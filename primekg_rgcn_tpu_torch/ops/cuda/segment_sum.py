@@ -7,8 +7,11 @@ This is the counterpart of ``primekg_rgcn_tpu/ops/pallas/segment_sum.py``:
 it replaces the TPU kernel ``_segment_kernel`` (reached through
 ``sorted_segment_sum_pallas``) together with the row gather in front of it.
 The kernel source is ``primekg_rgcn_tpu_torch/csrc/gather_segment_sum.cu``;
-its header comment gives the design and what bounds it on the H100 (memory
-bytes). It is built with ``nvcc`` for ``sm_90a`` at first use into
+its header comment gives the design (an edge-balanced merge-path partition,
+one warp per piece, and a fix-up launch that adds the carries of rows that
+cross pieces in piece order) and what bounds it on the H100 (memory bytes).
+``piece_plan`` sizes the partition and its scratch, ``b1_width`` the row
+loads. It is built with ``nvcc`` for ``sm_90a`` at first use into
 ``primekg_rgcn_tpu_torch/_build/`` and bound through ``ctypes``
 (``ops/cuda/build.py``).
 
@@ -21,16 +24,70 @@ transpose CSR, so the gradient is a sorted gather + segment-sum too.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, check_rc,
-                                                  vec_width)
+from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("gather_segment_sum.cu", {
-    "gather_segment_sum_f32": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p)})
+    "gather_segment_sum_f32": (_p, _p, _p, _p, _p, _p, _p,
+                               _i, _i, _i, _i, _i, _i, _i, _i, _p)})
+
+
+WAVE_WARPS_PER_SM = 32     # pieces a launch aims to keep resident per SM
+MIN_ITEMS_PER_PIECE = 32
+
+
+def piece_plan(num_segments: int, num_edges: int,
+               num_sms: int) -> Tuple[int, int]:
+    """``(items_per_piece, num_pieces)`` of the kernel's merge-path
+    partition.
+
+    The kernel walks the sequence of ``num_segments`` row ends merged with
+    ``num_edges`` edges, one warp per piece of equal length, so a launch's
+    time follows its edge and row counts, not its longest row. The pieces
+    are sized to fill one wave of ``WAVE_WARPS_PER_SM`` warps on each SM,
+    but never shorter than ``MIN_ITEMS_PER_PIECE`` items, so the partition
+    search at a piece's start stays a small share of its work.
+    """
+    items = num_segments + num_edges
+    per_piece = max(MIN_ITEMS_PER_PIECE,
+                    -(-items // (num_sms * WAVE_WARPS_PER_SM)))
+    return per_piece, -(-items // per_piece)
+
+
+def carry_scratch(num_pieces: int, d: int, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch, one allocation: float32 [num_pieces, D], the
+    partial sum each piece leaves for the row it ends in, and int32
+    [num_pieces], that row's id (-1 for none). The kernel writes both
+    before its fix-up reads them, so they start uninitialised."""
+    flat = torch.empty(num_pieces * (d + 1), dtype=torch.float32,
+                       device=device)
+    return (flat[:num_pieces * d].view(num_pieces, d),
+            flat[num_pieces * d:].view(torch.int32))
+
+
+def b1_width(d: int, *tensors: torch.Tensor) -> Tuple[int, int]:
+    """``(vec, lanes)`` of the kernel's row loads: ``vec`` floats per lane
+    (16 bytes where D % 4 == 0 and every table is aligned to it, else 8 or
+    4 bytes), ``lanes`` the lanes that share one gathered row, the least
+    power of two that covers D / vec, at most the warp's 32. A warp then
+    loads 32 / lanes rows in one instruction: at D = 128 one row, at
+    D = 64 two (a half-warp each); a row wider than 32 vectors is walked in
+    column chunks."""
+    vec = 1
+    for v in (4, 2):
+        if d % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors):
+            vec = v
+            break
+    lanes = 1
+    while lanes < min(d // vec, 32):
+        lanes *= 2
+    return vec, lanes
 
 
 def _check(x, src, rowptr, scale) -> None:
@@ -53,7 +110,8 @@ def _check(x, src, rowptr, scale) -> None:
         raise ValueError("x, src, rowptr and scale must share one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x, src, rowptr and scale must be contiguous")
-    if x.numel() >= 2 ** 31 or src.shape[0] >= 2 ** 31:
+    # The partition indexes the merged rows and edges with int32.
+    if x.numel() >= 2 ** 31 or rowptr.shape[0] + src.shape[0] >= 2 ** 30:
         raise ValueError("sizes beyond int32 indexing are not supported")
 
 
@@ -121,19 +179,22 @@ def gather_segment_sum(x: torch.Tensor, src: torch.Tensor,
 
 def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors that ``gather_segment_sum`` has
-    checked; counts the launch."""
+    """Launch the kernel and its fix-up on CUDA tensors that
+    ``gather_segment_sum`` has checked; counts one launch per call."""
     s, d = rowptr.shape[0] - 1, x.shape[1]
     out = torch.empty(s, d, dtype=torch.float32, device=x.device)
     if s == 0:
         return out
-    vec = vec_width(d, x, out)
+    vec, lanes = b1_width(d, x, out)
+    per_piece, pieces = piece_plan(s, src.shape[0], _num_sms(x.device))
+    carry, carry_row = carry_scratch(pieces, d, x.device)
     lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         rc = lib.gather_segment_sum_f32(
             x.data_ptr(), src.data_ptr(), rowptr.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(),
-            s, d, x.shape[0], src.shape[0], vec,
+            carry.data_ptr(), carry_row.data_ptr(),
+            s, d, x.shape[0], src.shape[0], vec, lanes, per_piece, pieces,
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "gather_segment_sum")
     gather_segment_sum.launches += 1
@@ -141,6 +202,11 @@ def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
 
 
 gather_segment_sum.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 Csr = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]

@@ -8,10 +8,13 @@ profiler trace scope.
   activity) that writes a Chrome trace, ``trace.json``, into its directory.
 - trace_breakdown: device time by kind and the idle share read from such a
   trace.
+- device_us_by_range: the device time of the work launched inside each
+  ``record_function`` range of such a trace (a kernel's time per call).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import time
@@ -86,6 +89,51 @@ def _kind(event: Dict[str, Any]) -> str:
     return "other"
 
 
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_us_by_range(path, prefix: str) -> Dict[str, float]:
+    """Device time, in microseconds, of the work launched inside each
+    ``torch.profiler.record_function`` range whose name starts with
+    ``prefix``, read from a ``profile_trace`` Chrome trace.
+
+    Every kernel, memcpy and memset is charged to the range that holds the
+    host call that launched it (matched by the trace's ``correlation`` id),
+    so a call that launches several kernels is charged for all of them and
+    the idle gaps between them are not. A device event whose launch the
+    trace did not record is charged to the last range that started before
+    it, which is right where the caller synchronises after each range (as
+    a timing loop does). A range that launched nothing reads 0.
+    """
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(prefix))
+    out = {name: 0.0 for _, _, name in ranges}
+    starts = [start for start, _, _ in ranges]
+    owner: Dict[int, Optional[str]] = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if corr is None or e.get("cat") in _DEVICE_CATS:
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        inside = i >= 0 and e["ts"] <= ranges[i][1]
+        owner[corr] = ranges[i][2] if inside else None
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        corr = e.get("args", {}).get("correlation")
+        if corr in owner:
+            name = owner[corr]
+        else:
+            i = bisect.bisect_right(starts, e["ts"]) - 1
+            name = ranges[i][2] if i >= 0 else None
+        if name is not None:
+            out[name] += e["dur"]
+    return out
+
+
 def trace_breakdown(path) -> Optional[Dict[str, Any]]:
     """Device time by kind and the idle share of a ``profile_trace`` Chrome
     trace: busy is the union of kernel, memcpy and memset intervals, the
@@ -94,7 +142,7 @@ def trace_breakdown(path) -> Optional[Dict[str, Any]]:
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+           and e.get("cat") in _DEVICE_CATS]
     if not dev:
         return None
     by_kind: Dict[str, float] = {}

@@ -104,6 +104,75 @@ def test_vector_width(d, vec):
     assert build.vec_width(d, t) == vec
 
 
+@pytest.mark.parametrize("d,offset,vec,lanes", [
+    (128, 0, 4, 32),   # one row per warp load, 16 bytes a lane
+    (64, 0, 4, 16),    # two rows per warp load, a half-warp each
+    (96, 0, 4, 32),    # 24 vectors: lanes 24-31 idle
+    (256, 0, 4, 32),   # 64 vectors: two column chunks
+    (8, 0, 4, 2),
+    (4, 0, 4, 1),
+    (6, 0, 2, 4),
+    (3, 0, 1, 4),
+    (1, 0, 1, 1),
+    (128, 1, 1, 32),   # a table 4 bytes off: float loads
+    (128, 2, 2, 32),   # 8 bytes off: float2 loads
+    (64, 2, 2, 32),
+])
+def test_b1_width(d, offset, vec, lanes):
+    table = torch.zeros(4 * d + offset)[offset:].view(4, d)
+    assert pss.b1_width(d, table, torch.zeros(4, d)) == (vec, lanes)
+
+
+def test_b1_width_leaves_the_shared_helper_alone():
+    # B2 keeps build.vec_width (float2 at D = 64); B1 takes float4 there.
+    t = torch.zeros(4, 64)
+    assert build.vec_width(64, t) == 2 and pss.b1_width(64, t) == (4, 16)
+
+
+@pytest.mark.parametrize("s,e,sms,per_piece,pieces", [
+    # The main path's buckets on 132 SMs: 4,224 warps fill one wave.
+    (30927, 102912, 132, 32, 4183),
+    (30927, 322048, 132, 84, 4203),
+    (30927, 1284608, 132, 312, 4217),
+    # Small CSRs keep pieces of 32 items.
+    (3, 5, 132, 32, 1),
+    (50, 0, 132, 32, 2),
+    (1, 200000, 132, 48, 4167),
+    (1000, 201000, 2, 3157, 64),
+])
+def test_piece_plan(s, e, sms, per_piece, pieces):
+    assert pss.piece_plan(s, e, sms) == (per_piece, pieces)
+
+
+@pytest.mark.parametrize("s,e,sms", [(30927, 1284608, 132), (7, 0, 132),
+                                     (1, 1, 1), (4000, 124000, 132),
+                                     (12345, 678901, 114)])
+def test_piece_plan_covers_the_items_once(s, e, sms):
+    per_piece, pieces = pss.piece_plan(s, e, sms)
+    assert per_piece >= pss.MIN_ITEMS_PER_PIECE
+    # The last piece holds between 1 and per_piece items.
+    assert (pieces - 1) * per_piece < s + e <= pieces * per_piece
+    assert pieces <= max(sms * pss.WAVE_WARPS_PER_SM,
+                         -(-(s + e) // pss.MIN_ITEMS_PER_PIECE))
+
+
+@pytest.mark.parametrize("pieces,d", [(4217, 128), (4183, 64), (1, 3),
+                                      (2, 1)])
+def test_carry_scratch(pieces, d):
+    carry, carry_row = pss.carry_scratch(pieces, d, "cpu")
+    assert carry.shape == (pieces, d) and carry.dtype == torch.float32
+    assert carry_row.shape == (pieces,) and carry_row.dtype == torch.int32
+    assert carry.is_contiguous() and carry_row.is_contiguous()
+    # One allocation: the row ids follow the carries, without overlap.
+    assert carry_row.data_ptr() == carry.data_ptr() + pieces * d * 4
+    assert carry.untyped_storage().data_ptr() == \
+        carry_row.untyped_storage().data_ptr()
+    # Each carry row is aligned to the kernel's widest load at its D.
+    vec, _ = pss.b1_width(d, carry)
+    assert all(carry[i].data_ptr() % (4 * vec) == 0
+               for i in range(min(pieces, 3)))
+
+
 def test_library_is_keyed_by_source():
     path = pss.LIBRARY.library_path()
     assert path.parent == build.BUILD_DIR

@@ -6,6 +6,7 @@ import torch
 
 from primekg_rgcn_tpu_torch.utils.telemetry import (MetricsLogger,
                                                     device_memory_stats,
+                                                    device_us_by_range,
                                                     profile_trace,
                                                     trace_breakdown)
 
@@ -72,6 +73,75 @@ def test_trace_breakdown_names_the_halo_exchange(tmp_path):
     assert got["us_by_kind"] == {"halo_exchange": 6.0,
                                  "gather_segment_sum": 2.0}
     assert got["busy_us"] == 8.0 and got["window_us"] == 10.0
+
+
+def test_trace_breakdown_counts_the_fixup_launch_as_b1(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "ts": 0.0, "dur": 7.0,
+         "name": "void (anonymous namespace)::gather_segment_sum_kernel<4, "
+                 "16, false>(float const*, int const*, int const*, "
+                 "float const*, float*, float*, int*, int, int, int, int, "
+                 "int, int)"},
+        {"ph": "X", "cat": "kernel", "ts": 9.0, "dur": 2.0,
+         "name": "void (anonymous namespace)::gather_segment_sum_fixup_kernel"
+                 "<4>(float*, float const*, int const*, int, int)"},
+        {"ph": "X", "cat": "kernel", "ts": 11.0, "dur": 1.0,
+         "name": "void at::native::vectorized_elementwise_kernel<4>()"},
+    ]
+    got = trace_breakdown(_write_trace(tmp_path / "t.json", events))
+    assert got["us_by_kind"] == {"gather_segment_sum": 9.0, "other": 1.0}
+    assert got["busy_us"] == 10.0 and got["window_us"] == 12.0
+
+
+def _timed_calls_trace():
+    """Two timed calls: one that launches two kernels and a memset through
+    the runtime, one that launches a kernel through the driver API; plus a
+    launch outside any timed range and an unrelated annotation."""
+    def x(cat, name, ts, dur, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+    return [
+        x("user_annotation", "timed:kernel#0", 0.0, 20.0),
+        x("cuda_runtime", "cudaLaunchKernel", 2.0, 3.0, 1),
+        x("cuda_runtime", "cudaMemsetAsync", 6.0, 2.0, 2),
+        x("cuda_runtime", "cudaLaunchKernel", 10.0, 3.0, 3),
+        x("kernel", "gather_segment_sum_kernel", 30.0, 40.0, 1),
+        x("gpu_memset", "Memset (Device)", 71.0, 1.5, 2),
+        x("kernel", "gather_segment_sum_fixup_kernel", 80.0, 4.0, 3),
+        x("gpu_user_annotation", "timed:kernel#0", 30.0, 54.0),
+        x("user_annotation", "timed:library#0", 100.0, 10.0),
+        x("cuda_driver", "cuLaunchKernel", 101.0, 2.0, 4),
+        x("kernel", "csrmm_kernel", 120.0, 11.0, 4),
+        x("cuda_runtime", "cudaLaunchKernel", 200.0, 2.0, 5),
+        x("kernel", "outside_kernel", 210.0, 50.0, 5),
+        x("user_annotation", "other_range", 195.0, 10.0),
+        x("user_annotation", "timed:idle#0", 300.0, 5.0),
+        # A kernel whose launch the trace lost.
+        x("user_annotation", "timed:lost#0", 400.0, 5.0),
+        x("kernel", "gather_segment_sum_kernel", 410.0, 7.0, 6),
+    ]
+
+
+def test_device_us_by_range_charges_each_call_its_launches(tmp_path):
+    path = _write_trace(tmp_path / "t.json", _timed_calls_trace())
+    got = device_us_by_range(path, "timed:")
+    # Two kernels and a memset, not the 54 us from the first launch to the
+    # last end; the driver-API launch counts; the untimed launch does not;
+    # a kernel without a recorded launch goes to the range before it.
+    assert got == {"timed:kernel#0": 45.5, "timed:library#0": 11.0,
+                   "timed:idle#0": 0.0, "timed:lost#0": 7.0}
+
+
+def test_device_us_by_range_reads_a_cpu_trace(tmp_path):
+    with profile_trace(tmp_path / "prof"):
+        for i in range(2):
+            with torch.profiler.record_function(f"timed:mm#{i}"):
+                torch.ones(8, 8) @ torch.ones(8, 8)
+    got = device_us_by_range(tmp_path / "prof" / "trace.json", "timed:")
+    # The ranges are found; a CPU run launches no device work.
+    assert got == {"timed:mm#0": 0.0, "timed:mm#1": 0.0}
 
 
 def test_trace_breakdown_without_device_events(tmp_path):

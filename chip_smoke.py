@@ -44,7 +44,8 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    edges/s, peak memory; then a ``torch.profiler`` trace of 10 steps, read
    for where the step's device time goes and the device's idle share.
 8. train_cli: ``train.cli.main`` on the synthetic graph at scale 0.1 for 2
-   epochs at full width, then ``predict_cli.main`` from its final model.
+   epochs at full width, then ``predict_cli.main`` from its final model and
+   ``evaluate.cli.main`` on it (eval_cli: AUC-ROC and MRR finite).
 9. kernel_b2: kernel B2 (``csrc/dense_segment_sum.cu``) against its plain
    version on the real identity-backward stream of one block-mode step
    (774,400 rows, D = 64, N = 30,926), at the outer layer's dedup shape
@@ -65,7 +66,8 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    peak memory; a 10-step profile of block over the slim CSR.
 13. sampled_cli: ``train.cli.main --sample_fanouts 15 10`` at scale 0.1 in
    block mode, and in block4 mode with ``--sparse_emb --val_sampled``, each
-   then served by ``predict_cli.main``; B2 must launch in both.
+   then served by ``predict_cli.main`` and evaluated by
+   ``evaluate.cli.main``; B2 must launch in both.
 14. kernel_b4: kernel B4 (``csrc/halo_exchange.cu``) against its plain
    version, bit for bit, at the node-sharded step's shapes (n = 4 shards,
    P = 7,736, D = 64 and 128, the real serve lists of the ``bench.py``
@@ -83,8 +85,21 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    serve phase's queries; its top-10 ids must equal the dense ones;
    sharded encode and query times.
 18. node_cli: ``train.cli.main --shard node --n_devices 4`` at scale 0.1
-   for 2 epochs, then served with ``--shard node``.
-19. the kernel summary line, then the card line, then the result line.
+   for 2 epochs, then served and evaluated with ``--shard node``.
+19. eval: ``evaluate.cli.main --filtered --rank_direction both`` at full
+   width on the full-size graph with the train CLI's drug-gene hold-out
+   (14,658 directed test edges): 6 B1 launches, every results.json key
+   finite and in range, TF32 off; the same evaluation through the kernel
+   and through the plain version on the card with the same negatives
+   (probabilities within rtol 1e-4, ranks equal on every query whose true
+   score is more than 1e-5 of the row's largest |score| from every other
+   candidate's, classification metrics within 1e-5, every ranking metric
+   over those untied queries within 1e-5); encode, score matmul and
+   ranking batch timed.
+20. node_eval: the same checkpoint with ``--shard node --n_devices 4``: 30
+   B1 and 2 B4 launches, ranks and ranking metrics held against the eval
+   phase's as above; the sharded encode timed.
+21. the kernel summary line, then the card line, then the result line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -1461,6 +1476,343 @@ def phase_node_cli(tmp):
     return train_counts
 
 
+EVAL_KEYS = {
+    "classification": {"auc_roc", "auc_pr", "precision", "recall",
+                       "f1_score", "threshold"},
+    "ranking": {"mrr", "mean_rank", "median_rank", "hits@10", "hits@50"},
+}
+RANKING_BLOCKS = ("ranking", "ranking_filtered", "ranking_head",
+                  "ranking_both", "ranking_filtered_head",
+                  "ranking_filtered_both")
+MODEL_INFO_KEYS = {"checkpoint_path", "epoch", "num_nodes", "num_relations",
+                   "embedding_dim", "hidden_dim", "num_parameters",
+                   "best_val_loss", "best_val_acc"}
+
+
+def eval_cli_after(out, label, *extra):
+    """``evaluate.cli.main`` on a CLI phase's final model and synthetic
+    data; AUC-ROC and MRR must be finite (2 epochs at scale 0.1 is a smoke
+    run, so no value is asserted). Returns the launches of the call."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.evaluate import cli as eval_cli
+
+    reset_counts()
+    t0 = time.perf_counter()
+    m = eval_cli.main([
+        "--model_path", str(out / "models" / "final_model.pt"),
+        "--data_dir", str(out / "synthetic_data"),
+        "--output_dir", str(out / "eval"), "--device", "cuda", *extra])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    auc, mrr = m["classification"]["auc_roc"], m["ranking"]["mrr"]
+    if not (np.isfinite(auc) and np.isfinite(mrr)) or counts["B1"] == 0:
+        raise AssertionError(f"eval_cli after {label}: auc {auc}, mrr {mrr}, "
+                             f"launches {counts}")
+    emit("eval_cli", after=label, seconds=seconds, auc_roc=auc, mrr=mrr,
+         test_edges=m["test_edges"], launches=counts)
+    return counts
+
+
+def check_results_json(path, num_nodes, blocks):
+    """results.json holds every contract key with finite values in range."""
+    import math
+
+    blob = json.loads(path.read_text())
+    m = blob["metrics"]
+    problems = []
+    if set(blob["model_info"]) != MODEL_INFO_KEYS:
+        problems.append(f"model_info keys {sorted(blob['model_info'])}")
+    want = {"classification", "test_edges", "num_nodes", *blocks}
+    if set(m) != want:
+        problems.append(f"metrics keys {sorted(m)}")
+    if m.get("num_nodes") != num_nodes or not m.get("test_edges", 0) > 0:
+        problems.append(f"num_nodes {m.get('num_nodes')}, test_edges "
+                        f"{m.get('test_edges')}")
+    cls = m.get("classification", {})
+    if set(cls) != EVAL_KEYS["classification"] or not all(
+            math.isfinite(v) and 0 <= v <= 1 for v in cls.values()):
+        problems.append(f"classification {cls}")
+    for b in blocks:
+        r = m.get(b, {})
+        ok = (set(r) == EVAL_KEYS["ranking"]
+              and all(math.isfinite(v) for v in r.values())
+              and 0 < r["mrr"] <= 1
+              and 1 <= r["mean_rank"] <= num_nodes
+              and 1 <= r["median_rank"] <= num_nodes
+              and all(0 <= r[k] <= 1 for k in ("hits@10", "hits@50")))
+        if not ok:
+            problems.append(f"{b} {r}")
+    if not (path.parent / "metrics_summary.txt").exists():
+        problems.append("no metrics_summary.txt")
+    if problems:
+        raise AssertionError(f"{path}: " + "; ".join(problems))
+
+
+def untied_queries(emb, rel_emb, edges, rel_tol=1e-5, batch=1024):
+    """Mask of queries (rows of ``edges``, (head, tail, rel) on the card)
+    whose true tail's score is more than ``rel_tol`` x the row's largest
+    |score| away from every other candidate's, in float64: the queries
+    whose rank no rounding of the encode can move."""
+    import torch
+
+    emb64, rel64 = emb.double(), rel_emb.double()
+    masks = []
+    for s in range(0, edges.shape[0], batch):
+        e = edges[s:s + batch]
+        sc = (emb64[e[:, 0]] * rel64[e[:, 2]]) @ emb64.T
+        true = sc.gather(1, e[:, 1:2])
+        gap = (sc - true).abs().scatter_(1, e[:, 1:2], torch.inf)
+        masks.append(gap.min(dim=1).values
+                     > rel_tol * sc.abs().max(dim=1).values)
+    return torch.cat(masks).cpu().numpy()
+
+
+def compare_ranks(name, got, want, untied):
+    """Ranks equal on every untied query; the counts beside."""
+    import numpy as np
+
+    if not np.array_equal(got[untied], want[untied]):
+        bad = int((got[untied] != want[untied]).sum())
+        raise AssertionError(f"{name}: {bad} untied queries rank apart")
+    return {"queries": int(len(got)), "near_tied": int((~untied).sum()),
+            "ranks_differ": int((got != want).sum())}
+
+
+def heldout_test_split(raw):
+    """The test split that ``train/cli._load_graphs`` holds out of a
+    synthetic graph at seed 0: half of 2/7 of the drug-gene rows, drawn
+    before bidirecting, then bidirected."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.data import synthetic
+
+    dg_rows = np.flatnonzero(raw["rel"] == 0)
+    heldout = np.random.default_rng(0).choice(
+        dg_rows, size=max(2 * (len(dg_rows) // 7), 2), replace=False)
+    rows = heldout[len(heldout) // 2:]
+    s, t, r = synthetic.bidirect(raw["src"][rows], raw["dst"][rows],
+                                 raw["rel"][rows])
+    return {"edge_index": np.stack([s, t]), "edge_type": r,
+            "num_nodes": raw["num_nodes"], "num_relations": 3}
+
+
+def check_untied_metrics(name, ranks, k_values):
+    """Every ranking metric recomputed over the untied queries alone, from
+    each side's ranks ({block: (got ranks, want ranks, untied mask)}),
+    within 1e-5; returns the largest difference. Over all queries the
+    near-tied ones may rank apart and move a metric further."""
+    from primekg_rgcn_tpu_torch.evaluate.metrics import (
+        ranking_metrics_from_ranks)
+
+    worst = 0.0
+    for block, (a, b, keep) in ranks.items():
+        got = ranking_metrics_from_ranks(a[keep], k_values)
+        want = ranking_metrics_from_ranks(b[keep], k_values)
+        for k, v in want.items():
+            err = abs(got[k] - v)
+            worst = max(worst, err)
+            if err > 1e-5:
+                raise AssertionError(f"{name}: {block}/{k} over the untied "
+                                     f"queries {got[k]} vs {v}")
+    return worst
+
+
+def max_metric_diff(got, want, blocks):
+    """The largest difference of any ranking metric over all queries."""
+    return max(abs(got[b][k] - v) for b in blocks for k, v in want[b].items())
+
+
+def phase_eval(tmp, data, raw, params, cfg, graph, dev, plain_layer):
+    """``evaluate.cli.main --filtered --rank_direction both`` on the card at
+    full width over the full-size graph (``data`` holds it and the model),
+    with the train CLI's drug-gene hold-out as its test split: 6 B1
+    launches (one encode whatever the number of batches), every
+    results.json key finite and in range, TF32 off; then the same
+    evaluation through the kernel and through the plain version on the
+    card, with the same negatives (the default generator, seed 42, on this
+    device): probabilities within rtol 1e-4, the classification metrics
+    within 1e-5, ranks equal on the untied queries and every ranking metric
+    over those queries within 1e-5; then the encode and one ranking batch
+    timed."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import EvalConfig
+    from primekg_rgcn_tpu_torch.data import artifacts
+    from primekg_rgcn_tpu_torch.evaluate import cli as eval_cli
+    from primekg_rgcn_tpu_torch.evaluate.evaluator import Evaluator
+    from primekg_rgcn_tpu_torch.models.rgcn import encoder_apply
+    from primekg_rgcn_tpu_torch.ops.distmult import distmult_score_all_tails
+
+    root = tmp / "eval"
+    artifacts.save_split_npz(data / "test_data.npz", heldout_test_split(raw))
+    ds = artifacts.load_dataset(data, require_train=False)
+    test_edges = artifacts.split_to_edges(ds["test"])
+    known = artifacts.split_to_edges(ds["full"])
+    argv = ["--model_path", str(data / "model.pt"), "--data_dir", str(data),
+            "--device", "cuda"]
+
+    def tf32_off(when):
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise AssertionError(f"eval: TF32 matmuls are on {when}")
+
+    tf32_off("before the CLI")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_m = eval_cli.main([*argv, "--output_dir", str(root / "results"),
+                           "--filtered", "--rank_direction", "both"])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    tf32_off("after the CLI")
+    if counts != {"B1": 6, "B2": 0, "B3": 0, "B4": 0}:
+        raise AssertionError(f"eval: launches {counts}, expected 6 B1")
+    check_results_json(root / "results" / "results.json", graph.num_nodes,
+                       RANKING_BLOCKS)
+
+    ecfg = EvalConfig(seed=42)  # the CLI's defaults
+    ev = Evaluator(params, cfg, graph, test_edges, ecfg)
+    ref = Evaluator(params, cfg, graph, test_edges, ecfg,
+                    layer_fn=plain_layer)
+    got = ev.evaluate(known_triples=known, rank_direction="both")
+    want = ref.evaluate(known_triples=known, rank_direction="both")
+    if got != cli_m:
+        raise AssertionError("eval: the CLI's metrics differ from its "
+                             "Evaluator's")
+    np.testing.assert_array_equal(ev.labels, ref.labels)
+    np.testing.assert_allclose(ev.scores, ref.scores, rtol=1e-4, atol=0)
+    prob_err = float(np.abs(ev.scores - ref.scores).max())
+    edges = torch.as_tensor(test_edges, dtype=torch.long, device=dev)
+    rank_stats, untied, ranks = {}, {}, {}
+    for d, e in (("tail", edges), ("head", edges[:, [1, 0, 2]])):
+        untied[d] = untied_queries(ref._node_emb, ref._rel_emb, e)
+        suffix = "" if d == "tail" else "_head"
+        ranks["ranking" + suffix] = (ev._raw_ranks[(d, False)],
+                                     ref._raw_ranks[(d, False)], untied[d])
+        ranks["ranking_filtered" + suffix] = (ev._filtered_ranks(known, d),
+                                              ref._filtered_ranks(known, d),
+                                              untied[d])
+        for block in ("ranking" + suffix, "ranking_filtered" + suffix):
+            rank_stats[block] = compare_ranks(f"eval {block}", *ranks[block])
+    for block in ("ranking", "ranking_filtered"):
+        head = block + "_head"
+        ranks[block + "_both"] = tuple(
+            np.concatenate([ranks[block][i], ranks[head][i]])
+            for i in range(3))
+    cls_err = max(abs(got["classification"][k] - v)
+                  for k, v in want["classification"].items())
+    if cls_err > 1e-5:
+        raise AssertionError(f"eval: classification {got['classification']}"
+                             f" vs plain {want['classification']}")
+    rank_err = check_untied_metrics("eval", ranks, ecfg.k_values)
+    rank_diff = max_metric_diff(got, want, ranks)
+
+    b = ecfg.batch_size
+    h, r, t = edges[:b, 0], edges[:b, 2], edges[:b, 1]
+    filt = torch.as_tensor(ev._filter_lists(known)[:b], dtype=torch.long,
+                           device=dev)
+    with torch.no_grad():
+        times = time_calls({
+            "encode": lambda: encoder_apply(params, graph, cfg),
+            "plain_encode": lambda: encoder_apply(params, graph, cfg,
+                                                  layer_fn=plain_layer),
+            "rank_batch": lambda: ev._rank_batch(h, r, t),
+            "score_batch": lambda: distmult_score_all_tails(
+                ev._node_emb[h], ev._rel_emb[r], ev._node_emb),
+            "rank_filtered_batch": lambda: ev._rank_filtered_impl(
+                h, r, t, filt)})
+    # Least time of a ranking batch: the [B, D] x [D, N] product at the
+    # float32 peak, or its table read and rank write at the HBM rate.
+    n, d = ev._node_emb.shape
+    rank_bound_ms = max(2 * b * d * n / F32_FLOPS,
+                        (n * d + b * 2 * d) * 4 / HBM_BYTES_PER_S) * 1e3
+    emit("eval", nodes=graph.num_nodes, test_edges=int(len(test_edges)),
+         known_triples=int(len(known)), filter_width=int(filt.shape[1]),
+         batch_size=b, batches=-(-len(test_edges) // b), launches=counts,
+         seconds=seconds, peak_memory_mb=peak_mb,
+         tf32=False, auc_roc=cli_m["classification"]["auc_roc"],
+         mrr=cli_m["ranking"]["mrr"],
+         mrr_filtered=cli_m["ranking_filtered"]["mrr"],
+         max_prob_err=prob_err, max_classification_err=cls_err,
+         max_untied_metric_err=rank_err, max_metric_diff_all=rank_diff,
+         ranks=rank_stats,
+         encode_ms=times["encode_ms"],
+         encode_call_ms=times["encode_call_ms"],
+         plain_encode_ms=times["plain_encode_ms"],
+         rank_ms_per_batch=times["rank_batch_ms"],
+         rank_call_ms_per_batch=times["rank_batch_call_ms"],
+         score_ms_per_batch=times["score_batch_ms"],
+         rank_bound_ms=rank_bound_ms,
+         rank_filtered_ms_per_batch=times["rank_filtered_batch_ms"])
+    return dict(argv=argv, root=root, ev=ev, untied=untied, metrics=cli_m,
+                test_edges=test_edges, ecfg=ecfg, counts=counts)
+
+
+def phase_node_eval(ctx, params, cfg, graph, psg, dev):
+    """``evaluate.cli.main --shard node --n_devices 4 --rank_direction
+    both`` from the same checkpoint and data: the launches of one sharded
+    encode (30 B1, 2 B4 on this graph), ranks equal to the eval phase's on
+    the untied queries and every ranking metric over those queries within
+    1e-5 of its; the sharded encode timed."""
+    import numpy as np
+
+    import torch
+
+    from primekg_rgcn_tpu_torch.evaluate import cli as eval_cli
+    from primekg_rgcn_tpu_torch.evaluate.evaluator import Evaluator
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.parallel.node_shard import (
+        build_node_sharded_forward)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    m = eval_cli.main([*ctx["argv"], "--output_dir",
+                       str(ctx["root"] / "results_node"), "--rank_direction",
+                       "both", "--shard", "node", "--n_devices",
+                       str(N_SHARDS)])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    want = node_launches(psg, step=False)
+    if counts != want or (counts["B1"], counts["B4"]) != (30, 2):
+        raise AssertionError(f"node_eval: launches {counts}, expected "
+                             f"{want}")
+    blocks = ("ranking", "ranking_head", "ranking_both")
+    check_results_json(ctx["root"] / "results_node" / "results.json",
+                       graph.num_nodes, blocks)
+    node = Evaluator(params, cfg, graph, ctx["test_edges"], ctx["ecfg"],
+                     shard_encode="node", n_shards=N_SHARDS)
+    rank_stats, ranks = {}, {}
+    for d, block in (("tail", "ranking"), ("head", "ranking_head")):
+        ranks[block] = (node._compute_raw_ranks(direction=d),
+                        ctx["ev"]._raw_ranks[(d, False)], ctx["untied"][d])
+        rank_stats[block] = compare_ranks(f"node_eval {block}",
+                                          *ranks[block])
+    ranks["ranking_both"] = tuple(
+        np.concatenate([ranks["ranking"][i], ranks["ranking_head"][i]])
+        for i in range(3))
+    if node.evaluate(rank_direction="both") != m:
+        raise AssertionError("node_eval: the CLI's metrics differ from its "
+                             "Evaluator's")
+    metric_err = check_untied_metrics("node_eval", ranks,
+                                      ctx["ecfg"].k_values)
+    metric_diff = max_metric_diff(m, ctx["metrics"], ranks)
+    encode = build_node_sharded_forward(make_mesh(N_SHARDS, dev), psg, cfg,
+                                        gather=False)
+    with torch.no_grad():
+        times = time_calls({"encode": lambda: encode(params)})
+    emit("node_eval", shards=N_SHARDS, launches=counts, seconds=seconds,
+         auc_roc=m["classification"]["auc_roc"], mrr=m["ranking"]["mrr"],
+         max_untied_metric_err_vs_dense=metric_err,
+         max_metric_diff_all_vs_dense=metric_diff, ranks=rank_stats,
+         encode_ms=times["encode_ms"],
+         encode_call_ms=times["encode_call_ms"])
+    return counts
+
+
 def main():
     import torch
 
@@ -1829,6 +2181,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches = phase_train(graph, cfg, edges, dev, Path(tmp))
         cli_launches = phase_train_cli(Path(tmp))
+        cli_eval = {"train_cli": eval_cli_after(Path(tmp) / "train_cli",
+                                                "train_cli")}
 
         # -- 9-13. sampled training ----------------------------------------
         b2_rows, b2_err = phase_kernel_b2(graph, cfg, edges, dev, repo)
@@ -1837,6 +2191,9 @@ def main():
         sampled, main_counts = phase_sampled_train(graph, cfg, edges, dev,
                                                    Path(tmp))
         scli_launches = phase_sampled_cli(Path(tmp))
+        for name in scli_launches:
+            cli_eval[f"sampled_cli_{name}"] = eval_cli_after(
+                Path(tmp) / f"sampled_cli_{name}", f"sampled_cli_{name}")
 
         # -- 14-18. node-sharded training and serving ------------------------
         t0 = time.perf_counter()
@@ -1860,8 +2217,17 @@ def main():
         nserve_counts = phase_node_serve(node_data, psg, cfg, heads, served,
                                          dev)
         ncli_counts = phase_node_cli(Path(tmp))
+        cli_eval["node_cli"] = eval_cli_after(
+            Path(tmp) / "node_cli", "node_cli", "--shard", "node",
+            "--n_devices", str(N_SHARDS))
 
-    # -- 14. summary --------------------------------------------------------
+        # -- 19-20. evaluation --------------------------------------------
+        eval_ctx = phase_eval(Path(tmp), node_data, raw, params, cfg, graph,
+                              dev, plain_layer)
+        neval_counts = phase_node_eval(eval_ctx, params, cfg, graph, psg,
+                                       dev)
+
+    # -- 21. summary --------------------------------------------------------
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1880,7 +2246,11 @@ def main():
                                              scli_launches.items()},
                              "node_train": node_counts["B1"],
                              "node_serve": [c["B1"] for c in nserve_counts],
-                             "node_cli": ncli_counts["B1"]},
+                             "node_cli": ncli_counts["B1"],
+                             "eval": eval_ctx["counts"]["B1"],
+                             "node_eval": neval_counts["B1"],
+                             "eval_after_cli": {k: v["B1"] for k, v in
+                                                cli_eval.items()}},
         "launches_per_step": {"forward": 6, "backward": 6},
         "max_abs_err": max(max_err, bwd_err, grad_err, ngrad_err),
         "ms": total(main_rows, "kernel_ms"),
@@ -1952,7 +2322,10 @@ def main():
         "launches": node_counts["B4"],
         "launches_by_path": {"node_train": node_counts["B4"],
                              "node_serve": [c["B4"] for c in nserve_counts],
-                             "node_cli": ncli_counts["B4"]},
+                             "node_cli": ncli_counts["B4"],
+                             "node_eval": neval_counts["B4"],
+                             "eval_after_node_cli":
+                                 cli_eval["node_cli"]["B4"]},
         "launches_per_step": {"forward": 2, "backward": 2},
         "max_abs_err": 0,
         "ms": total(b4_rows, "kernel_ms"),

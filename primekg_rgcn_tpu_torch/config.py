@@ -1,13 +1,14 @@
-"""Model and training configuration, shared field for field with the JAX
-package's ``ModelConfig`` and ``TrainConfig`` so that a config dict moves
-between the two unchanged (fields of the JAX package that the port does not
-read are dropped on the way in)."""
+"""Model, training, evaluation and preprocessing configuration, shared field
+for field with the JAX package's ``ModelConfig``, ``TrainConfig``,
+``EvalConfig`` and ``DataConfig`` so that a config dict moves between the
+two unchanged (fields of the JAX package that the port does not read are
+dropped on the way in)."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -72,3 +73,44 @@ class TrainConfig:
     def from_dict(cls, d: Dict[str, Any]) -> "TrainConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation options (the reference's evaluate CLI). The JAX package's
+    ``impl`` has no counterpart: the layer follows the tensors' device,
+    kernel B1 on the card and its plain version on the CPU."""
+
+    batch_size: int = 1024
+    num_neg_samples: int = 1
+    k_values: Tuple[int, ...] = (10, 50)
+    seed: int = 42
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["k_values"] = list(self.k_values)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EvalConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in known}
+        if "k_values" in d:
+            d["k_values"] = tuple(d["k_values"])
+        return cls(**d)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Preprocessing options (the reference's preprocess CLI)."""
+
+    raw_data: str = "data/raw/kg.csv"
+    processed_dir: str = "data/processed"
+    train_ratio: float = 0.7
+    val_ratio: float = 0.15
+    test_ratio: float = 0.15
+    seed: int = 42
+    target_relation: str = "drug-gene"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)

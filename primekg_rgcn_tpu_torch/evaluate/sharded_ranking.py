@@ -1,19 +1,31 @@
-"""Entity-sharded top-K retrieval over a node-sharded embedding table.
+"""Entity-sharded ranking, scoring and top-K over a sharded embedding table.
 
-The counterpart of ``build_sharded_topk`` (and the owner-masked fetch it
-uses) in ``primekg_rgcn_tpu/evaluate/sharded_ranking.py``: each shard scores
-the queries against its own [n_loc, D] slice, keeps its K best, and a final
-top-K over the n * K gathered candidates picks the global winners (top-K is
-distributive over partitions), so no [B, N] score row is ever built. The
-ranker and evaluator of that module are not ported yet (``ROADMAP.md``).
+The counterpart of ``primekg_rgcn_tpu/evaluate/sharded_ranking.py``. Each
+shard scores the queries against its own [n_loc, D] slice of the entity
+table, so no [B, N] score row is ever built whole:
+
+- ranking: the true tail's score comes from its owner through a psum, and
+  the rank is 1 + the psum of each shard's count of strictly higher
+  scores, the semantics of ``metrics.ranks_of_true_tails``. Padding rows
+  (global id >= N) are masked out of the count; scoring them -inf instead
+  would give NaN (sum(hr * -inf) is NaN on mixed signs).
+- top-K: each shard keeps its K best and a final top-K over the n * K
+  gathered candidates picks the global winners (top-K is distributive over
+  partitions).
+
+Query endpoints are fetched from the shard-major table by owner-masked
+psums. All shards of a mesh live on its one device (``parallel/mesh.py``):
+a sharded function is a loop over the shards.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
+from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
+                                                 distmult_score_all_tails)
 from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, all_gather, psum
 
 
@@ -31,6 +43,93 @@ def _owner_masked_fetch(locals_: Sequence[torch.Tensor], ids: torch.Tensor,
     return psum(rows)
 
 
+def _shard_slices(mesh: Mesh, emb_dm: torch.Tensor, num_nodes: int):
+    """The shards' [n_loc, D] slices and their masks of real (< N) rows."""
+    n, n_loc, _ = emb_dm.shape
+    if n != mesh.n_shards:
+        raise ValueError(f"table has {n} shards, mesh {mesh.n_shards}")
+    dev = emb_dm.device
+    valid = [(my * n_loc + torch.arange(n_loc, device=dev)) < num_nodes
+             for my in range(n)]
+    return list(emb_dm.unbind(0)), valid
+
+
+def _sharded_rank(locals_: List[torch.Tensor], valid: List[torch.Tensor],
+                  head_emb: torch.Tensor, rel_vecs: torch.Tensor,
+                  true_tails: torch.Tensor) -> torch.Tensor:
+    """1-indexed raw ranks of ``true_tails`` from per-shard score slices."""
+    n_loc = locals_[0].shape[0]
+    owner = true_tails // n_loc
+    scores = [distmult_score_all_tails(head_emb, rel_vecs, local)
+              for local in locals_]                     # each [B, n_loc]
+    picked = []
+    for my, s in enumerate(scores):
+        mine = owner == my
+        loc = torch.where(mine, true_tails - my * n_loc, 0)
+        picked.append(torch.where(mine, s.gather(1, loc[:, None])[:, 0],
+                                  torch.zeros((), device=s.device)))
+    true_scores = psum(picked)
+    better = [((s > true_scores[:, None]) & valid[my][None, :]).sum(dim=1)
+              for my, s in enumerate(scores)]
+    return 1 + psum(better)
+
+
+def build_sharded_ranker(mesh: Mesh, node_emb: torch.Tensor,
+                         rel_emb: torch.Tensor):
+    """``rank(heads, rels, true_tails) -> int64[B]`` 1-indexed raw ranks,
+    with the [N, D] encoder output split into the mesh's shards (zero
+    padding rows, masked out of the count)."""
+    n = mesh.n_shards
+    num_nodes, d = node_emb.shape
+    n_loc = -(-num_nodes // n)
+    pad = n * n_loc - num_nodes
+    emb_pad = (torch.cat([node_emb, node_emb.new_zeros(pad, d)])
+               if pad else node_emb)
+    locals_, valid = _shard_slices(mesh, emb_pad.view(n, n_loc, d), num_nodes)
+    dev = node_emb.device
+
+    def rank(heads, rels, true_tails):
+        heads, rels, true_tails = (
+            torch.as_tensor(x, dtype=torch.long, device=dev)
+            for x in (heads, rels, true_tails))
+        return _sharded_rank(locals_, valid, node_emb[heads], rel_emb[rels],
+                             true_tails)
+
+    return rank
+
+
+def build_sharded_eval_from_sharded(mesh: Mesh, emb_dm: torch.Tensor,
+                                    rel_emb: torch.Tensor, num_nodes: int):
+    """Fully sharded evaluation over the shard-major [n, n_loc, D] table of
+    ``build_node_sharded_forward(gather=False)``: no [N, D] table is built.
+
+    Returns ``(rank, score)``:
+      rank(heads, rels, true_tails) -> int64[B] 1-indexed raw ranks;
+      score(heads, tails, rels) -> float32[B] DistMult logits. (The JAX
+        scorer psums the n identical replicated copies and divides by n;
+        here the fetch returns the assembled rows once, so the logits are
+        the triple scorer's, equal to that quotient within rounding.)
+    """
+    n_loc = emb_dm.shape[1]
+    locals_, valid = _shard_slices(mesh, emb_dm, num_nodes)
+    dev = emb_dm.device
+
+    def ids(x):
+        return torch.as_tensor(x, dtype=torch.long, device=dev)
+
+    def rank(heads, rels, true_tails):
+        head_emb = _owner_masked_fetch(locals_, ids(heads), n_loc)
+        return _sharded_rank(locals_, valid, head_emb, rel_emb[ids(rels)],
+                             ids(true_tails))
+
+    def score(heads, tails, rels):
+        return distmult_score(_owner_masked_fetch(locals_, ids(heads), n_loc),
+                              _owner_masked_fetch(locals_, ids(tails), n_loc),
+                              rel_emb[ids(rels)])
+
+    return rank, score
+
+
 def build_sharded_topk(mesh: Mesh, emb_dm: torch.Tensor,
                        rel_emb: torch.Tensor, num_nodes: int, k: int):
     """Distributed top-K tail retrieval: ``topk(heads, rels) -> (scores
@@ -42,14 +141,10 @@ def build_sharded_topk(mesh: Mesh, emb_dm: torch.Tensor,
     differ from a dense top-K's.
     """
     n, n_loc, _ = emb_dm.shape
-    if n != mesh.n_shards:
-        raise ValueError(f"table has {n} shards, mesh {mesh.n_shards}")
     if k > n_loc:
         raise ValueError(f"k={k} exceeds per-shard slice {n_loc}")
-    locals_ = list(emb_dm.unbind(0))
+    locals_, valid = _shard_slices(mesh, emb_dm, num_nodes)
     dev = emb_dm.device
-    valid = [(my * n_loc + torch.arange(n_loc, device=dev)) < num_nodes
-             for my in range(n)]
 
     def topk(heads, rels):
         heads = torch.as_tensor(heads, dtype=torch.long, device=dev)

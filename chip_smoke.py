@@ -44,8 +44,11 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    edges/s, peak memory; then a ``torch.profiler`` trace of 10 steps, read
    for where the step's device time goes and the device's idle share.
 8. train_cli: ``train.cli.main`` on the synthetic graph at scale 0.1 for 2
-   epochs at full width, then ``predict_cli.main`` from its final model and
-   ``evaluate.cli.main`` on it (eval_cli: AUC-ROC and MRR finite).
+   epochs at full width (best and periodic checkpoints through the async
+   writer; the best and final ``.pt`` files, loaded back, must hold the
+   trainer's parameters and epoch of their save), then ``predict_cli.main``
+   from its final model and ``evaluate.cli.main`` on it (eval_cli: AUC-ROC
+   and MRR finite).
 9. kernel_b2: kernel B2 (``csrc/dense_segment_sum.cu``) against its plain
    version on the real identity-backward stream of one block-mode step
    (774,400 rows, D = 64, N = 30,926), at the outer layer's dedup shape
@@ -99,7 +102,23 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
 20. node_eval: the same checkpoint with ``--shard node --n_devices 4``: 30
    B1 and 2 B4 launches, ranks and ranking metrics held against the eval
    phase's as above; the sharded encode timed.
-21. the kernel summary line, then the card line, then the result line.
+21. analysis: ``analyze.run_full_analysis.main --device cuda``, all eight
+   analyses, on the eval phase's data and model (two case-study diseases,
+   two explanation pairs): all OK, 12 B1 launches (the context's encode and
+   the evaluate analysis'), the context's embeddings within TOL of an
+   encode through the plain version, every JSON and CSV output parsed with
+   its scores in [0, 1]; ``find_paths`` on the case-study and explanation
+   pairs equal to the same search without its distance pruning (each at
+   most 30 s; at least one must end); k-means + silhouette per node type,
+   the silhouette within 1e-5 of a plain ``torch.cdist`` recomputation;
+   per-analysis seconds, the encode's device time, t-SNE at 5,000 points,
+   k-means + silhouette per type and ``find_paths`` per pair timed.
+22. export: ``predict_cli.main --export`` on the same model (6 B1
+   launches); the artifact, loaded by ``load_predictor``, serves the serve
+   phase's 8 heads for relations 0-2 with scores within TOL of
+   ``predict_cli``'s and ids equal on untied entries; its query timed
+   beside the serve phase's ``query_ms``.
+23. the kernel summary line, then the card line, then the result line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -550,6 +569,65 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50):
     return launches
 
 
+@contextlib.contextmanager
+def trainer_states():
+    """While open, every ``Trainer.save_checkpoint`` call records the
+    trainer's parameters (host copies) and epoch under the file it writes,
+    and whether it went through the async writer; yields that record."""
+    from primekg_rgcn_tpu_torch.train import checkpoint
+    from primekg_rgcn_tpu_torch.train import loop
+
+    states = {"async": []}
+    save_checkpoint = loop.Trainer.save_checkpoint
+    save_async = checkpoint.AsyncSaver.save_async
+
+    def recording(self, *, is_best=False, is_final=False):
+        name = ("final_model.pt" if is_final else
+                "best_model.pt" if is_best else
+                f"checkpoint_epoch_{self.epoch}.pt")
+        states[name] = (self.epoch, {k: v.detach().cpu().clone() for k, v
+                                     in named_leaves(self.params)})
+        return save_checkpoint(self, is_best=is_best, is_final=is_final)
+
+    def async_recording(self, path, payload):
+        states["async"].append(Path(path).name)
+        return save_async(self, path, payload)
+
+    loop.Trainer.save_checkpoint = recording
+    checkpoint.AsyncSaver.save_async = async_recording
+    try:
+        yield states
+    finally:
+        loop.Trainer.save_checkpoint = save_checkpoint
+        checkpoint.AsyncSaver.save_async = save_async
+
+
+def check_checkpoints(out, states):
+    """The best and final ``.pt`` files, loaded back, hold the trainer's
+    parameters and epoch of their last save; the best went through
+    ``AsyncSaver``, the final did not."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.train import checkpoint
+
+    problems = []
+    for name in ("best_model.pt", "final_model.pt"):
+        if name not in states:
+            problems.append(f"{name} was never saved")
+            continue
+        epoch, want = states[name]
+        got = checkpoint.load(out / "models" / name)
+        leaves = dict(named_leaves(got["params"]))
+        if got["epoch"] != epoch or sorted(leaves) != sorted(want) or not all(
+                torch.equal(leaves[k], want[k]) for k in want):
+            problems.append(f"{name} differs from the trainer's state at "
+                            f"epoch {epoch}")
+    if "best_model.pt" not in states["async"] or \
+            "final_model.pt" in states["async"]:
+        problems.append(f"async writes {states['async']}")
+    return problems
+
+
 def phase_train_cli(tmp):
     """train.cli.main on the synthetic graph at scale 0.1, full width, then
     predict_cli.main from the model it wrote."""
@@ -563,9 +641,10 @@ def phase_train_cli(tmp):
     out = tmp / "train_cli"
     kern.launches = 0
     t0 = time.perf_counter()
-    result = train_cli.main([
-        "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
-        "--seed", "0", "--device", "cuda", "--output_dir", str(out)])
+    with trainer_states() as states:
+        result = train_cli.main([
+            "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+            "--seed", "0", "--device", "cuda", "--output_dir", str(out)])
     seconds = time.perf_counter() - t0
     launches = kern.launches
     events = [json.loads(ln) for ln in
@@ -583,6 +662,7 @@ def phase_train_cli(tmp):
         problems.append(f"train loss did not fall: {hist['train_losses']}")
     if launches == 0:
         problems.append("no kernel launch")
+    problems += check_checkpoints(out, states)
     served = predict_cli.main([
         "--model_path", str(out / "models" / "final_model.pt"),
         "--data_dir", str(out / "synthetic_data"), "--heads", "0", "7",
@@ -596,7 +676,8 @@ def phase_train_cli(tmp):
          history=hist, epoch_time_s=[e["epoch_time_s"] for e in events],
          edges_per_s=[e["edges_per_s"] for e in events],
          peak_bytes=[e.get("mem_peak_bytes_in_use") for e in events],
-         served_top=[[p["tail_id"] for p in q["predictions"]] for q in served])
+         served_top=[[p["tail_id"] for p in q["predictions"]] for q in served],
+         async_writes=states["async"])
     return launches
 
 
@@ -1813,6 +1894,316 @@ def phase_node_eval(ctx, params, cfg, graph, psg, dev):
     return counts
 
 
+ANALYSES = ("evaluate", "error_analysis", "case_studies", "embeddings",
+            "explanations", "validation", "comparison", "failures")
+UNIT_SCORES = {"score", "prediction_score", "validation_score", "auc_roc",
+               "avg_precision", "mrr"}
+
+
+class SearchTimeout(Exception):
+    pass
+
+
+def unpruned_paths(ctx, source, target, max_length, max_paths, seconds):
+    """``find_paths`` without the distance pruning (the same depth-first
+    search over the same CSR, no ``dist``), or None if it takes more than
+    ``seconds``."""
+    import itertools
+    import signal
+
+    from primekg_rgcn_tpu_torch.analyze.core import simple_paths
+
+    def alarm(signum, frame):
+        raise SearchTimeout
+
+    indptr, nbrs = ctx.path_index.adjacency
+    old = signal.signal(signal.SIGALRM, alarm)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        paths = list(itertools.islice(
+            simple_paths(indptr, nbrs, int(source), int(target), max_length),
+            max(max_paths * 5, 1)))
+    except SearchTimeout:
+        return None
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+    paths.sort(key=len)
+    return paths[:max_paths]
+
+
+def plain_silhouette(x, labels, chunk=1024):
+    """The mean silhouette by ``torch.cdist`` in float64 and a mask per
+    cluster: the plain recomputation ``embed_tools.silhouette`` is held
+    against."""
+    import torch
+
+    x = x.double()
+    labels = torch.as_tensor(labels, device=x.device)
+    ks = torch.unique(labels)
+    sizes = torch.stack([(labels == k).sum() for k in ks]).double()
+    total = 0.0
+    for s in range(0, len(x), chunk):
+        d = torch.cdist(x[s:s + chunk], x)
+        sums = torch.stack([d[:, labels == k].sum(1) for k in ks], 1)
+        own = torch.searchsorted(ks, labels[s:s + chunk])
+        n_own = sizes[own]
+        a = sums.gather(1, own[:, None])[:, 0] / (n_own - 1).clamp(min=1)
+        other = sums / sizes
+        other.scatter_(1, own[:, None], float("inf"))
+        b = other.min(1).values
+        sil = torch.where(n_own > 1, (b - a) / torch.maximum(a, b), 0.0)
+        total += float(torch.nan_to_num(sil).sum())
+    return total / len(x)
+
+
+def check_tool_outputs(root, num_nodes):
+    """Every JSON and CSV file under ``root`` parses; every score column or
+    key the tools define in [0, 1] is finite and in range. Returns the
+    number of files read."""
+    import csv
+    import math
+
+    files = 0
+    bad = []
+
+    def unit(v, where):
+        v = float(v)
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            bad.append(f"{where} = {v}")
+
+    def walk(obj, where):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                if k in UNIT_SCORES and not isinstance(v, (dict, list)):
+                    unit(v, f"{where}/{k}")
+                else:
+                    walk(v, f"{where}/{k}")
+        elif isinstance(obj, list):
+            for i, v in enumerate(obj):
+                walk(v, f"{where}[{i}]")
+
+    for path in sorted(root.rglob("*.json")):
+        files += 1
+        blob = json.loads(path.read_text())
+        if path.name != "results.json":
+            walk(blob, str(path.relative_to(root)))
+    for path in sorted(root.rglob("*.csv")):
+        files += 1
+        with open(path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        for i, row in enumerate(rows):
+            for k, v in row.items():
+                if k in UNIT_SCORES or k.startswith("ev_") or \
+                        k.startswith("hits@"):
+                    unit(v, f"{path.relative_to(root)}[{i}]/{k}")
+    check_results_json(root / "results.json", num_nodes, ("ranking",))
+    if bad:
+        raise AssertionError("analysis outputs out of [0, 1]: "
+                             + "; ".join(bad[:10]))
+    return files
+
+
+def phase_analysis(tmp, data, params, cfg, graph, dev, plain_layer, raw):
+    """``analyze.run_full_analysis.main --device cuda``, all eight
+    analyses, on the eval phase's data and model: every analysis OK, 12 B1
+    launches (the context's encode and the evaluate analysis'), the
+    context's embeddings within TOL of an encode through the plain version,
+    every JSON and CSV output parsed and its scores in [0, 1]; then
+    ``find_paths`` on the case-study and explanation pairs against the same
+    search without its pruning (each at most 30 s, at least one must end),
+    k-means + silhouette per node type with the silhouette against a plain
+    recomputation within 1e-5, and the times of t-SNE at 5,000 points, of
+    k-means + silhouette per type and of ``find_paths`` per pair."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.analyze import core, embed_tools
+    from primekg_rgcn_tpu_torch.analyze import run_full_analysis
+    from primekg_rgcn_tpu_torch.models.rgcn import encoder_apply
+
+    out = tmp / "analysis"
+    tr = raw["type_ranges"]
+    pairs = [("synthetic drug 1", "synthetic disease 0"),
+             ("synthetic drug 2000", "synthetic disease 100")]
+    explain = [a for d, s in pairs for a in ("--explain", d, s)]
+    made = []
+    init = core.AnalysisContext.__init__
+
+    def capture(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    core.AnalysisContext.__init__ = capture
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        results = run_full_analysis.main([
+            "--model_path", str(data / "model.pt"), "--data_dir", str(data),
+            "--output_dir", str(out), "--device", "cuda", "--diseases",
+            "synthetic disease 0", "synthetic disease 100", *explain])
+    finally:
+        core.AnalysisContext.__init__ = init
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    status = {k: r["success"] for k, r in results.items()}
+    if status != {k: True for k in ANALYSES}:
+        raise AssertionError(f"analysis: {status}")
+    if counts != {"B1": 12, "B2": 0, "B3": 0, "B4": 0}:
+        raise AssertionError(f"analysis: launches {counts}, expected 12 B1")
+    if len(made) != 1:
+        raise AssertionError(f"analysis: {len(made)} contexts")
+    ctx = made[0]
+    with torch.no_grad():
+        want = encoder_apply(params, graph, cfg, layer_fn=plain_layer).cpu()
+    got = torch.from_numpy(ctx.embeddings)
+    torch.testing.assert_close(got, want, **TOL)
+    emb_err = float((got - want).abs().max())
+    n_files = check_tool_outputs(out, graph.num_nodes)
+    summary = (out / "analysis_summary.txt").read_text().splitlines()
+    if [ln.split("\t")[:2] for ln in summary] != [[k, "OK"] for k in ANALYSES]:
+        raise AssertionError(f"analysis_summary.txt: {summary}")
+
+    # find_paths: the case studies' (drug, disease) pairs at their
+    # max_paths 5 and the explanations' at 20, pruned against unpruned.
+    searches = []
+    for f in sorted((out / "case_studies").rglob("predictions.json")):
+        blob = json.loads(f.read_text())
+        searches += [(p["drug_idx"], blob["disease_idx"], 5)
+                     for p in blob["predictions"]]
+    for drug, disease in pairs:
+        searches.append((ctx.find_node(drug, "drug"),
+                         ctx.find_node(disease, "disease"), 20))
+    path_ms, plain_ms, n_paths = [], [], []
+    compared, timed_out, deadline = 0, 0, time.perf_counter() + 60
+    for a, b, max_paths in searches:
+        t1 = time.perf_counter()
+        pruned = ctx.find_paths(a, b, 4, max_paths)
+        path_ms.append((time.perf_counter() - t1) * 1e3)
+        n_paths.append(len(pruned))
+        budget = min(30.0, deadline - time.perf_counter())
+        if budget <= 0:
+            continue
+        t1 = time.perf_counter()
+        plain = unpruned_paths(ctx, a, b, 4, max_paths, budget)
+        plain_ms.append((time.perf_counter() - t1) * 1e3)
+        if plain is None:
+            timed_out += 1
+        elif plain != pruned:
+            raise AssertionError(f"find_paths({a}, {b}): pruned {pruned} "
+                                 f"vs unpruned {plain}")
+        else:
+            compared += 1
+    if compared == 0:
+        raise AssertionError("find_paths: no unpruned search ended in 30 s")
+
+    # k-means + silhouette per node type, on the card.
+    clusters = {}
+    for t in ("drug", "disease", "gene/protein"):
+        x = ctx.embeddings[ctx.indices_of_type(t)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        labels, _, inertia = embed_tools.kmeans(x, 10, n_init=4, seed=0,
+                                                device=dev)
+        t2 = time.perf_counter()
+        sil = embed_tools.silhouette(x, labels, device=dev)
+        t3 = time.perf_counter()
+        ref = plain_silhouette(torch.from_numpy(x).to(dev), labels)
+        if abs(sil - ref) > 1e-5:
+            raise AssertionError(f"silhouette {t}: {sil} vs plain {ref}")
+        clusters[t] = dict(n=len(x), inertia=inertia, silhouette=sil,
+                           silhouette_err=abs(sil - ref),
+                           kmeans_s=t2 - t1, silhouette_s=t3 - t2)
+    sample = np.random.default_rng(42).choice(
+        graph.num_nodes, min(5000, graph.num_nodes), replace=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    coords = embed_tools.tsne(ctx.embeddings[sample], perplexity=30.0,
+                              seed=42, device=dev)
+    tsne_s = time.perf_counter() - t1
+    if coords.shape != (len(sample), 2) or not np.isfinite(coords).all():
+        raise AssertionError(f"tsne: {coords.shape}, finite "
+                             f"{np.isfinite(coords).all()}")
+    with torch.no_grad():
+        times = time_calls({"encode": lambda: encoder_apply(
+            ctx.params, graph, ctx.model_cfg)})
+    emit("analysis", seconds=seconds, launches=counts,
+         duration_s={k: r["duration_s"] for k, r in results.items()},
+         encode_ms=times["encode_ms"], encode_call_ms=times["encode_call_ms"],
+         max_embedding_err=emb_err, files_checked=n_files,
+         find_paths_pairs=len(searches), find_paths_ms=path_ms,
+         find_paths_ms_median=statistics.median(path_ms),
+         find_paths_found=n_paths, unpruned_ms=plain_ms,
+         unpruned_equal=compared, unpruned_timed_out=timed_out,
+         tsne_5000_s=tsne_s, clusters=clusters,
+         type_sizes={k: int(v[1] - v[0]) for k, v in tr.items()})
+    return counts
+
+
+def phase_export(tmp, data, heads, served, query_ms, dev):
+    """``predict_cli.main --export`` from the serve phase's model and data:
+    6 B1 launches; then the artifact, loaded by ``load_predictor``, serves
+    the serve phase's 8 heads for relations 0-2, its scores within TOL of
+    ``predict_cli``'s and its ids equal on untied entries; the exported
+    query is timed beside the same query run directly (device time and
+    ``call_ms``) and the serve phase's ``query_ms``."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.evaluate import predict_cli
+    from primekg_rgcn_tpu_torch.evaluate.export import load_predictor
+    from primekg_rgcn_tpu_torch.ops.distmult import distmult_score_all_tails
+
+    topk = len(served[0][0]["predictions"])
+    artifact = tmp / "export" / "scorer.pt2"
+    reset_counts()
+    t0 = time.perf_counter()
+    predict_cli.main([
+        "--model_path", str(data / "model.pt"), "--data_dir", str(data),
+        "--heads", *map(str, heads), "--relation", "0", "--topk", str(topk),
+        "--device", "cuda", "--export", str(artifact), "--export_batch",
+        str(len(heads))])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != {"B1": 6, "B2": 0, "B3": 0, "B4": 0}:
+        raise AssertionError(f"export: launches {counts}, expected 6 B1")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("export: TF32 matmuls are on")
+    predict = load_predictor(artifact)
+    q_heads = torch.tensor(heads, device=dev)
+    exact, score_err = [], 0.0
+    for r in range(3):
+        rels = torch.full((len(heads),), r, dtype=torch.long, device=dev)
+        with torch.no_grad():
+            scores, ids = predict(q_heads, rels)
+        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        for qi, ref in enumerate(served[r]):
+            ref_s = np.array([p["score"] for p in ref["predictions"]])
+            ref_i = np.array([p["tail_id"] for p in ref["predictions"]])
+            exact.append(untied_ids_equal(scores[qi], ids[qi], ref_s, ref_i))
+            score_err = max(score_err, float(np.abs(scores[qi] - ref_s).max()))
+    # The exported query and the same query as the serve phase times it,
+    # on one encode's embeddings: device time and call_ms of each.
+    rels = torch.zeros(len(heads), dtype=torch.long, device=dev)
+    emb, rel_emb = predict.node_emb, predict.rel_emb
+    with torch.no_grad():
+        times = time_calls({
+            "exported": lambda: predict(q_heads, rels),
+            "direct": lambda: torch.topk(distmult_score_all_tails(
+                emb[q_heads], rel_emb[rels], emb), topk, dim=1)})
+    emit("export", seconds=seconds, launches=counts,
+         artifact_bytes=artifact.stat().st_size, batch=len(heads), topk=topk,
+         relations_served=3, max_score_err=score_err,
+         ids_equal_served_exactly=all(exact), tf32=False,
+         export_query_ms=times["exported_ms"],
+         export_query_call_ms=times["exported_call_ms"],
+         direct_query_ms=times["direct_ms"],
+         direct_query_call_ms=times["direct_call_ms"],
+         serve_query_ms=query_ms)
+    return counts
+
+
 def main():
     import torch
 
@@ -2227,7 +2618,13 @@ def main():
         neval_counts = phase_node_eval(eval_ctx, params, cfg, graph, psg,
                                        dev)
 
-    # -- 21. summary --------------------------------------------------------
+        # -- 21-22. analysis and export -----------------------------------
+        analysis_counts = phase_analysis(Path(tmp), node_data, params, cfg,
+                                         graph, dev, plain_layer, raw)
+        export_counts = phase_export(Path(tmp), node_data, heads, served,
+                                     query_ms, dev)
+
+    # -- 23. summary --------------------------------------------------------
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2249,6 +2646,8 @@ def main():
                              "node_cli": ncli_counts["B1"],
                              "eval": eval_ctx["counts"]["B1"],
                              "node_eval": neval_counts["B1"],
+                             "analysis": analysis_counts["B1"],
+                             "export": export_counts["B1"],
                              "eval_after_cli": {k: v["B1"] for k, v in
                                                 cli_eval.items()}},
         "launches_per_step": {"forward": 6, "backward": 6},

@@ -10,7 +10,12 @@ table or a [B, N] score row; every shard lives on the one ``--device``):
     python -m primekg_rgcn_tpu_torch.evaluate.predict_cli \
         --model_path model.pt --data_dir data/processed \
         --heads 12 844 --relation 0 --topk 10 [--device cuda|cpu] \
-        [--shard node --n_devices 4] [--output predictions.json]
+        [--shard node --n_devices 4] [--output predictions.json] \
+        [--export scorer.pt2 --export_batch 32]
+
+``--export`` (dense only) also writes a ``torch.export`` program of the
+top-K scorer over the frozen embeddings of the same encode
+(``evaluate/export.py``), which serves without the graph or this package.
 """
 
 from __future__ import annotations
@@ -37,7 +42,22 @@ def parse_args(argv=None):
                    help="shards of --shard node (0 = the visible devices)")
     p.add_argument("--output", default=None,
                    help="optional JSON file for the predictions")
-    return p.parse_args(argv)
+    p.add_argument("--export", default=None,
+                   help="also write a self-contained top-K scorer "
+                        "(torch.export; the frozen embeddings of this "
+                        "encode and the relation table) to this path; load "
+                        "it with evaluate.export.load_predictor or "
+                        "torch.export.load(path).module()")
+    p.add_argument("--export_batch", type=int, default=32,
+                   help="fixed query batch size of the exported program")
+    args = p.parse_args(argv)
+    if args.export and args.shard == "node":
+        # The artifact freezes the [N, D] table, which the sharded path
+        # never builds.
+        p.error("--export needs the dense encode (--shard none): the "
+                "artifact freezes the [N, D] embeddings, which --shard node "
+                "never assembles")
+    return args
 
 
 def main(argv=None):
@@ -52,7 +72,8 @@ def main(argv=None):
     from primekg_rgcn_tpu_torch.config import ModelConfig
     from primekg_rgcn_tpu_torch.data import artifacts
     from primekg_rgcn_tpu_torch.device import resolve_device
-    from primekg_rgcn_tpu_torch.models.rgcn import predict_all_tails
+    from primekg_rgcn_tpu_torch.models.rgcn import get_embeddings
+    from primekg_rgcn_tpu_torch.ops.distmult import distmult_score_all_tails
     from primekg_rgcn_tpu_torch.train import checkpoint as ckpt
 
     device = resolve_device(args.device)
@@ -102,10 +123,20 @@ def main(argv=None):
                                       args.topk)
             scores, ids = topk(heads, rels)
     else:
+        rel_emb = params["decoder"]["rel_emb"]
         with torch.no_grad():
-            all_scores = predict_all_tails(params, graph.to(device), heads,
-                                           rels, model_cfg)
-            scores, ids = torch.topk(all_scores, args.topk, dim=1)
+            node_emb = get_embeddings(params, graph.to(device), model_cfg)
+            scores, ids = torch.topk(distmult_score_all_tails(
+                node_emb[heads], rel_emb[rels], node_emb), args.topk, dim=1)
+        if args.export:
+            from primekg_rgcn_tpu_torch.evaluate.export import (
+                export_topk_predictor)
+
+            out = export_topk_predictor(node_emb, rel_emb, args.export,
+                                        batch_size=args.export_batch,
+                                        topk=args.topk)
+            log.info("Exported serving artifact: %s (%d bytes)", out,
+                     out.stat().st_size)
     scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
 
     results = []

@@ -14,9 +14,11 @@ to read. Convert such a checkpoint once with
 
 from __future__ import annotations
 
+import copy
 import os
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -50,6 +52,58 @@ def save(path, payload: Dict[str, Any]) -> None:
         os.replace(tmp, path)
     finally:
         tmp.unlink(missing_ok=True)
+
+
+def _host_snapshot(obj):
+    """A copy of ``obj`` that later training cannot change: every tensor
+    copied to the host now (a CUDA tensor's copy waits for the device), and
+    every container and other value copied."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, _host_snapshot(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_snapshot(v) for v in obj)
+    return copy.deepcopy(obj)
+
+
+class AsyncSaver:
+    """Non-blocking :func:`save` on one background thread.
+
+    ``save_async`` copies the payload to the host at once, so the file holds
+    the state of the moment of the call, and leaves ``torch.save`` and the
+    disk write to the thread: the training loop goes on meanwhile. Writes
+    run in call order; a save to a path that is still being written waits
+    for that write first. ``wait_for_saves`` drains them all and raises the
+    first writer error.
+    """
+
+    def __init__(self):
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pending: Dict[Path, Future] = {}
+
+    def save_async(self, path, payload: Dict[str, Any]) -> Future:
+        path = Path(path)
+        earlier = self._pending.pop(path, None)
+        if earlier is not None:
+            earlier.result()
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=1,
+                                            thread_name_prefix="ckpt-save")
+        fut = self._pool.submit(save, path, _host_snapshot(payload))
+        self._pending[path] = fut
+        return fut
+
+    def wait_for_saves(self) -> None:
+        """Block until every pending write is on disk; stop the thread."""
+        pending, self._pending = self._pending, {}
+        pool, self._pool = self._pool, None
+        try:
+            for fut in pending.values():
+                fut.result()
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
 
 
 def load(path, *, device="cpu") -> Dict[str, Any]:

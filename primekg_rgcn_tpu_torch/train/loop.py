@@ -261,8 +261,10 @@ class Trainer:
     Checkpoints are reference-layout ``.pt`` files (``train/checkpoint``):
     ``models/best_model.pt`` on each new best validation loss,
     ``checkpoints/checkpoint_epoch_{n}.pt`` every ``save_every`` epochs and
-    ``models/final_model.pt`` at the end. Each epoch appends one event to
-    ``metrics.jsonl``.
+    ``models/final_model.pt`` at the end. The best and periodic ones are
+    written by a background thread (``checkpoint.AsyncSaver``) from a host
+    copy taken at the call; the final one is written at once, after the
+    pending writes. Each epoch appends one event to ``metrics.jsonl``.
     """
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -317,6 +319,7 @@ class Trainer:
         self.epoch = 0
         self.num_train_edges = int(train_edges.shape[0])
         self.metrics = MetricsLogger(self.output_dir / "metrics.jsonl")
+        self.saver = ckpt_lib.AsyncSaver()
 
     # -- checkpoint plumbing -------------------------------------------------
     def _checkpoint_payload(self) -> Dict[str, Any]:
@@ -339,12 +342,14 @@ class Trainer:
     def save_checkpoint(self, *, is_best=False, is_final=False):
         payload = self._checkpoint_payload()
         if is_final:
+            self.saver.wait_for_saves()
             ckpt_lib.save(self.model_dir / "final_model.pt", payload)
         elif is_best:
-            ckpt_lib.save(self.model_dir / "best_model.pt", payload)
+            self.saver.save_async(self.model_dir / "best_model.pt", payload)
         else:
-            ckpt_lib.save(self.checkpoint_dir /
-                          f"checkpoint_epoch_{self.epoch}.pt", payload)
+            self.saver.save_async(self.checkpoint_dir /
+                                  f"checkpoint_epoch_{self.epoch}.pt",
+                                  payload)
 
     def resume(self, path) -> None:
         payload = ckpt_lib.load(path, device=self.device)

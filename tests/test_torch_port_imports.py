@@ -1,10 +1,13 @@
 """The port stands alone: no module of it, and no line of chip_smoke.py,
 imports jax or the JAX package; and no module of it imports pandas,
-sklearn or matplotlib when it is imported, so that the port runs where
-none of them is installed (matplotlib is imported inside the plotting
-functions only)."""
+sklearn, networkx or matplotlib when it is imported, so that the port runs
+where none of them is installed (matplotlib and networkx are imported
+inside the plotting functions only). The whole analysis suite runs on the
+CPU in a process where none of them, nor plotly, can be imported: the
+stand-in for the card's machine."""
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -26,12 +29,12 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "primekg_rgcn_tpu"))
 absent = sorted({m.split(".")[0] for m in sys.modules} & {
-    "pandas", "sklearn", "matplotlib"})
+    "pandas", "sklearn", "matplotlib", "networkx"})
 print(json.dumps({"modules": len(names), "bad": bad, "absent": absent}))
 """
 # An import statement at a module's top level (column 0).
 TOP_LEVEL_HOST_ONLY = re.compile(
-    r"^(?:import|from)\s+(?:pandas|sklearn|matplotlib)(?![\w])",
+    r"^(?:import|from)\s+(?:pandas|sklearn|matplotlib|networkx)(?![\w])",
     re.MULTILINE)
 
 
@@ -61,3 +64,47 @@ def test_no_module_imports_pandas_sklearn_or_matplotlib_when_imported():
                  for p in sorted(PORT.rglob("*.py"))
                  for m in TOP_LEVEL_HOST_ONLY.finditer(p.read_text())]
     assert offenders == []
+
+
+_BLOCKED_ANALYSIS = r"""
+import json, sys
+from pathlib import Path
+BLOCKED = ("sklearn", "networkx", "pandas", "matplotlib", "plotly")
+for name in BLOCKED:
+    sys.modules[name] = None          # import raises ImportError
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+from port_analysis_data import build_trained
+from primekg_rgcn_tpu_torch.analyze import run_full_analysis
+
+out = Path(sys.argv[3])
+model, data = build_trained(out)
+run_full_analysis.main([
+    "--model_path", str(model), "--data_dir", str(data),
+    "--output_dir", str(out / "analysis"), "--device", "cpu",
+    "--diseases", "disease name 1", "disease name 4",
+    "--explain", "drugname2", "disease name 2"])
+print(json.dumps({
+    "summary": [ln.split("\t")[:2] for ln in
+                (out / "analysis" / "analysis_summary.txt").read_text()
+                .splitlines()],
+    "pngs": sorted(str(p) for p in (out / "analysis").rglob("*.png")),
+    "loaded": sorted(m for m in BLOCKED if sys.modules.get(m) is not None)}))
+"""
+
+
+def test_full_analysis_runs_without_sklearn_networkx_pandas_matplotlib(
+        tmp_path):
+    # One OpenMP thread: the suite's other workers share the cores.
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_ANALYSIS, str(REPO),
+         str(REPO / "tests"), str(tmp_path)], cwd=tmp_path,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["summary"] == [[name, "OK"] for name in (
+        "evaluate", "error_analysis", "case_studies", "embeddings",
+        "explanations", "validation", "comparison", "failures")]
+    assert out["pngs"] == [] and out["loaded"] == []
+    assert "matplotlib is not installed" in (
+        tmp_path / "analysis" / "error_analysis.log").read_text()

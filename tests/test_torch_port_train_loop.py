@@ -287,3 +287,110 @@ def test_loss_decreases_and_eval_is_deterministic():
     a = evaluate(params, torch.Generator().manual_seed(9))
     b = evaluate(params, torch.Generator().manual_seed(9))
     assert a[0].item() == b[0].item() and a[1].item() == b[1].item()
+
+
+def _same(a, b, where=""):
+    """Two loaded checkpoints hold equal tensors and values."""
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and torch.equal(a, b), where
+    elif isinstance(a, dict):
+        assert type(a) is type(b) and list(a) == list(b), where
+        for k in a:
+            _same(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, f"{where}: {a!r} vs {b!r}"
+
+
+def test_save_async_writes_the_state_of_the_call(tmp_path, monkeypatch):
+    """The writer thread is held until the caller has changed the tensors
+    in place and appended to a list: the file still holds the values of
+    the moment of the call. A second save to the same path waits for the
+    first; a writer error surfaces in wait_for_saves."""
+    import threading
+
+    from primekg_rgcn_tpu_torch.train import checkpoint as ckpt
+
+    gate = threading.Event()
+    real_save = ckpt.save
+
+    def held_save(path, payload):
+        assert gate.wait(timeout=60)
+        real_save(path, payload)
+
+    monkeypatch.setattr(ckpt, "save", held_save)
+    w = torch.arange(6, dtype=torch.float32)
+    history = [1.0]
+    saver = ckpt.AsyncSaver()
+    saver.save_async(tmp_path / "a.pt", {"w": w, "history": history,
+                                         "nested": {"w": w[:2]}})
+    w.add_(100.0)
+    history.append(2.0)
+    gate.set()
+    saver.save_async(tmp_path / "a.pt", {"w": w, "history": history})
+    saver.save_async(tmp_path / "b.pt", {"w": w * 0})
+    saver.wait_for_saves()
+    assert torch.equal(torch.load(tmp_path / "a.pt")["w"], w)
+    assert torch.load(tmp_path / "a.pt")["history"] == [1.0, 2.0]
+    assert torch.equal(torch.load(tmp_path / "b.pt")["w"], w * 0)
+
+    gate.clear()
+    saver.save_async(tmp_path / "c.pt", {"w": w, "history": history,
+                                         "nested": {"w": w[:2]}})
+    w.add_(1.0)
+    history.append(3.0)
+    gate.set()
+    saver.wait_for_saves()
+    got = torch.load(tmp_path / "c.pt")
+    assert torch.equal(got["w"], w - 1.0)
+    assert torch.equal(got["nested"]["w"], w[:2] - 1.0)
+    assert got["history"] == [1.0, 2.0]
+
+    monkeypatch.setattr(ckpt, "save", lambda path, payload: 1 / 0)
+    saver.save_async(tmp_path / "d.pt", {"w": w})
+    with pytest.raises(ZeroDivisionError):
+        saver.wait_for_saves()
+
+
+def test_trainer_checkpoints_equal_synchronous_saves(tmp_path, monkeypatch):
+    """Every best and periodic checkpoint goes through the async writer;
+    after training, each file loads equal to a synchronous save of the
+    payload of its last call, and the final model too."""
+    from primekg_rgcn_tpu_torch.train import checkpoint as ckpt
+
+    shadow = tmp_path / "sync"
+    real_async = ckpt.AsyncSaver.save_async
+    calls = []
+
+    def recording(self, path, payload):
+        calls.append(path.name)
+        ckpt.save(shadow / path.parent.name / path.name, payload)
+        return real_async(self, path, payload)
+
+    monkeypatch.setattr(ckpt.AsyncSaver, "save_async", recording)
+    graph, edges, cfg = _toy(dropout=0.1)
+    tcfg = TrainConfig(batch_size=128, lr=1e-2, epochs=2, save_every=1)
+    trainer = loop.Trainer(cfg, tcfg, graph, graph, edges[:500], edges[500:],
+                           tmp_path / "run", device="cpu")
+    trainer.train()
+    assert "best_model.pt" in calls
+    assert [c for c in calls if c.startswith("checkpoint_epoch")] == [
+        f"checkpoint_epoch_{e}.pt" for e in (1, 2)]
+    written = sorted((tmp_path / "run").glob("*/*.pt"))
+    assert {p.name for p in written} >= {"best_model.pt", "final_model.pt",
+                                         "checkpoint_epoch_2.pt"}
+    for p in written:
+        if p.name == "final_model.pt":
+            continue
+        _same(torch.load(p, weights_only=False),
+              torch.load(shadow / p.parent.name / p.name,
+                         weights_only=False), p.name)
+    final = ckpt.load(tmp_path / "run" / "models" / "final_model.pt")
+    want = _flat(trainer.params)
+    got = _flat(final["params"])
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k].detach()), k

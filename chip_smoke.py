@@ -7,7 +7,8 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: compiles the four kernels under ``primekg_rgcn_tpu_torch/csrc/``
-   with nvcc (sm_90a), one process per source, all at once.
+   with nvcc (sm_90a), one process per library, all at once (B1's source
+   twice: its float32 and its bf16 entry, each with its kernel instances).
 3. kernel: the kernel against its plain PyTorch version on the card, at the
    six (relation bucket, D) shapes one encode of the full default model
    gives it (with those inputs), in edge-norm mode, at several widths and on
@@ -24,7 +25,7 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    call from an idle stream between two CUDA events, host work included.
    Three child processes hand it a CSR that does not cover ``src`` or a
    ``src`` id outside the table and must stop on the kernel's device-side
-   assert.
+   assert; two more do the same to the bf16 variant.
 4. serve: the top-K serving entry point ``predict_cli.main`` on the full
    PrimeKG-shaped synthetic graph (30,926 nodes, 1,709,568 padded edges) and
    the default 64 -> 128 -> 128 model with random weights from seed 0, for
@@ -120,6 +121,38 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    beside the serve phase's ``query_ms``.
 23. the kernel summary line, then the card line, then the result line.
 
+bf16 compute (``compute_dtype="bfloat16"``, full width) adds, each beside
+its float32 counterpart:
+
+- kernel_bf16: after 5, B1's bf16-table variant against its plain version
+  at the six forward and six transpose-CSR shapes (the tables rounded to
+  bf16), the partition cases bit for bit on their dyadic inputs, edge
+  cases (D = 8, odd D, D = 320, unaligned bf16 views, an empty CSR, edge
+  scales); kernel, wrapper, plain and library times (cuSPARSE on a bf16
+  CSR, or the float32 call on the upcast table, named) beside the bf16
+  bound and the float32 kernel's time. After 9, B2's bf16 variant at a bf16
+  block step's identity-backward stream and edge cases, ``index_add_`` of
+  the upcast rows beside it; after 14, B4's at the node step's shapes, bit
+  for bit, ``copy_`` beside it. Two children feed B1's bf16 variant a bad
+  CSR and one B2's unsorted ids: each must stop on the device-side assert.
+- grad_bf16 (after 6): one full-size step in bf16 through the kernels and
+  through their plain versions: 6 + 6 bf16 B1 launches and no float32 one,
+  every gradient within 1e-2 of its largest magnitude, the losses within
+  1e-3, each gradient within 5e-2 of the float32 step's in norm.
+- train_bf16 (after 7): 3 warm-up and 50 timed bf16 steps, 12 bf16 B1
+  launches a step, and a 10-step profile.
+- cli_bf16 (after 8): ``train.cli --compute_dtype bfloat16`` at scale 0.1
+  for 2 epochs, then ``predict_cli`` and ``evaluate.cli`` on its final
+  model: both report bfloat16, every B1 launch a bf16 one.
+- sampled_bf16 (after 12): a block-over-slim step's loss and gradients
+  through B2's bf16 variant and B3 against their plain versions (as
+  grad_bf16), then 30 timed steps, 1 bf16 B2 and 2 B3 launches a step.
+- node_bf16 (after 16): the 4-shard encode against the dense bf16 encode
+  within 2e-2, 2 bf16 B4 and 30 bf16 B1 launches; 30 timed steps, 4 bf16
+  B4 and 60 bf16 B1 launches a step.
+
+The kernel summary line gives B1, B2 and B4 a ``bf16`` object each.
+
 It needs one CUDA card and exits non-zero without one.
 """
 
@@ -150,7 +183,7 @@ BAD_INPUT_CHILD = """
 import torch
 from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
 i32 = dict(dtype=torch.int32, device="cuda")
-x = torch.ones(5, 64, device="cuda")
+x = torch.ones(5, 64, device="cuda", dtype={dtype})
 src = torch.zeros(3, **i32)
 {case}
 with torch.no_grad():
@@ -247,10 +280,12 @@ def host_ms(fn, reps=10, warmup=2):
 
 def bound(x, src, rowptr, scale, s):
     """Least time for the function, in ms, both ways: each input byte read
-    once and the output written once at the HBM rate, and its 2*E*D float32
-    operations at the float32 peak. The bound is the larger of the two."""
+    once (a bf16 table at 2 bytes an element) and the float32 output
+    written once at the HBM rate, and its 2*E*D float32 operations at the
+    float32 peak. The bound is the larger of the two."""
     d = x.shape[1]
-    nbytes = (x.numel() + src.numel() + rowptr.numel() + s * d) * 4
+    nbytes = (x.numel() * x.element_size()
+              + (src.numel() + rowptr.numel() + s * d) * 4)
     if scale is not None:
         nbytes += scale.numel() * 4
     return {"bytes": nbytes, "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -290,6 +325,18 @@ def close_scaled(got, want, name):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * max(top, 1e-30),
                                msg=lambda m: f"{name}: {m}")
     return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def close_rel(got, want, rel, name):
+    """``got`` within ``rel`` of ``want``'s largest magnitude, element by
+    element; returns the largest difference over that magnitude."""
+    top = max(float(want.abs().max()), 1e-30) if want.numel() else 1.0
+    diff = float((got.float() - want.float()).abs().max()) / top \
+        if got.numel() else 0.0
+    if diff > rel:
+        raise AssertionError(f"{name}: differs by {diff:.3g} of the largest "
+                             f"magnitude, more than {rel}")
+    return diff
 
 
 def twice_equal(name, x, src, rowptr, scale=None):
@@ -417,9 +464,217 @@ def phase_kernel_bwd(graph, dev):
     return rows, max_err
 
 
-def phase_grad(graph, cfg, edges, dev, plain_layer):
+def b1_bf16_library(x, src, rowptr, scale):
+    """The library calls beside B1's bf16 variant, timed as yardsticks only
+    (the port never calls them): cuSPARSE's CSR @ dense on a bf16 CSR and
+    the bf16 table where ``torch.sparse`` takes them, and the float32 call
+    on the upcast table. Returns ({name: call}, {name: result as
+    float32}); the bf16 product has a bf16 output and sums in its own
+    precision, so it is held to nothing and its error is printed."""
+    import torch
+
+    csr32 = library_csr(x.float(), src, rowptr, scale)
+    x32 = x.float()
+    calls = {"library_f32_upcast": lambda: csr32 @ x32}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+        csr = torch.sparse_csr_tensor(
+            csr32.crow_indices(), csr32.col_indices(),
+            csr32.values().to(x.dtype), size=csr32.shape,
+            check_invariants=False)
+    try:
+        with torch.no_grad():
+            (csr @ x).float()
+        torch.cuda.synchronize()
+        calls["library"] = lambda: csr @ x
+    except RuntimeError:
+        calls["library"] = calls["library_f32_upcast"]
+    with torch.no_grad():
+        out = {k: fn().float() for k, fn in calls.items()}
+    return calls, out
+
+
+def phase_kernel_bf16_b1(graph, dev, layer_inputs, exact, f32_rows,
+                         f32_bwd_rows):
+    """Kernel B1's bf16-table variant against its plain version on the
+    card (rtol 1e-4, atol 1e-4 of the output's largest magnitude: both sum
+    the same bf16-exact values in float32): at the six forward shapes of
+    one encode (the float32 layer inputs rounded to bf16) and the six
+    transpose-CSR shapes of one step's backward, with kernel, wrapper,
+    plain and library times beside the bf16 bound and the float32 kernel's
+    time; the float32 kernel's partition cases on their dyadic inputs (exact
+    in bf16) bit for bit against the float32 plain version; edge cases (D
+    = 8, odd D, D = 320 in column chunks, unaligned bf16 views, an empty
+    CSR, edge-norm scales); two launches on the same inputs bit-identical.
+    Every launch must be a bf16 one. Returns (forward rows, backward rows,
+    largest error, library call's name)."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+    from primekg_rgcn_tpu_torch.ops.rgcn_segment import build_layer_agg_ops
+
+    bf16 = torch.bfloat16
+    kern, plain = ss.gather_segment_sum, ss.gather_segment_sum_plain
+    n = graph.num_nodes
+    ops = build_layer_agg_ops(graph)
+    max_err, library = 0.0, None
+
+    def check(name, x, src, rowptr, scale=None, exact_to=None):
+        nonlocal max_err
+        reset_counts()
+        with torch.no_grad():
+            got = kern(x, src, rowptr, scale)
+            want = plain(x, src, rowptr, scale)
+        torch.cuda.synchronize()
+        if (kern.launches, kern.launches_bf16) != (1, 1):
+            raise AssertionError(f"kernel_bf16/{name}: not the bf16 variant")
+        if exact_to is not None and not (torch.equal(got, want)
+                                         and torch.equal(got, exact_to)):
+            raise AssertionError(f"kernel_bf16/{name}: not equal to the "
+                                 f"plain versions on exact inputs")
+        err = close_scaled(got, want, f"kernel_bf16/{name}")
+        twice_equal(f"kernel_bf16/{name}", x, src, rowptr, scale)
+        max_err = max(max_err, err)
+        return err
+
+    def shape_row(name, x, src, rowptr, f32_row):
+        nonlocal library
+        err = check(name, x, src, rowptr)
+        lib_calls, lib_out = b1_bf16_library(x, src, rowptr, None)
+        library = ("cusparse_bf16" if lib_calls["library"] is not
+                   lib_calls["library_f32_upcast"]
+                   else "cusparse_float32_on_upcast_table")
+        with torch.no_grad():
+            want = plain(x, src, rowptr)
+            lib_err = {f"{k}_rel_err": float((v - want).abs().max()
+                                             / want.abs().max())
+                       for k, v in lib_out.items()}
+            close_scaled(lib_out["library_f32_upcast"], want,
+                         f"kernel_bf16/{name}/library_f32_upcast")
+            t = time_calls({
+                "kernel": lambda: ss.launch(x, src, rowptr),
+                "wrapper": lambda: kern(x, src, rowptr),
+                "plain": lambda: plain(x, src, rowptr), **lib_calls})
+        b = bound(x, src, rowptr, None, rowptr.numel() - 1)
+        gathered = src.numel() * x.shape[1] * x.element_size()
+        row = dict(shape=name, edges=src.numel(), d=x.shape[1], **t,
+                   library=library, **lib_err,
+                   f32_kernel_ms=f32_row["kernel_ms"],
+                   f32_bound_us=f32_row["bound_us"],
+                   gathered_bytes=gathered,
+                   gather_tb_per_s=gathered / t["kernel_ms"] / 1e9,
+                   vec_lanes=ss.b1_width(x.shape[1], x), **bound_fields(b),
+                   max_abs_err=err)
+        emit("kernel_bf16_b1_shape", **row)
+        return row
+
+    rows, bwd_rows = [], []
+    f32_fwd = iter(f32_rows)
+    for layer, x32 in layer_inputs:
+        x = x32.to(bf16)
+        for r, op in enumerate(ops):
+            rows.append(shape_row(f"layer{layer}/bucket{r}", x, op.src,
+                                  op.rowptr, next(f32_fwd)))
+    gen = torch.Generator(dev).manual_seed(1)
+    f32_bwd = iter(f32_bwd_rows)
+    for d in (64, 128):
+        # The backward's table: a layer aggregate's float32 gradient rounded
+        # to bf16, its dummy row zero.
+        g = torch.randn(n + 1, d, device=dev, generator=gen)
+        g[n] = 0.0
+        g = g.to(bf16)
+        for r, op in enumerate(ops):
+            bwd_rows.append(shape_row(f"bwd/D{d}/bucket{r}", g, op.t_ids,
+                                      op.t_rowptr, next(f32_bwd)))
+
+    # The partition cases on dyadic inputs: exact in bf16 too, so the bf16
+    # variant must equal the float32 plain version bit for bit.
+    for name, x32, src, rowptr, sc in exact:
+        with torch.no_grad():
+            want32 = plain(x32, src, rowptr, sc)
+        err = check(f"exact/{name}", x32.to(bf16), src, rowptr, sc,
+                    exact_to=want32)
+        emit("kernel_bf16_b1_case", case=f"exact/{name}", edges=src.numel(),
+             d=x32.shape[1], max_abs_err=err, exact=True)
+
+    rng = np.random.default_rng(8)
+
+    def case(rows_n, s, dst, d, scaled, offset=0):
+        flat = torch.rand(rows_n * d + offset, device=dev,
+                          generator=gen).to(bf16)
+        x = flat[offset:].view(rows_n, d)
+        src = torch.from_numpy(
+            rng.integers(0, rows_n, dst.shape[0]).astype(np.int32)).to(dev)
+        rowptr = torch.from_numpy(np.searchsorted(
+            dst, np.arange(s + 1)).astype(np.int32)).to(dev)
+        sc = (torch.rand(dst.shape[0], device=dev, generator=gen)
+              if scaled else None)
+        return x, src, rowptr, sc
+
+    def random_dst():
+        return np.sort(rng.integers(0, 5000, 40000))
+
+    cases = {f"random/D{d}/{'scaled' if sc else 'plain'}":
+             case(4000, 5000, random_dst(), d, sc)
+             for d in (8, 3, 37, 64, 128, 320) for sc in (False, True)}
+    cases["unaligned_view_2_bytes/D128"] = case(4000, 5000, random_dst(), 128,
+                                                False, offset=1)
+    cases["unaligned_view_4_bytes/D64"] = case(4000, 5000, random_dst(), 64,
+                                               True, offset=2)
+    cases["empty_csr/D64"] = case(100, 50, np.zeros(0, np.int64), 64, False)
+    cases["giant_run/D128"] = case(3000, 200, np.full(20000, 123), 128, False)
+    # Edge-norm mode at the gene-gene shape: per-edge 1/in-degree scales.
+    op = ops[2]
+    deg = torch.diff(op.rowptr).float()
+    dst_e = torch.repeat_interleave(torch.arange(n + 1, device=dev),
+                                    torch.diff(op.rowptr).long(),
+                                    output_size=op.src.numel())
+    scale = torch.where(dst_e < n, 1.0 / deg.clamp(min=1)[dst_e],
+                        torch.zeros((), device=dev)).contiguous()
+    cases["edge_norm/bucket2/D128"] = (layer_inputs[1][1].to(bf16), op.src,
+                                       op.rowptr, scale)
+    for name, (x, src, rowptr, sc) in cases.items():
+        err = check(name, x, src, rowptr, sc)
+        emit("kernel_bf16_b1_case", case=name, edges=src.numel(),
+             d=x.shape[1], rows=rowptr.numel() - 1, max_abs_err=err,
+             vec_lanes=ss.b1_width(x.shape[1], x))
+    return rows, bwd_rows, max_err, library
+
+
+@contextlib.contextmanager
+def b1_plain():
+    """While open, ``ss.gather_segment_sum`` (which ``GatherSegmentSum``
+    calls both ways) runs B1's plain version on the card instead of the
+    kernel, with the Function's casts unchanged."""
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+
+    saved = ss.gather_segment_sum
+    ss.gather_segment_sum = ss.gather_segment_sum_plain
+    try:
+        yield
+    finally:
+        ss.gather_segment_sum = saved
+
+
+def phase_grad(graph, cfg, edges, dev, plain_layer, f32_run=None):
     """One full-size training step's gradients through the kernel and
-    through the plain version on the same inputs."""
+    through the plain version on the same inputs.
+
+    At ``cfg.compute_dtype`` bf16 (phase ``grad_bf16``) every B1 launch must
+    be a bf16 one, and the plain run swaps B1 for its plain version inside
+    ``GatherSegmentSum`` (``b1_plain``), so both runs round the same bf16
+    cotangents; the gradients agree within 1e-2 of each tensor's largest
+    magnitude (a bf16 gradient is a float32 sum rounded to bf16, and the
+    kernel and ``index_add_`` sum in other orders, so a value near a
+    rounding boundary rounds to a neighbour), the losses within 1e-3, and
+    each gradient within 5e-2 of ``f32_run``'s, the float32 step on the
+    same inputs, in norm (||bf16 - f32|| / ||f32||): a check that it is the
+    same function. Element by element the two differ by more (the JAX
+    package's own bf16 and f32 layer-1 gradients by 5-8 % of their largest
+    magnitude on a small graph at random weights, where the tiny gradients
+    are sums that cancel); that figure is printed, not held. Returns
+    (largest error, the kernel run: loss and grads)."""
     import numpy as np
     import torch
 
@@ -442,41 +697,74 @@ def phase_grad(graph, cfg, edges, dev, plain_layer):
     cands = loop.sample_candidates(edges_pad, batch_idx, n, 1, generator=gen)
     enc_mask = torch.rand(n, cfg.hidden_dim, generator=gen,
                           device=dev) < 1.0 - cfg.dropout
+    bf16 = cfg.compute_dtype == "bfloat16"
+    label = "grad_bf16" if bf16 else "grad"
     runs = {}
-    for name, layer_fn in (("kernel", rgcn_layer_segment),
-                           ("plain", plain_layer)):
+    for name, layer_fn, scope in (
+            ("kernel", rgcn_layer_segment, contextlib.nullcontext()),
+            ("plain", rgcn_layer_segment, b1_plain()) if bf16 else
+            ("plain", plain_layer, contextlib.nullcontext())):
         for _, p in leaves:
             p.grad = None
-        start = kern.launches
-        loss, _ = loop.loss_from_candidates(
-            params, graph, *cands, cfg, train=True, enc_mask=enc_mask,
-            layer_fn=layer_fn)
-        fwd = kern.launches - start
-        loss.backward()
+        reset_counts()
+        with scope:
+            loss, _ = loop.loss_from_candidates(
+                params, graph, *cands, cfg, train=True, enc_mask=enc_mask,
+                layer_fn=layer_fn)
+            fwd = (kern.launches, kern.launches_bf16)
+            loss.backward()
         torch.cuda.synchronize()
-        runs[name] = (loss.item(), [p.grad.clone() for _, p in leaves], fwd,
-                      kern.launches - start - fwd)
-    if runs["kernel"][2:] != (6, 6) or runs["plain"][2:] != (0, 0):
+        runs[name] = (loss.item(), [p.grad.clone() for _, p in leaves],
+                      fwd[0], kern.launches - fwd[0],
+                      fwd[1], kern.launches_bf16 - fwd[1])
+    want_launches = (6, 6, 6, 6) if bf16 else (6, 6, 0, 0)
+    if runs["kernel"][2:] != want_launches or \
+            runs["plain"][2:] != (0, 0, 0, 0):
         raise AssertionError(
-            f"launches (forward, backward): kernel {runs['kernel'][2:]}, "
-            f"plain {runs['plain'][2:]}; expected (6, 6) and (0, 0)")
+            f"{label} launches (forward, backward, bf16 forward, bf16 "
+            f"backward): kernel {runs['kernel'][2:]}, plain "
+            f"{runs['plain'][2:]}; expected {want_launches} and none")
     if not np.isfinite(runs["kernel"][0]):
         raise AssertionError("non-finite loss")
-    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0], rtol=1e-4)
-    per_leaf, max_err = {}, 0.0
-    for (name, _), got, want in zip(leaves, runs["kernel"][1], runs["plain"][1]):
-        err = close_scaled(got, want, f"grad/{name}")
+    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0],
+                               rtol=1e-3 if bf16 else 1e-4)
+    per_leaf, max_err, vs_f32 = {}, 0.0, {}
+    for i, ((name, _), got, want) in enumerate(
+            zip(leaves, runs["kernel"][1], runs["plain"][1])):
+        if bf16:
+            err = close_rel(got, want, 1e-2, f"{label}/{name}") * float(
+                want.abs().max())
+            ref = f32_run["grads"][i]
+            norm_rel = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+            if norm_rel > 5e-2:
+                raise AssertionError(f"{label}/{name}: differs from the "
+                                     f"float32 gradient by {norm_rel:.3g} in "
+                                     f"norm, more than 5e-2")
+            vs_f32[name] = {"norm_rel": norm_rel, "max_rel": float(
+                (got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))}
+        else:
+            err = close_scaled(got, want, f"grad/{name}")
         max_err = max(max_err, err)
         per_leaf[name] = {"max_abs_err": err,
                           "max_abs": float(want.abs().max())}
-    emit("grad", loss_kernel=runs["kernel"][0], loss_plain=runs["plain"][0],
+    extra = {}
+    if bf16:
+        extra = dict(loss_float32=f32_run["loss"],
+                     max_rel_err=max(v["max_abs_err"] / v["max_abs"]
+                                     for v in per_leaf.values()),
+                     vs_float32=vs_f32,
+                     launches_bf16_fwd=runs["kernel"][4],
+                     launches_bf16_bwd=runs["kernel"][5])
+    emit(label, loss_kernel=runs["kernel"][0], loss_plain=runs["plain"][0],
          launches_fwd=runs["kernel"][2], launches_bwd=runs["kernel"][3],
-         leaves=per_leaf)
-    return max_err
+         leaves=per_leaf, **extra)
+    return max_err, {"loss": runs["kernel"][0], "grads": runs["kernel"][1]}
 
 
 def phase_train(graph, cfg, edges, dev, tmp, steps=50):
-    """The bench.py step on the port: timing, launches, memory, profile."""
+    """The bench.py step on the port: timing, launches, memory, profile.
+    At ``cfg.compute_dtype`` bf16 (phase ``train_bf16``) every B1 launch
+    must be a bf16 one. Returns the launches and the profile's breakdown."""
     import numpy as np
     import torch
 
@@ -520,23 +808,26 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / steps * 1e3, out
 
+    label = "train_bf16" if cfg.compute_dtype == "bfloat16" else "train"
     first = step()
     for _ in range(2):
         step()
     pageable_ms, _ = timed(pinned=False)
     torch.cuda.reset_peak_memory_stats()
-    kern.launches = 0
+    reset_counts()
     step_ms, last = timed(pinned=True)
     launches = kern.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     if launches != 12 * steps:
         raise AssertionError(f"{launches} kernel launches in {steps} steps, "
                              f"expected {12 * steps}")
+    if label == "train_bf16":
+        only_bf16(label, read_counts(), read_bf16_counts())
     first_loss = float(first[0] / first[2])
     last_loss = float(last[0] / last[2])
     if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
         raise AssertionError(f"non-finite loss {first_loss}, {last_loss}")
-    emit("train", steps=steps, batch_size=b, train_edges=graph.num_edges,
+    emit(label, steps=steps, batch_size=b, train_edges=graph.num_edges,
          train_edges_per_s=b / step_ms * 1e3, step_ms=step_ms,
          step_ms_pageable_batch_copy=pageable_ms,
          launches=launches, launches_per_step=launches / steps,
@@ -551,22 +842,24 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50):
     # step.
     prof_steps = 10
     torch.cuda.synchronize()
-    with profile_trace(tmp / "profile"):
+    with profile_trace(tmp / f"{label}_profile"):
         t0 = time.perf_counter()
         for _ in range(prof_steps):
             step()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
-    breakdown = trace_breakdown(tmp / "profile" / "trace.json")
+    breakdown = trace_breakdown(tmp / f"{label}_profile" / "trace.json")
     if breakdown is None:
-        emit("train_profile", steps=prof_steps, device_events=0,
+        emit(f"{label}_profile", steps=prof_steps, device_events=0,
              idle_share="not measured")
     else:
         busy_ms = breakdown["busy_us"] / prof_steps / 1e3
-        emit("train_profile", steps=prof_steps, step_ms_under_profiler=prof_ms,
-             device_busy_ms_per_step=busy_ms,
-             idle_share_two_windows=1.0 - busy_ms / step_ms, **breakdown)
-    return launches
+        breakdown = dict(device_busy_ms_per_step=busy_ms,
+                         idle_share_two_windows=1.0 - busy_ms / step_ms,
+                         **breakdown)
+        emit(f"{label}_profile", steps=prof_steps,
+             step_ms_under_profiler=prof_ms, **breakdown)
+    return launches, breakdown
 
 
 @contextlib.contextmanager
@@ -699,6 +992,11 @@ SAMPLED_BAD_CASES = {
     # B3: a window that runs past the record table.
     "b3_start_past_table": "pwf.window_rows_fetch(torch.zeros(256, 2, **i32),"
                            " torch.tensor([0, 250], **i32), 8)",
+    # B2's bf16 variant: the same unsorted ids.
+    "b2_bf16_unsorted_ids": "pds.dense_sorted_segment_sum(torch.ones(600, "
+                            "64, device='cuda', dtype=torch.bfloat16), "
+                            "torch.arange(600, **i32).flip(0).contiguous(), "
+                            "1000)",
 }
 
 
@@ -747,10 +1045,10 @@ def reset_counts():
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
     from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
 
-    ss.gather_segment_sum.launches = 0
-    pds.dense_sorted_segment_sum.launches = 0
+    for fn in (ss.gather_segment_sum, pds.dense_sorted_segment_sum,
+               halo.halo_exchange):
+        fn.launches = fn.launches_bf16 = 0
     pwf.window_rows_fetch.launches = 0
-    halo.halo_exchange.launches = 0
 
 
 def read_counts():
@@ -763,6 +1061,28 @@ def read_counts():
             "B2": pds.dense_sorted_segment_sum.launches,
             "B3": pwf.window_rows_fetch.launches,
             "B4": halo.halo_exchange.launches}
+
+
+def read_bf16_counts():
+    """The bf16-variant launches of B1, B2 and B4 since ``reset_counts``
+    (each also counts in ``read_counts``)."""
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+
+    return {"B1": ss.gather_segment_sum.launches_bf16,
+            "B2": pds.dense_sorted_segment_sum.launches_bf16,
+            "B4": halo.halo_exchange.launches_bf16}
+
+
+def only_bf16(label, counts, bf16_counts, expect=None):
+    """Every B1, B2 and B4 launch of a bf16 run went to its bf16 variant
+    (and, with ``expect``, the counts are those)."""
+    mixed = {k: (counts[k], v) for k, v in bf16_counts.items()
+             if counts[k] != v}
+    if mixed or (expect is not None and counts != expect):
+        raise AssertionError(f"{label}: launches {counts}, bf16 "
+                             f"{bf16_counts}; expected {expect} all bf16")
 
 
 def sampled_forward_backward(step, params, cfg, pos, dev, seed=0):
@@ -812,12 +1132,13 @@ def sampled_setup(graph, cfg, edges, dev):
 
 
 def b2_bound(msg, srt, n):
-    """Least time of B2, in ms, both ways: the rows of real ids, every id
-    and the output, each moved once at the HBM rate, and one float32
-    addition per real row element at the float32 peak."""
+    """Least time of B2, in ms, both ways: the rows of real ids (2 bytes an
+    element in bf16), every id and the float32 output, each moved once at
+    the HBM rate, and one float32 addition per real row element at the
+    float32 peak."""
     real = int((srt < n).sum())
     d = msg.shape[1]
-    nbytes = real * d * 4 + srt.numel() * 4 + n * d * 4
+    nbytes = real * d * msg.element_size() + srt.numel() * 4 + n * d * 4
     return {"bytes": nbytes, "real_rows": real,
             "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "op_ms": real * d / F32_FLOPS * 1e3}
@@ -842,8 +1163,14 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
     """Kernel B2 against its plain version on the card: the identity
     backward's real id stream of one block-mode step (main path), the
     outer layer's dedup stream at its shape, and edge cases; kernel, plain
-    and index_add_ times beside the bound; one child process hands it
-    unsorted ids and must stop on the device-side assert."""
+    and index_add_ times beside the bound; child processes hand B2 (both
+    variants) unsorted ids and B3 a window past its table, and must stop
+    on the device-side assert.
+
+    At ``cfg.compute_dtype`` bf16 (phase ``kernel_bf16``, lines
+    ``kernel_bf16_b2_*``) the step's stream is bf16 cotangent rows: the
+    bf16 variant, every case in bf16, ``index_add_`` of the upcast rows
+    (the upcast included) as the library call, and no children."""
     import numpy as np
     import torch
 
@@ -851,7 +1178,9 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
     from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
     from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
 
-    children = {name: subprocess.Popen(
+    bf16 = cfg.compute_dtype == "bfloat16"
+    label = "kernel_bf16_b2" if bf16 else "kernel_b2"
+    children = {} if bf16 else {name: subprocess.Popen(
         [sys.executable, "-c", SAMPLED_BAD_INPUT_CHILD.format(case=body)],
         cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, body in SAMPLED_BAD_CASES.items()}
@@ -867,9 +1196,13 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
     if not batch.blocks[0].ident or outer.ident:
         raise AssertionError("expected an identity inner block and a dedup "
                              "outer block")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if msg.dtype != dtype:
+        raise AssertionError(f"{label}: the step's stream is {msg.dtype}")
     gen = torch.Generator(dev).manual_seed(2)
     dedup_ids = outer.sort_uid
-    dedup_msg = torch.randn(dedup_ids.numel(), 128, device=dev, generator=gen)
+    dedup_msg = torch.randn(dedup_ids.numel(), 128, device=dev,
+                            generator=gen).to(dtype)
     rows, max_err = [], 0.0
     for name, m, s, segs in (("ident_backward/main_path", msg, srt, n),
                              ("dedup_backward_shape", dedup_msg, dedup_ids,
@@ -877,14 +1210,14 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
         got = pds.dense_sorted_segment_sum(m, s, segs)
         want = pds.dense_sorted_segment_sum_plain(m, s, segs)
         torch.cuda.synchronize()
-        err = close_scaled(got, want, f"b2/{name}")
+        err = close_scaled(got, want, f"{label}/{name}")
         max_err = max(max_err, err)
         idx = s.clamp(max=segs)
         buf = torch.zeros(segs + 1, m.shape[1], device=dev)
         t = time_calls({
             "kernel": lambda: pds.launch(m, s, segs),
             "plain": lambda: pds.dense_sorted_segment_sum_plain(m, s, segs),
-            "library": lambda: buf.index_add_(0, idx, m)})
+            "library": lambda: buf.index_add_(0, idx, m.float())})
         b = b2_bound(m, s, segs)
         runs = torch.unique_consecutive(s[s < segs], return_counts=True)[1]
         row = dict(shape=name, rows=m.shape[0], d=m.shape[1], segments=segs,
@@ -892,12 +1225,13 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
                    runs=int(runs.numel()), **t, max_abs_err=err,
                    **bound_fields(b))
         rows.append(row)
-        emit("kernel_b2_shape", **row)
+        emit(f"{label}_shape", **row)
 
     rng = np.random.default_rng(3)
 
     def case(ids, d, segs, offset=0):
-        flat = torch.rand(ids.shape[0] * d + offset, device=dev, generator=gen)
+        flat = torch.rand(ids.shape[0] * d + offset, device=dev,
+                          generator=gen).to(dtype)
         return (flat[offset:].view(ids.shape[0], d),
                 torch.from_numpy(ids.astype(np.int32)).to(dev), segs)
 
@@ -917,9 +1251,9 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
         got = pds.dense_sorted_segment_sum(m, s, segs)
         want = pds.dense_sorted_segment_sum_plain(m, s, segs)
         torch.cuda.synchronize()
-        err = close_scaled(got, want, f"b2/{name}")
+        err = close_scaled(got, want, f"{label}/{name}")
         max_err = max(max_err, err)
-        emit("kernel_b2_case", case=name, rows=m.shape[0], d=m.shape[1],
+        emit(f"{label}_case", case=name, rows=m.shape[0], d=m.shape[1],
              segments=segs, max_abs_err=err)
 
     for name, child in children.items():
@@ -987,13 +1321,22 @@ def phase_sampled_grad(graph, cfg, edges, dev):
     """One full-size block-mode step's loss and gradients through kernels
     B2 and B3 and through their plain versions, over the fat CSR (1 B2
     launch, no B3) and the slim pairs CSR (1 B2, 2 B3), with the same
-    parameters, batch, negatives, draws and dropout mask."""
+    parameters, batch, negatives, draws and dropout mask.
+
+    At ``cfg.compute_dtype`` bf16 (phase ``sampled_bf16``) over the slim
+    CSR only, its B2 launch a bf16 one, within ``grad_bf16``'s tolerance:
+    gradients within 1e-2 of each tensor's largest magnitude, the losses
+    within 1e-3."""
     import numpy as np
 
     from primekg_rgcn_tpu_torch.config import TrainConfig
     from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
 
+    bf16 = cfg.compute_dtype == "bfloat16"
+    label = "sampled_bf16" if bf16 else "sampled_grad"
     params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
+    if bf16:
+        del csrs["fat"]
     expect = {"fat": {"B1": 0, "B2": 1, "B3": 0, "B4": 0},
               "slim": {"B1": 0, "B2": 1, "B3": 2, "B4": 0}}
     losses, max_err, out = {}, 0.0, {}
@@ -1008,21 +1351,25 @@ def phase_sampled_grad(graph, cfg, edges, dev):
                   else contextlib.nullcontext()):
                 loss, grads, batch = sampled_forward_backward(
                     step, params, cfg, pos, dev)
-            runs[impl] = (loss, grads, read_counts())
+            runs[impl] = (loss, grads, read_counts(), read_bf16_counts())
         if runs["kernel"][2] != expect[csr_name] or \
                 any(runs["plain"][2].values()):
             raise AssertionError(
-                f"sampled_grad/{csr_name}: launches kernel "
+                f"{label}/{csr_name}: launches kernel "
                 f"{runs['kernel'][2]}, plain {runs['plain'][2]}; expected "
                 f"{expect[csr_name]} and none")
+        if bf16:
+            only_bf16(f"{label}/{csr_name}", *runs["kernel"][2:])
         if not np.isfinite(runs["kernel"][0]):
             raise AssertionError("non-finite sampled loss")
         np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0],
-                                   rtol=1e-5)
+                                   rtol=1e-3 if bf16 else 1e-5)
         per_leaf = {}
         for name, want in runs["plain"][1].items():
-            err = close_scaled(runs["kernel"][1][name], want,
-                               f"sampled_grad/{csr_name}/{name}")
+            got = runs["kernel"][1][name]
+            where = f"{label}/{csr_name}/{name}"
+            err = (close_rel(got, want, 1e-2, where) * float(want.abs().max())
+                   if bf16 else close_scaled(got, want, where))
             max_err = max(max_err, err)
             per_leaf[name] = {"max_abs_err": err,
                               "max_abs": float(want.abs().max())}
@@ -1032,20 +1379,26 @@ def phase_sampled_grad(graph, cfg, edges, dev):
                              launches=runs["kernel"][2], leaves=per_leaf,
                              budgets=list(step.budgets),
                              ident_rows=batch.blocks[0].sort_uid.numel())
-    if losses["slim"] != losses["fat"]:
+        if bf16:
+            out[csr_name]["max_rel_err"] = max(
+                v["max_abs_err"] / v["max_abs"] for v in per_leaf.values())
+    if not bf16 and losses["slim"] != losses["fat"]:
         raise AssertionError(f"loss over the slim CSR {losses['slim']} != "
                              f"over the fat CSR {losses['fat']}")
-    emit("sampled_grad", **out)
+    emit(label, **out)
     return max_err
 
 
-def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30):
+def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
+                        configs=("block/fat", "block/slim", "block4/slim")):
     """``build_sampled_train_step`` timed as the JAX package's
     ``bench_sampled`` times it: a fresh batch of 1,024 positives drawn on
     the host each step, 3 warm-up then 30 timed steps on the host clock;
     block over the fat CSR, block over the slim pairs CSR (the main path of
     kernels B2 and B3) and block4 over the slim CSR. Then a 10-step profile
-    of the main path."""
+    of the main path. At ``cfg.compute_dtype`` bf16 (phase
+    ``sampled_bf16``, block over the slim CSR) every B2 launch must be a
+    bf16 one."""
     import numpy as np
     import torch
 
@@ -1054,12 +1407,14 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30):
     from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
                                                         trace_breakdown)
 
+    bf16 = cfg.compute_dtype == "bfloat16"
+    label = "sampled_bf16" if bf16 else "sampled_train"
     tcfg = TrainConfig(batch_size=1024)
     params0, edges_dev, _, csrs = sampled_setup(graph, cfg, edges, dev)
     results = {}
-    for name, mode, csr in (("block/fat", "block", csrs["fat"]),
-                            ("block/slim", "block", csrs["slim"]),
-                            ("block4/slim", "block4", csrs["slim"])):
+    for name in configs:
+        mode, csr_name = name.split("/")
+        csr = csrs[csr_name]
         params = fresh_params(params0)
         step = build_sampled_train_step(csr, cfg, tcfg, fanouts=(15, 10),
                                         mode=mode, device=dev)
@@ -1092,6 +1447,8 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30):
                 "B3": 2 * steps if name.endswith("slim") else 0, "B4": 0}
         if counts != want:
             raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        if bf16:
+            only_bf16(f"{label}/{name}", counts, read_bf16_counts())
         results[name] = dict(
             step_ms=step_ms, train_edges_per_s=tcfg.batch_size / step_ms * 1e3,
             launches=counts,
@@ -1099,25 +1456,25 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30):
             peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
             budgets=list(step.budgets), first_loss=first_loss,
             last_loss=last_loss)
-        emit("sampled_train", config=name, steps=steps,
+        emit(label, config=name, steps=steps,
              batch_size=tcfg.batch_size, **results[name])
         if name == "block/slim":
             main_counts = counts
             prof_steps = 10
             torch.cuda.synchronize()
-            with profile_trace(tmp / "sampled_profile"):
+            with profile_trace(tmp / f"{label}_profile"):
                 t0 = time.perf_counter()
                 for _ in range(prof_steps):
                     one()
                 torch.cuda.synchronize()
                 prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
-            bd = trace_breakdown(tmp / "sampled_profile" / "trace.json")
+            bd = trace_breakdown(tmp / f"{label}_profile" / "trace.json")
             if bd is None:
-                emit("sampled_train_profile", steps=prof_steps,
+                emit(f"{label}_profile", steps=prof_steps,
                      device_events=0, idle_share="not measured")
             else:
                 busy_ms = bd["busy_us"] / prof_steps / 1e3
-                emit("sampled_train_profile", config=name, steps=prof_steps,
+                emit(f"{label}_profile", config=name, steps=prof_steps,
                      step_ms_under_profiler=prof_ms,
                      device_busy_ms_per_step=busy_ms,
                      idle_share_two_windows=1.0 - busy_ms / step_ms, **bd)
@@ -1188,42 +1545,49 @@ def node_launches(psg, step=True):
 def b4_bound(sends):
     """Least time of B4, in ms: every send byte read once and every recv
     byte written once at the HBM rate (no arithmetic)."""
-    nbytes = 2 * sum(t.numel() for t in sends) * 4
+    nbytes = 2 * sum(t.numel() for t in sends) * sends[0].element_size()
     return {"bytes": nbytes, "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "op_ms": 0.0}
 
 
-def phase_kernel_b4(psg, dev):
+def phase_kernel_b4(psg, dev, dtype=None):
     """Kernel B4 against its plain version on the card, exactly equal: at
     the node-sharded step's two shapes (the real serve lists over random
     [n_loc + 1, D] tables, D = 64 and 128) and on edge cases; kernel, plain
-    and ``copy_`` of the same bytes timed beside the bound."""
+    and ``copy_`` of the same bytes timed beside the bound. With ``dtype``
+    bf16 (phase ``kernel_bf16``, lines ``kernel_bf16_b4_*``) every payload
+    is bf16 and launches the bf16 variant, 16-byte vectors of 8 elements."""
     import torch
 
     from primekg_rgcn_tpu_torch.ops.cuda import halo
 
+    dtype = dtype or torch.float32
+    label = "kernel_bf16_b4" if dtype == torch.bfloat16 else "kernel_b4"
     gen = torch.Generator(dev).manual_seed(6)
     serve = psg.serve.to(dev).long()
     n, p = psg.n_devices, psg.halo_width
 
     def check(name, sends):
+        reset_counts()
         got = halo.halo_exchange(sends)
         want = halo.halo_exchange_plain(sends)
         torch.cuda.synchronize()
+        if halo.halo_exchange.launches_bf16 != (dtype == torch.bfloat16):
+            raise AssertionError(f"{label}/{name}: not its dtype's variant")
         for o, (g, w) in enumerate(zip(got, want)):
             if not torch.equal(g, w):
-                raise AssertionError(f"b4/{name}: recv {o} differs from the "
-                                     f"plain version")
+                raise AssertionError(f"{label}/{name}: recv {o} differs "
+                                     f"from the plain version")
 
     rows = []
     for d in (64, 128):
-        tables = [torch.randn(psg.n_loc + 1, d, device=dev, generator=gen)
-                  for _ in range(n)]
+        tables = [torch.randn(psg.n_loc + 1, d, device=dev,
+                              generator=gen).to(dtype) for _ in range(n)]
         sends = [tables[i][serve[i]] for i in range(n)]
         name = f"main_path/n{n}/P{p}/D{d}"
         check(name, sends)
         flat = sum(t.numel() for t in sends)
-        src = torch.randn(flat, device=dev, generator=gen)
+        src = torch.randn(flat, device=dev, generator=gen).to(dtype)
         dst = torch.empty_like(src)
         row = dict(shape=name, n=n, p=p, d=d, **time_calls({
             "kernel": lambda: halo.launch(sends),
@@ -1231,12 +1595,13 @@ def phase_kernel_b4(psg, dev):
             "library": lambda: dst.copy_(src)}),
             max_abs_err=0, **bound_fields(b4_bound(sends)))
         rows.append(row)
-        emit("kernel_b4_shape", **row)
+        emit(f"{label}_shape", **row)
 
     def sends_of(n_, p_, d_, offset=0):
         out = []
         for _ in range(n_):
-            buf = torch.randn(n_ * p_ * d_ + offset, device=dev, generator=gen)
+            buf = torch.randn(n_ * p_ * d_ + offset, device=dev,
+                              generator=gen).to(dtype)
             out.append(buf[offset:].view(n_, p_, d_))
         return out
 
@@ -1245,12 +1610,13 @@ def phase_kernel_b4(psg, dev):
              "odd_d": sends_of(4, 999, 37),
              "unaligned_views": sends_of(4, 7736, 64, offset=1),
              "unaligned_odd": sends_of(3, 5, 3, offset=1)}
+    wide = 16 // torch.empty((), dtype=dtype).element_size()
     for name, sends in cases.items():
         check(name, sends)
         aligned = all(t.data_ptr() % 16 == 0 for t in sends)
-        emit("kernel_b4_case", case=name, n=len(sends),
+        emit(f"{label}_case", case=name, n=len(sends),
              shape=list(sends[0].shape),
-             vec=4 if sends[0].shape[2] % 4 == 0 and aligned else 1,
+             vec=wide if sends[0].shape[2] % wide == 0 and aligned else 1,
              max_abs_err=0)
     return rows
 
@@ -1355,7 +1721,8 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
     """``build_node_sharded_train_step`` with B4 at batch 1024, adam and
     dropout 0.5: a fresh host batch each step, 3 warm-up then 30 timed
     steps on the host clock, the launches of every kernel counted and
-    asserted; then a 10-step profile."""
+    asserted; then a 10-step profile. At ``cfg.compute_dtype`` bf16 (phase
+    ``node_bf16``) every B1 and B4 launch must be a bf16 one."""
     import numpy as np
     import torch
 
@@ -1367,6 +1734,7 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
     from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
                                                         trace_breakdown)
 
+    label = "node_bf16" if cfg.compute_dtype == "bfloat16" else "node_train"
     tcfg = TrainConfig(batch_size=1024)
     ncfg, params, edges_pad = node_setup(cfg, edges, dev, dropout=0.5)
     step = build_node_sharded_train_step(make_mesh(N_SHARDS, dev), psg, ncfg,
@@ -1395,11 +1763,13 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
     counts = read_counts()
     want = {k: v * steps for k, v in node_launches(psg).items()}
     if counts != want:
-        raise AssertionError(f"node_train: launches {counts}, expected {want}")
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    if label == "node_bf16":
+        only_bf16(label, counts, read_bf16_counts())
     first_loss = float(first[0] / first[2])
     last_loss = float(last[0] / last[2])
     if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
-        raise AssertionError(f"node_train: non-finite loss {first_loss}, "
+        raise AssertionError(f"{label}: non-finite loss {first_loss}, "
                              f"{last_loss}")
     result = dict(steps=steps, batch_size=tcfg.batch_size, shards=N_SHARDS,
                   step_ms=step_ms,
@@ -1408,27 +1778,163 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
                   launches_per_step={k: v / steps for k, v in counts.items()},
                   peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
                   first_loss=first_loss, last_loss=last_loss)
-    emit("node_train", **result)
+    emit(label, **result)
 
     prof_steps = 10
     torch.cuda.synchronize()
-    with profile_trace(tmp / "node_profile"):
+    with profile_trace(tmp / f"{label}_profile"):
         t0 = time.perf_counter()
         for _ in range(prof_steps):
             one()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
-    bd = trace_breakdown(tmp / "node_profile" / "trace.json")
+    bd = trace_breakdown(tmp / f"{label}_profile" / "trace.json")
     if bd is None:
-        emit("node_train_profile", steps=prof_steps, device_events=0,
+        emit(f"{label}_profile", steps=prof_steps, device_events=0,
              idle_share="not measured")
     else:
         busy_ms = bd["busy_us"] / prof_steps / 1e3
         b4_us = bd["us_by_kind"].get("halo_exchange", 0.0)
-        emit("node_train_profile", steps=prof_steps,
+        emit(f"{label}_profile", steps=prof_steps,
              step_ms_under_profiler=prof_ms, device_busy_ms_per_step=busy_ms,
              idle_share_two_windows=1.0 - busy_ms / step_ms,
              b4_share_of_busy=b4_us / bd["busy_us"], **bd)
+    return counts
+
+
+def phase_node_bf16_encode(graph, psg, cfg, dev):
+    """The 4-shard encode at bf16 (phase ``node_bf16``): one encode's
+    launches (B1 per bucket with real edges, 2 B4, all bf16) and its rows
+    against the dense bf16 encode within 2e-2 of the largest magnitude
+    (both sum the same bf16 rows in float32, so the measured figure is far
+    smaller); the sharded encode timed. Returns its launches."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.parallel.node_shard import (
+        build_node_sharded_forward)
+
+    params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    encode = build_node_sharded_forward(make_mesh(N_SHARDS, dev), psg, cfg)
+    with torch.no_grad():
+        reset_counts()
+        got = encode(params)
+        torch.cuda.synchronize()
+        counts, bf16_counts = read_counts(), read_bf16_counts()
+        want = rgcn.get_embeddings(params, graph, cfg)
+        encode_ms = host_ms(lambda: encode(params))
+    only_bf16("node_bf16/encode", counts, bf16_counts,
+              node_launches(psg, step=False))
+    rel = close_rel(got, want, 2e-2, "node_bf16/encode")
+    emit("node_bf16_encode", shards=N_SHARDS, launches=counts,
+         launches_bf16=bf16_counts, max_rel_err_vs_dense=rel,
+         max_abs=float(want.abs().max()), encode_ms=encode_ms)
+    return counts
+
+
+def phase_cli_bf16(tmp):
+    """``train.cli.main --compute_dtype bfloat16`` at synthetic scale 0.1,
+    full width, 2 epochs, then ``predict_cli.main`` and
+    ``evaluate.cli.main`` on its final model: both must report bfloat16
+    (the predict log line, the evaluation log's first line), every B1
+    launch of all three must be a bf16 one, AUC-ROC and MRR finite. Then
+    the same training with ``--sample_fanouts 15 10`` (block mode) and with
+    ``--shard node --n_devices 4``: every B1, B2 and B4 launch a bf16 one,
+    the losses finite. Returns the runs' launches."""
+    import logging
+
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.evaluate import cli as eval_cli
+    from primekg_rgcn_tpu_torch.evaluate import predict_cli
+    from primekg_rgcn_tpu_torch.train import checkpoint
+    from primekg_rgcn_tpu_torch.train import cli as train_cli
+
+    out = tmp / "cli_bf16"
+    model = out / "models" / "final_model.pt"
+    counts = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_cli.main([
+        "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+        "--seed", "0", "--device", "cuda", "--compute_dtype", "bfloat16",
+        "--output_dir", str(out)])
+    seconds = time.perf_counter() - t0
+    counts["train"] = read_counts()
+    only_bf16("cli_bf16/train", counts["train"], read_bf16_counts())
+    hist = result["history"]
+    problems = []
+    if not np.all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
+        problems.append(f"losses {hist}")
+    if counts["train"]["B1"] == 0:
+        problems.append("no B1 launch")
+    stored = checkpoint.load(model)["model_config"]["compute_dtype"]
+    if stored != "bfloat16":
+        problems.append(f"the checkpoint holds compute_dtype {stored}")
+
+    said = []
+
+    class Said(logging.Handler):
+        def emit(self, record):
+            said.append(record.getMessage())
+
+    handler = Said()
+    logging.getLogger("predict").addHandler(handler)
+    reset_counts()
+    try:
+        served = predict_cli.main([
+            "--model_path", str(model), "--data_dir",
+            str(out / "synthetic_data"), "--heads", "0", "7", "--relation",
+            "0", "--topk", "5", "--device", "cuda"])
+    finally:
+        logging.getLogger("predict").removeHandler(handler)
+    counts["predict"] = read_counts()
+    only_bf16("cli_bf16/predict", counts["predict"], read_bf16_counts(),
+              {"B1": 6, "B2": 0, "B3": 0, "B4": 0})
+    if not said or "compute_dtype bfloat16" not in said[0]:
+        problems.append(f"predict_cli's first line {said[:1]}")
+    scores = [p["score"] for q in served for p in q["predictions"]]
+    if len(scores) != 10 or not np.all(np.isfinite(scores)):
+        problems.append(f"served scores {scores}")
+
+    reset_counts()
+    m = eval_cli.main(["--model_path", str(model), "--data_dir",
+                       str(out / "synthetic_data"), "--output_dir",
+                       str(out / "eval"), "--device", "cuda"])
+    counts["evaluate"] = read_counts()
+    only_bf16("cli_bf16/evaluate", counts["evaluate"], read_bf16_counts(),
+              {"B1": 6, "B2": 0, "B3": 0, "B4": 0})
+    first = (out / "eval" / "evaluation.log").read_text().splitlines()[:1]
+    if not first or "compute_dtype bfloat16" not in first[0]:
+        problems.append(f"evaluation.log's first line {first}")
+    auc, mrr = m["classification"]["auc_roc"], m["ranking"]["mrr"]
+    if not (np.isfinite(auc) and np.isfinite(mrr)):
+        problems.append(f"auc {auc}, mrr {mrr}")
+    for name, extra in (("sampled", ["--sample_fanouts", "15", "10",
+                                     "--sample_mode", "block"]),
+                        ("node", ["--shard", "node", "--n_devices",
+                                  str(N_SHARDS)])):
+        reset_counts()
+        run = train_cli.main([
+            "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+            "--seed", "0", "--device", "cuda", "--compute_dtype",
+            "bfloat16", "--output_dir", str(tmp / f"cli_bf16_{name}"),
+            *extra])
+        counts[name] = read_counts()
+        only_bf16(f"cli_bf16/{name}", counts[name], read_bf16_counts())
+        losses = run["history"]["train_losses"] + run["history"]["val_losses"]
+        if not np.all(np.isfinite(losses)):
+            problems.append(f"{name} losses {losses}")
+        used = ("B2",) if name == "sampled" else ("B1", "B4")
+        if not all(counts[name][k] for k in used):
+            problems.append(f"{name} launches {counts[name]}")
+    if problems:
+        raise AssertionError("cli_bf16: " + "; ".join(problems))
+    emit("cli_bf16", seconds=seconds, launches=counts, history=hist,
+         epoch_time_s=result["epoch_times_s"], auc_roc=auc, mrr=mrr,
+         predict_first_line=said[0], evaluation_log_first_line=first[0])
     return counts
 
 
@@ -2213,6 +2719,7 @@ def main():
         return 2
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
+    import dataclasses
     import functools
 
     import numpy as np
@@ -2253,7 +2760,8 @@ def main():
     # -- 2. build -----------------------------------------------------------
     # One nvcc per kernel source, all started together.
     t0 = time.perf_counter()
-    libraries = [ss.LIBRARY, pds.LIBRARY, pwf.LIBRARY, halo.LIBRARY]
+    libraries = [ss.LIBRARY, ss.LIBRARY_BF16, pds.LIBRARY, pwf.LIBRARY,
+                 halo.LIBRARY]
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(verbose=True), libraries))
     emit("build", seconds=round(time.perf_counter() - t0, 3),
@@ -2454,8 +2962,9 @@ def main():
         emit("kernel_case", case=name, edges=src.numel(), d=x.shape[1],
              rows=rowptr.numel() - 1, max_abs_err=err,
              exact=name in exact_names, vec_lanes=ss.b1_width(x.shape[1], x))
-    # The cases' tensors would otherwise count in the later phases' peaks.
-    del cases, exact, x, src, rowptr, sc, hub_src, hub_rowptr, hub_case
+    # The cases' tensors would otherwise count in the later phases' peaks;
+    # the exact ones wait for the bf16 variant's phase.
+    del cases, x, src, rowptr, sc, hub_src, hub_rowptr, hub_case
 
     # Malformed inputs fault loudly on the card. A device-side assert ends
     # the CUDA context, so each case runs in a child process of its own.
@@ -2465,8 +2974,13 @@ def main():
         "src_outside_x": "rowptr = torch.tensor([0, 1, 3], **i32); "
                          "src[2] = 5",
     }
+    # The bf16 variant stops on the same asserts (phase kernel_bf16).
+    bad_cases.update({f"bf16_{k}": v for k, v in bad_cases.items()
+                      if k != "rowptr_not_from_0"})
     children = {name: subprocess.Popen(
-        [sys.executable, "-c", BAD_INPUT_CHILD.format(case=body)], cwd=repo,
+        [sys.executable, "-c", BAD_INPUT_CHILD.format(
+            case=body, dtype="torch.bfloat16" if name.startswith("bf16_")
+            else "torch.float32")], cwd=repo,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, body in bad_cases.items()}
     for name, child in children.items():
@@ -2475,7 +2989,8 @@ def main():
             raise AssertionError(
                 f"bad input {name} did not stop on the device-side assert "
                 f"(exit {child.returncode}):\n{out[-2000:]}")
-        emit("kernel_bad_input", case=name, exit_code=child.returncode,
+        emit("kernel_bf16_bad_input" if name.startswith("bf16_")
+             else "kernel_bad_input", case=name, exit_code=child.returncode,
              faulted=True)
 
     # -- 4. serve -----------------------------------------------------------
@@ -2565,22 +3080,35 @@ def main():
          plain_encode_ms=plain_encode_ms, query_ms=query_ms,
          peak_memory_mb=peak_mb)
 
-    # -- 5-8. training ------------------------------------------------------
+    # -- 5-8. training, float32 and bf16 --------------------------------------
     bwd_rows, bwd_err = phase_kernel_bwd(graph, dev)
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    b1_16, b1_16_bwd, b1_16_err, b1_16_library = phase_kernel_bf16_b1(
+        graph, dev, layer_inputs, exact, main_rows, bwd_rows)
+    del exact, layer_inputs
     edges = np.stack([src_u, dst_u, rel_u], 1)
-    grad_err = phase_grad(graph, cfg, edges, dev, plain_layer)
+    grad_err, f32_run = phase_grad(graph, cfg, edges, dev, plain_layer)
+    grad16_err, _ = phase_grad(graph, cfg16, edges, dev, plain_layer,
+                               f32_run)
+    del f32_run
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        train_launches = phase_train(graph, cfg, edges, dev, Path(tmp))
+        train_launches, _ = phase_train(graph, cfg, edges, dev, Path(tmp))
+        train16_launches, _ = phase_train(graph, cfg16, edges, dev, Path(tmp))
         cli_launches = phase_train_cli(Path(tmp))
         cli_eval = {"train_cli": eval_cli_after(Path(tmp) / "train_cli",
                                                 "train_cli")}
+        cli16_launches = phase_cli_bf16(Path(tmp))
 
-        # -- 9-13. sampled training ----------------------------------------
+        # -- 9-13. sampled training, float32 and bf16 -----------------------
         b2_rows, b2_err = phase_kernel_b2(graph, cfg, edges, dev, repo)
+        b2_16_rows, b2_16_err = phase_kernel_b2(graph, cfg16, edges, dev, repo)
         b3_rows = phase_kernel_b3(graph, cfg, edges, dev)
         sgrad_err = phase_sampled_grad(graph, cfg, edges, dev)
         sampled, main_counts = phase_sampled_train(graph, cfg, edges, dev,
                                                    Path(tmp))
+        sgrad16_err = phase_sampled_grad(graph, cfg16, edges, dev)
+        sampled16, _ = phase_sampled_train(
+            graph, cfg16, edges, dev, Path(tmp), configs=("block/slim",))
         scli_launches = phase_sampled_cli(Path(tmp))
         for name in scli_launches:
             cli_eval[f"sampled_cli_{name}"] = eval_cli_after(
@@ -2597,8 +3125,11 @@ def main():
              real_halo_edges=int((psg.dst_halo < psg.n_loc).sum()),
              real_serve_slots=int((psg.serve < psg.n_loc).sum()))
         b4_rows = phase_kernel_b4(psg, dev)
+        b4_16_rows = phase_kernel_b4(psg, dev, torch.bfloat16)
         ngrad_err = phase_node_grad(graph, psg, cfg, edges, dev)
         node_counts = phase_node_train(psg, cfg, edges, dev, Path(tmp))
+        node16_encode = phase_node_bf16_encode(graph, psg, cfg16, dev)
+        node16_counts = phase_node_train(psg, cfg16, edges, dev, Path(tmp))
         node_data = Path(tmp) / "node_serve"
         node_data.mkdir()
         artifacts.save_split_npz(node_data / "full_graph.npz", split)
@@ -2664,6 +3195,34 @@ def main():
         "bound_by": bound_by(main_rows), "bwd_bound_by": bound_by(bwd_rows),
         "library_ms": total(main_rows, "library_ms"),
         "bwd_library_ms": total(bwd_rows, "library_ms"),
+        "bf16": {
+            "ms": total(b1_16, "kernel_ms"),
+            "call_ms": total(b1_16, "kernel_call_ms"),
+            "wrapper_call_ms": total(b1_16, "wrapper_call_ms"),
+            "plain_ms": total(b1_16, "plain_ms"),
+            "bound_ms": total(b1_16, "bound_us") / 1e3,
+            "bound_by": bound_by(b1_16),
+            "library_ms": total(b1_16, "library_ms"),
+            "library": b1_16_library,
+            "library_f32_upcast_ms": total(b1_16, "library_f32_upcast_ms"),
+            "bwd_ms": total(b1_16_bwd, "kernel_ms"),
+            "bwd_call_ms": total(b1_16_bwd, "kernel_call_ms"),
+            "bwd_plain_ms": total(b1_16_bwd, "plain_ms"),
+            "bwd_bound_ms": total(b1_16_bwd, "bound_us") / 1e3,
+            "bwd_bound_by": bound_by(b1_16_bwd),
+            "bwd_library_ms": total(b1_16_bwd, "library_ms"),
+            "bwd_library_f32_upcast_ms": total(b1_16_bwd,
+                                               "library_f32_upcast_ms"),
+            "launches_by_path": {
+                "train_bf16": train16_launches,
+                "cli_bf16": {k: v["B1"] for k, v in cli16_launches.items()},
+                "node_bf16": node16_counts["B1"],
+                "node_bf16_encode": node16_encode["B1"]},
+            "max_abs_err": max(b1_16_err, grad16_err),
+            "per": "the bf16-table variant (gather_segment_sum_bf16) at the "
+                   "same twelve shapes, the tables rounded to bf16; every "
+                   "launch on these paths is a bf16 one (grad_bf16: 6 "
+                   "forward and 6 backward)"},
         "per": "one training step: ms, plain_ms, bound_ms and library_ms sum "
                "the six forward launches (one encode), the bwd_ keys the six "
                "backward launches over the transpose CSR; launches is the "
@@ -2688,6 +3247,22 @@ def main():
         "dedup_shape_plain_ms": b2_rows[1]["plain_ms"],
         "dedup_shape_bound_ms": b2_rows[1]["bound_us"] / 1e3,
         "dedup_shape_library_ms": b2_rows[1]["library_ms"],
+        "bf16": {
+            "ms": b2_16_rows[0]["kernel_ms"],
+            "call_ms": b2_16_rows[0]["kernel_call_ms"],
+            "plain_ms": b2_16_rows[0]["plain_ms"],
+            "bound_ms": b2_16_rows[0]["bound_us"] / 1e3,
+            "bound_by": b2_16_rows[0]["bound_by"],
+            "library_ms": b2_16_rows[0]["library_ms"],
+            "launches_by_path": {
+                "sampled_bf16": {k: v["launches"]["B2"]
+                                 for k, v in sampled16.items()},
+                "cli_bf16_sampled": cli16_launches["sampled"]["B2"]},
+            "max_abs_err": max(b2_16_err, sgrad16_err),
+            "per": "the bf16-row variant (dense_sorted_segment_sum_bf16) at "
+                   "a bf16 block step's identity-backward stream; "
+                   "library_ms is index_add_ of the rows upcast to float32, "
+                   "the upcast included"},
         "per": "one block-mode step's launch in the identity backward "
                "(L = %d, D = %d, N = %d); library_ms is index_add_; "
                "launches is the sampled_train block/slim count. "
@@ -2733,6 +3308,21 @@ def main():
         "bound_ms": total(b4_rows, "bound_us") / 1e3,
         "bound_by": bound_by(b4_rows),
         "library_ms": total(b4_rows, "library_ms"),
+        "bf16": {
+            "ms": total(b4_16_rows, "kernel_ms"),
+            "call_ms": total(b4_16_rows, "kernel_call_ms"),
+            "plain_ms": total(b4_16_rows, "plain_ms"),
+            "bound_ms": total(b4_16_rows, "bound_us") / 1e3,
+            "bound_by": bound_by(b4_16_rows),
+            "library_ms": total(b4_16_rows, "library_ms"),
+            "launches_by_path": {
+                "node_bf16": node16_counts["B4"],
+                "node_bf16_encode": node16_encode["B4"],
+                "cli_bf16_node": cli16_launches["node"]["B4"]},
+            "max_abs_err": 0,
+            "per": "the 2-byte-element variant (halo_exchange_bf16): one "
+                   "encode's two launches with bf16 payloads, bit for bit; "
+                   "library_ms is copy_ of the same bf16 bytes"},
         "per": "one encode over %d shards (P = %d): ms, plain_ms, bound_ms "
                "and library_ms sum its two launches (D = 64 and 128); a "
                "training step runs each twice (forward, backward); "

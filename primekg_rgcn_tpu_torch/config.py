@@ -17,7 +17,9 @@ class ModelConfig:
 
     Defaults mirror the reference model: 64-dim learnable node embeddings,
     two RGCN layers to 128 dims, dropout 0.5 between them, optional basis
-    decomposition. Parameters are always stored in float32.
+    decomposition. Parameters are always stored in float32;
+    ``compute_dtype="bfloat16"`` runs the layers in bf16 as the JAX
+    package's accelerator path does (``ops/rgcn_segment.py``).
     """
 
     num_nodes: int
@@ -30,10 +32,7 @@ class ModelConfig:
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet; use float32")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
 
     def to_dict(self) -> Dict[str, Any]:

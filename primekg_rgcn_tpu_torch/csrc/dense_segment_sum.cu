@@ -2,10 +2,14 @@
 //
 //   out[s, :] = sum_{i : ids[i] == s} msg[i, :]   for every s in [0, N)
 //
-// msg is float32 [L, D], ids int32 [L] non-decreasing; ids >= N drop. In the
-// sampled training step, msg is the identity block's cotangent rows gathered
-// into id order and ids the sorted raw id stream, whose tail is one long run
-// of the sentinel id N (29 % of the main path's 774,400 rows).
+// msg is float32 or bfloat16 [L, D], ids int32 [L] non-decreasing; ids >= N
+// drop; out is float32 either way. In the sampled training step, msg is the
+// identity block's cotangent rows gathered into id order and ids the sorted
+// raw id stream, whose tail is one long run of the sentinel id N (29 % of the
+// main path's 774,400 rows). Under bf16 compute the cotangents are bf16
+// (entry dense_sorted_segment_sum_bf16): each row is widened to float32 in
+// registers and every run is summed in float32, as the TPU kernel summed
+// bf16 rows by a one-hot matmul with float32 accumulation.
 //
 // Replaces the TPU kernel primekg_rgcn_tpu/ops/pallas/segment_sum.py:
 // _dense_seg_kernel (reached through dense_sorted_segment_sum). That kernel
@@ -32,6 +36,7 @@
 // all ids once and write the output once: at the main path's shape
 // (L = 774,400, D = 64, N = 30,926) about 141.5 MB + 3.1 MB + 7.9 MB, about
 // 45 us at 3.35 TB/s; its L*D float32 additions take under 1 us at 67 TFLOP/s.
+// bf16 rows halve the first term: about 24 us.
 //
 // Checks: device-side asserts stop ids that decrease between neighbours or
 // start below 0. They cost no synchronise with the host; a failed one
@@ -40,6 +45,7 @@
 
 #undef NDEBUG  // the checks stay in whatever the build flags say
 #include <cassert>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +80,39 @@ struct Vec<4> {
   }
 };
 
+// What a lane loads from a table of Tin rows: VEC elements as one Raw value,
+// widened to the float32 accumulator Vec<VEC>::T.
+template <typename Tin, int VEC>
+struct Row {  // float32 rows load as the accumulator's type
+  using Raw = typename Vec<VEC>::T;
+  static __device__ __forceinline__ Raw widen(Raw v) { return v; }
+};
+// A bf16 is the high half of the float32 with the same value; of two bf16
+// in one 32-bit word the first is in the low half.
+template <>
+struct Row<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ float widen(Raw v) {
+    return __uint_as_float(static_cast<uint32_t>(v) << 16);
+  }
+};
+template <>
+struct Row<__nv_bfloat16, 2> {
+  using Raw = uint32_t;
+  static __device__ __forceinline__ float2 widen(Raw v) {
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+  }
+};
+template <>
+struct Row<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ float4 widen(Raw v) {
+    const float2 a = Row<__nv_bfloat16, 2>::widen(v.x);
+    const float2 b = Row<__nv_bfloat16, 2>::widen(v.y);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+};
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = kThreads;  // rows per block: one id per thread
@@ -103,12 +142,13 @@ __device__ __forceinline__ void zero_rows(typename Vec<VEC>::T* outv, int64_t lo
   for (int64_t c = lane; c < n; c += 32) p[c] = Vec<VEC>::zero();
 }
 
-template <int VEC>
+template <typename Tin, int VEC>
 __global__ void __launch_bounds__(kThreads)
-dense_segment_sum_kernel(const float* __restrict__ msg, const int32_t* __restrict__ ids,
+dense_segment_sum_kernel(const Tin* __restrict__ msg, const int32_t* __restrict__ ids,
                          float* __restrict__ out, int num_rows, int d, int num_segments) {
   using V = Vec<VEC>;
   using T = typename V::T;
+  using R = Row<Tin, VEC>;
   __shared__ int s_start[kChunk];  // owned run starts, ascending
   __shared__ int s_end[kChunk];    // their ends (== start for the sentinel run)
   __shared__ int s_warp_count[kWarps];
@@ -120,7 +160,7 @@ dense_segment_sum_kernel(const float* __restrict__ msg, const int32_t* __restric
   const int c0 = blockIdx.x * kChunk;
   const int c1 = min(c0 + kChunk, num_rows);
   const int dv = d / VEC;
-  const T* msgv = reinterpret_cast<const T*>(msg);
+  const typename R::Raw* msgv = reinterpret_cast<const typename R::Raw*>(msg);
   T* outv = reinterpret_cast<T*>(out);
 
   // 1. Owned run starts: a row whose id differs from its predecessor's, when
@@ -179,7 +219,9 @@ dense_segment_sum_kernel(const float* __restrict__ msg, const int32_t* __restric
       if (c >= dv) break;
       T acc = V::zero();
 #pragma unroll 8
-      for (int r = start; r < end; ++r) V::add(acc, __ldg(msgv + static_cast<int64_t>(r) * dv + c));
+      for (int r = start; r < end; ++r) {
+        V::add(acc, R::widen(__ldg(msgv + static_cast<int64_t>(r) * dv + c)));
+      }
       outv[static_cast<int64_t>(key) * dv + c] = acc;
     }
   }
@@ -197,7 +239,7 @@ dense_segment_sum_kernel(const float* __restrict__ msg, const int32_t* __restric
       if (c < dv) {
 #pragma unroll 8
         for (int r = start + warp; r < end; r += kWarps) {
-          V::add(acc, __ldg(msgv + static_cast<int64_t>(r) * dv + c));
+          V::add(acc, R::widen(__ldg(msgv + static_cast<int64_t>(r) * dv + c)));
         }
       }
       s_part[warp][lane] = acc;
@@ -212,30 +254,45 @@ dense_segment_sum_kernel(const float* __restrict__ msg, const int32_t* __restric
   }
 }
 
-template <int VEC>
-void launch(const float* msg, const int32_t* ids, float* out, int num_rows, int d,
-            int num_segments, cudaStream_t stream) {
+template <typename Tin>
+int launch(const Tin* msg, const int32_t* ids, float* out, int num_rows, int d,
+           int num_segments, int vec, void* stream) {
+  if (num_rows <= 0 || num_segments <= 0) return 0;
   const dim3 grid((num_rows + kChunk - 1) / kChunk);
-  dense_segment_sum_kernel<VEC><<<grid, kThreads, 0, stream>>>(msg, ids, out, num_rows, d,
-                                                               num_segments);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 4:
+      dense_segment_sum_kernel<Tin, 4><<<grid, kThreads, 0, s>>>(msg, ids, out, num_rows, d,
+                                                                 num_segments);
+      break;
+    case 2:
+      dense_segment_sum_kernel<Tin, 2><<<grid, kThreads, 0, s>>>(msg, ids, out, num_rows, d,
+                                                                 num_segments);
+      break;
+    case 1:
+      dense_segment_sum_kernel<Tin, 1><<<grid, kThreads, 0, s>>>(msg, ids, out, num_rows, d,
+                                                                 num_segments);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry for ctypes. msg has num_rows rows of d floats, ids num_rows
-// entries, out num_segments rows. vec must divide d (the wrapper picks it and
+// C entries for ctypes, one per row type. msg has num_rows rows of d
+// elements, ids num_rows entries, out num_segments rows of d floats. vec
+// (elements per lane: 1, 2 or 4) must divide d (the wrapper picks it and
 // checks the alignment of msg and out). Launches on `stream`, allocates
 // nothing, and returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int dense_sorted_segment_sum_f32(const float* msg, const int32_t* ids, float* out,
                                             int num_rows, int d, int num_segments, int vec,
                                             void* stream) {
-  if (num_rows <= 0 || num_segments <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 4: launch<4>(msg, ids, out, num_rows, d, num_segments, s); break;
-    case 2: launch<2>(msg, ids, out, num_rows, d, num_segments, s); break;
-    case 1: launch<1>(msg, ids, out, num_rows, d, num_segments, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(msg, ids, out, num_rows, d, num_segments, vec, stream);
+}
+
+extern "C" int dense_sorted_segment_sum_bf16(const __nv_bfloat16* msg, const int32_t* ids,
+                                             float* out, int num_rows, int d, int num_segments,
+                                             int vec, void* stream) {
+  return launch(msg, ids, out, num_rows, d, num_segments, vec, stream);
 }

@@ -2,10 +2,19 @@
 //
 //   out[d, :] = sum_{e in [rowptr[d], rowptr[d+1])} x[src[e], :] * (scale ? scale[e] : 1)
 //
-// for every row d in [0, num_segments). x is the float32 [N+1, D] node table
-// (its last row the zero sentinel), src the int32 source ids of one relation
-// bucket in destination order, rowptr the bucket's int32 CSR row pointers,
-// scale an optional float32 per-edge weight (edge-mode mean normalisation).
+// for every row d in [0, num_segments). x is the [N+1, D] node table (its
+// last row the zero sentinel), float32 or bfloat16; src the int32 source ids
+// of one relation bucket in destination order, rowptr the bucket's int32 CSR
+// row pointers, scale an optional float32 per-edge weight (edge-mode mean
+// normalisation). The sum and the output are float32 for either table.
+//
+// The bfloat16 table (entry gather_segment_sum_bf16) is the bf16 compute
+// mode's: the TPU kernel with mxu_dtype bfloat16 took bf16 rows and summed
+// them in float32 (segment_sum.py:326-329), so here each gathered row is
+// widened to float32 in registers and the carries, fix-up and output stay
+// float32. With a scale, each product w * v is rounded to bf16 before it is
+// added, as the TPU path rounded its float32 messages to bf16 on the way into
+// the one-hot matmul (rgcn_segment.py:163, segment_sum.py:328).
 //
 // Replaces the TPU kernel primekg_rgcn_tpu/ops/pallas/segment_sum.py:
 // _segment_kernel together with the XLA row gather in front of it. That
@@ -36,7 +45,11 @@
 // each where D % 4 == 0 and the tables are aligned), so a warp gathers
 // 32 / lanes rows per instruction: one at D = 128, two at D = 64 (a
 // half-warp each, their partial sums combined by shuffles when the row
-// closes). Rows wider than 32 vectors are walked in column chunks.
+// closes). A bf16 table is read 4 elements (8 bytes) a lane, so its lanes
+// and groups are the float32 table's: 16-byte loads of 8 bf16 spilled at
+// the 64-register cap of __launch_bounds__(256, 4) and ran 1.44x slower
+// than the float32 kernel at the main path's shapes (PERF.md, PR 8). Rows
+// wider than 32 vectors are walked in column chunks.
 // After each edge the warp closes every row whose end it has reached
 // (empty rows too, written as zeros); the row pointers come 31 at a time
 // from one coalesced load into a lane window. The rows come straight into
@@ -60,7 +73,8 @@
 // once per edge, E*D*4 bytes (up to 658 MB per launch at the gene-gene
 // bucket, D = 128): the 8-16 MB table stays in the 50 MB L2, so in practice
 // the kernel is bound by the rate at which the SMs can pull rows from L2,
-// and the design keeps every SM's warps busy with equal shares of them.
+// and the design keeps every SM's warps busy with equal shares of them. A
+// bf16 table halves both the table and those pulls (E*D*2 bytes).
 //
 // Checks: device-side asserts, as PyTorch's own index kernels make them,
 // stop a CSR that does not cover src (rowptr[0] != 0, rowptr[S] != E, a
@@ -72,6 +86,7 @@
 #undef NDEBUG  // the checks stay in whatever the build flags say
 #include <cassert>
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,6 +128,7 @@ __device__ __forceinline__ float4 shfl_xor(float4 v, int m) {
   return make_float4(shfl_xor(v.x, m), shfl_xor(v.y, m), shfl_xor(v.z, m), shfl_xor(v.w, m));
 }
 
+// The float32 accumulator of VEC elements.
 template <int VEC>
 struct Vec;
 template <>
@@ -129,6 +145,70 @@ template <>
 struct Vec<4> {
   using T = float4;
   static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+
+// What a lane loads from a table of Tin rows: VEC elements as one Raw value,
+// and how they join the float32 accumulator.
+template <typename Tin, int VEC>
+struct Row;
+// float32 rows load straight into the accumulator's type.
+template <int VEC>
+struct FloatRow {
+  using Raw = typename Vec<VEC>::T;
+  static __device__ __forceinline__ Raw zero() { return Vec<VEC>::zero(); }
+  template <bool SCALED>
+  static __device__ __forceinline__ void accumulate(Raw& acc, float w, Raw v) {
+    fma_to(acc, w, v);
+  }
+};
+template <>
+struct Row<float, 1> : FloatRow<1> {};
+template <>
+struct Row<float, 2> : FloatRow<2> {};
+template <>
+struct Row<float, 4> : FloatRow<4> {};
+
+// bf16 rows: widened to float32 in registers; a scaled product is rounded to
+// bf16 (round to nearest even) before the float32 add.
+__device__ __forceinline__ float bf16_term(float w, float v, bool scaled) {
+  return scaled ? __bfloat162float(__float2bfloat16_rn(__fmul_rn(w, v))) : v;
+}
+// Two bf16 in one 32-bit word (the first in the low half) as float32: a bf16
+// is the high half of the float32 with the same value.
+__device__ __forceinline__ float2 widen2(uint32_t bits) {
+  return make_float2(__uint_as_float(bits << 16), __uint_as_float(bits & 0xffff0000u));
+}
+template <>
+struct Row<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw zero() { return 0; }
+  template <bool SCALED>
+  static __device__ __forceinline__ void accumulate(float& acc, float w, Raw v) {
+    acc += bf16_term(w, __uint_as_float(static_cast<uint32_t>(v) << 16), SCALED);
+  }
+};
+template <>
+struct Row<__nv_bfloat16, 2> {
+  using Raw = uint32_t;
+  static __device__ __forceinline__ Raw zero() { return 0; }
+  template <bool SCALED>
+  static __device__ __forceinline__ void accumulate(float2& acc, float w, Raw v) {
+    const float2 f = widen2(v);
+    acc.x += bf16_term(w, f.x, SCALED);
+    acc.y += bf16_term(w, f.y, SCALED);
+  }
+};
+template <>
+struct Row<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw zero() { return make_uint2(0, 0); }
+  template <bool SCALED>
+  static __device__ __forceinline__ void accumulate(float4& acc, float w, Raw v) {
+    float2 a = make_float2(acc.x, acc.y), b = make_float2(acc.z, acc.w);
+    Row<__nv_bfloat16, 2>::accumulate<SCALED>(a, w, v.x);
+    Row<__nv_bfloat16, 2>::accumulate<SCALED>(b, w, v.y);
+    acc = make_float4(a.x, a.y, b.x, b.y);
+  }
 };
 
 // The sum of v over the lane groups: lanes that differ only in the bits at
@@ -174,14 +254,15 @@ __device__ __forceinline__ int load_window(const int32_t* __restrict__ rowptr, i
   return v;
 }
 
-template <int VEC, int LANES, bool SCALED>
+template <typename Tin, int VEC, int LANES, bool SCALED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
-gather_segment_sum_kernel(const float* __restrict__ x, const int32_t* __restrict__ src,
+gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__ src,
                           const int32_t* __restrict__ rowptr, const float* __restrict__ scale,
                           float* __restrict__ out, float* __restrict__ carry,
                           int32_t* __restrict__ carry_row, int num_segments, int d,
                           int num_rows, int num_edges, int items_per_piece, int num_pieces) {
   using T = typename Vec<VEC>::T;
+  using R = Row<Tin, VEC>;
   constexpr int kGroups = 32 / LANES;  // rows one load instruction gathers
   constexpr int kSteps = LANES;        // load steps per batch of 32 edges
   constexpr int kBatch = kSteps < kUnroll ? kSteps : kUnroll;
@@ -199,7 +280,7 @@ gather_segment_sum_kernel(const float* __restrict__ x, const int32_t* __restrict
   assert(piece != 0 || rowptr[0] == 0);
   assert(piece != num_pieces - 1 || rowptr[num_segments] == num_edges);
   const int dv = d / VEC;  // row length in vectors
-  const T* xv = reinterpret_cast<const T*>(x);
+  const typename R::Raw* xv = reinterpret_cast<const typename R::Raw*>(x);
   T* outv = reinterpret_cast<T*>(out);
 
   for (int c0 = 0; c0 < dv; c0 += LANES) {
@@ -239,13 +320,12 @@ gather_segment_sum_kernel(const float* __restrict__ x, const int32_t* __restrict
       }
       const int used = (nb + kGroups - 1) / kGroups;  // load steps the batch needs
       for (int s0 = 0; s0 < used; s0 += kBatch) {
-        T v[kBatch];
+        typename R::Raw v[kBatch];
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
           const int j = (s0 + k) * kGroups + group;
           const int s = __shfl_sync(kFullMask, my_src, j);
-          v[k] = (active && j < nb) ? __ldg(xv + static_cast<int64_t>(s) * dv + c)
-                                    : Vec<VEC>::zero();
+          v[k] = (active && j < nb) ? __ldg(xv + static_cast<int64_t>(s) * dv + c) : R::zero();
         }
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
@@ -254,7 +334,7 @@ gather_segment_sum_kernel(const float* __restrict__ x, const int32_t* __restrict
             const int j = (s0 + k) * kGroups + g;
             if (j < nb) {
               const float w = SCALED ? __shfl_sync(kFullMask, my_w, j) : 1.f;
-              if (group == g) fma_to(acc, w, v[k]);
+              if (group == g) R::template accumulate<SCALED>(acc, w, v[k]);
               close_rows(base + j + 1);
             }
           }
@@ -316,8 +396,9 @@ gather_segment_sum_fixup_kernel(float* __restrict__ out, const float* __restrict
   }
 }
 
+template <typename Tin>
 struct Args {
-  const float* x;
+  const Tin* x;
   const int32_t* src;
   const int32_t* rowptr;
   const float* scale;
@@ -328,16 +409,16 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int VEC, int LANES>
-int launch(const Args& a) {
+template <typename Tin, int VEC, int LANES>
+int launch(const Args<Tin>& a) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((a.num_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (a.scale != nullptr) {
-    gather_segment_sum_kernel<VEC, LANES, true><<<grid, block, 0, a.stream>>>(
+    gather_segment_sum_kernel<Tin, VEC, LANES, true><<<grid, block, 0, a.stream>>>(
         a.x, a.src, a.rowptr, a.scale, a.out, a.carry, a.carry_row, a.num_segments, a.d,
         a.num_rows, a.num_edges, a.items_per_piece, a.num_pieces);
   } else {
-    gather_segment_sum_kernel<VEC, LANES, false><<<grid, block, 0, a.stream>>>(
+    gather_segment_sum_kernel<Tin, VEC, LANES, false><<<grid, block, 0, a.stream>>>(
         a.x, a.src, a.rowptr, nullptr, a.out, a.carry, a.carry_row, a.num_segments, a.d,
         a.num_rows, a.num_edges, a.items_per_piece, a.num_pieces);
   }
@@ -348,40 +429,64 @@ int launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int VEC>
-int launch_lanes(int lanes, const Args& a) {
+template <typename Tin, int VEC>
+int launch_lanes(int lanes, const Args<Tin>& a) {
   switch (lanes) {
-    case 32: return launch<VEC, 32>(a);
-    case 16: return launch<VEC, 16>(a);
-    case 8: return launch<VEC, 8>(a);
-    case 4: return launch<VEC, 4>(a);
-    case 2: return launch<VEC, 2>(a);
-    case 1: return launch<VEC, 1>(a);
+    case 32: return launch<Tin, VEC, 32>(a);
+    case 16: return launch<Tin, VEC, 16>(a);
+    case 8: return launch<Tin, VEC, 8>(a);
+    case 4: return launch<Tin, VEC, 4>(a);
+    case 2: return launch<Tin, VEC, 2>(a);
+    case 1: return launch<Tin, VEC, 1>(a);
     default: return -1;
   }
 }
 
 }  // namespace
 
-// C entry for ctypes. x has num_rows rows, src and scale num_edges entries.
-// vec must divide d and lanes be a power of two up to 32 (the wrapper picks
-// both, ops/cuda/segment_sum.b1_width, and checks the alignment of x and
-// out); carry holds num_pieces * d floats and carry_row num_pieces ints of
-// scratch (ops/cuda/segment_sum.piece_plan). Launches the kernel and its fix-up on `stream` and allocates nothing. Returns
-// cudaGetLastError() after each launch (0 when both were accepted), or -1
-// for a vec or lanes it does not take.
+// C entries for ctypes, one per table type, each in a build of its own:
+// with -DB1_TABLE_BF16 this file exports gather_segment_sum_bf16, else
+// gather_segment_sum_f32 (ops/cuda/segment_sum.LIBRARY and LIBRARY_BF16),
+// so that the two sets of kernel instances compile in parallel. x has
+// num_rows rows, src and
+// scale num_edges entries. vec (elements per lane: 1, 2 or 4) must divide d and lanes be a power of two up to 32 (the wrapper
+// picks both, ops/cuda/segment_sum.b1_width, and checks the alignment of x
+// and out); carry holds num_pieces * d floats and carry_row num_pieces ints
+// of scratch (ops/cuda/segment_sum.piece_plan). Launches the kernel and its
+// fix-up on `stream` and allocates nothing. Returns cudaGetLastError() after
+// each launch (0 when both were accepted), or -1 for a vec or lanes it does
+// not take.
+#ifndef B1_TABLE_BF16
 extern "C" int gather_segment_sum_f32(const float* x, const int32_t* src, const int32_t* rowptr,
                                       const float* scale, float* out, float* carry,
                                       int32_t* carry_row, int num_segments, int d, int num_rows,
                                       int num_edges, int vec, int lanes, int items_per_piece,
                                       int num_pieces, void* stream) {
   if (num_segments <= 0) return 0;
-  const Args a{x, src, rowptr, scale, out, carry, carry_row, num_segments, d, num_rows,
-               num_edges, items_per_piece, num_pieces, static_cast<cudaStream_t>(stream)};
+  const Args<float> a{x, src, rowptr, scale, out, carry, carry_row, num_segments, d, num_rows,
+                      num_edges, items_per_piece, num_pieces, static_cast<cudaStream_t>(stream)};
   switch (vec) {
-    case 4: return launch_lanes<4>(lanes, a);
-    case 2: return launch_lanes<2>(lanes, a);
-    case 1: return launch_lanes<1>(lanes, a);
+    case 4: return launch_lanes<float, 4>(lanes, a);
+    case 2: return launch_lanes<float, 2>(lanes, a);
+    case 1: return launch_lanes<float, 1>(lanes, a);
     default: return -1;
   }
 }
+#else
+extern "C" int gather_segment_sum_bf16(const __nv_bfloat16* x, const int32_t* src,
+                                       const int32_t* rowptr, const float* scale, float* out,
+                                       float* carry, int32_t* carry_row, int num_segments, int d,
+                                       int num_rows, int num_edges, int vec, int lanes,
+                                       int items_per_piece, int num_pieces, void* stream) {
+  if (num_segments <= 0) return 0;
+  const Args<__nv_bfloat16> a{x, src, rowptr, scale, out, carry, carry_row, num_segments, d,
+                              num_rows, num_edges, items_per_piece, num_pieces,
+                              static_cast<cudaStream_t>(stream)};
+  switch (vec) {
+    case 4: return launch_lanes<__nv_bfloat16, 4>(lanes, a);
+    case 2: return launch_lanes<__nv_bfloat16, 2>(lanes, a);
+    case 1: return launch_lanes<__nv_bfloat16, 1>(lanes, a);
+    default: return -1;
+  }
+}
+#endif

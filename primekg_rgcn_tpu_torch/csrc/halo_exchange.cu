@@ -3,10 +3,12 @@
 //
 //   recv[o][d, :, :] = send[d][o, :, :]   for every pair of shards (d, o)
 //
-// send[d] is shard d's float32 [n, P, D]: row block o holds the P rows that
-// d serves to peer o. recv[o] is o's freshly allocated float32 [n, P, D]:
-// row block d receives them. Both blocks are contiguous [P, D] runs of
-// P * D floats, so a pair's copy is one flat copy.
+// send[d] is shard d's [n, P, D]: row block o holds the P rows that d serves
+// to peer o. recv[o] is o's freshly allocated [n, P, D]: row block d receives
+// them. Both blocks are contiguous [P, D] runs of P * D elements, so a pair's
+// copy is one flat copy. The payload is float32 (entry halo_exchange_f32) or,
+// under bf16 compute, bfloat16 (halo_exchange_bf16), as the TPU kernel moved
+// the payload in its own dtype; the copy moves bits and never converts.
 //
 // Replaces the TPU kernel primekg_rgcn_tpu/ops/pallas/halo.py: _halo_kernel
 // (reached through pallas_halo_exchange). There, each device starts one
@@ -31,13 +33,14 @@
 //
 // Design: blockIdx.x is a tile of kThreads * kUnroll vectors of the pair's
 // flat [P * D] run; each thread loads kUnroll vectors before it stores any,
-// so several loads are in flight per thread. Vectors are float4 (16 bytes)
-// when D % 4 == 0 and every pointer is 16-byte aligned, else float.
+// so several loads are in flight per thread. Vectors are 16 bytes (4 floats,
+// 8 bf16) when D is a multiple of that many elements and every pointer is
+// 16-byte aligned, else one element.
 //
 // Bound on the H100: memory. The function must read each send byte once and
 // write each recv byte once: at the node-sharded step's shapes (n = 4,
-// P = 7,736) 2 * 31.7 MB for D = 64, about 19 us at 3.35 TB/s, and twice that
-// for D = 128. There is no arithmetic.
+// P = 7,736) 2 * 31.7 MB for D = 64 in float32, about 19 us at 3.35 TB/s,
+// twice that for D = 128, and half of each in bf16. There is no arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,8 +52,8 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 
 struct ShardPointers {
-  const float* send[kMaxShards];
-  float* recv[kMaxShards];
+  const void* send[kMaxShards];
+  void* recv[kMaxShards];
   int offset[kMaxShards];  // step i's peer is (s + offset[i]) % n
 };
 
@@ -76,19 +79,14 @@ halo_exchange_kernel(const ShardPointers ptrs, int n, int64_t pair_vecs) {
   }
 }
 
-}  // namespace
-
-// C entry for ctypes. send_ptrs and recv_ptrs are host arrays of n device
-// addresses (each a float32 [n, rows, d] tensor, contiguous); offsets is a
-// host array of n step offsets, a permutation of 0 .. n - 1 (so each step
-// pairs every shard with a distinct peer); vec is 4 (the wrapper has checked
-// d % 4 == 0 and 16-byte alignment of every pointer) or 1. Launches on
-// `stream`, allocates nothing, and returns cudaGetLastError() (0 when the
-// launch was accepted).
-extern "C" int halo_exchange_f32(const uint64_t* send_ptrs, const uint64_t* recv_ptrs,
-                                 const int* offsets, int n, long long rows, int d, int vec,
-                                 void* stream) {
-  if (n < 1 || n > kMaxShards || rows < 0 || d < 1 || (vec != 1 && vec != 4) || d % vec != 0)
+// Checks the arguments, fills the parameter block and launches with 16-byte
+// vectors Wide (kWide elements each) when vec == kWide, else one element
+// Narrow at a time.
+template <typename Wide, typename Narrow, int kWide>
+int exchange(const uint64_t* send_ptrs, const uint64_t* recv_ptrs, const int* offsets, int n,
+             long long rows, int d, int vec, void* stream) {
+  if (n < 1 || n > kMaxShards || rows < 0 || d < 1 || (vec != 1 && vec != kWide) ||
+      d % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t pair_vecs = static_cast<int64_t>(rows) * d / vec;
   if (pair_vecs == 0) return 0;
@@ -98,8 +96,8 @@ extern "C" int halo_exchange_f32(const uint64_t* send_ptrs, const uint64_t* recv
     if (offsets[i] < 0 || offsets[i] >= n || seen[offsets[i]])
       return static_cast<int>(cudaErrorInvalidValue);
     seen[offsets[i]] = true;
-    ptrs.send[i] = reinterpret_cast<const float*>(send_ptrs[i]);
-    ptrs.recv[i] = reinterpret_cast<float*>(recv_ptrs[i]);
+    ptrs.send[i] = reinterpret_cast<const void*>(send_ptrs[i]);
+    ptrs.recv[i] = reinterpret_cast<void*>(recv_ptrs[i]);
     ptrs.offset[i] = offsets[i];
   }
   const int64_t per_block = static_cast<int64_t>(kThreads) * kUnroll;
@@ -107,9 +105,32 @@ extern "C" int halo_exchange_f32(const uint64_t* send_ptrs, const uint64_t* recv
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(tiles), n, n);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 4)
-    halo_exchange_kernel<float4><<<grid, kThreads, 0, st>>>(ptrs, n, pair_vecs);
+  if (vec == kWide)
+    halo_exchange_kernel<Wide><<<grid, kThreads, 0, st>>>(ptrs, n, pair_vecs);
   else
-    halo_exchange_kernel<float><<<grid, kThreads, 0, st>>>(ptrs, n, pair_vecs);
+    halo_exchange_kernel<Narrow><<<grid, kThreads, 0, st>>>(ptrs, n, pair_vecs);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entries for ctypes, one per element size. send_ptrs and recv_ptrs are
+// host arrays of n device addresses (each an [n, rows, d] tensor of the
+// entry's type, contiguous); offsets is a host array of n step offsets, a
+// permutation of 0 .. n - 1 (so each step pairs every shard with a distinct
+// peer); vec is 4 for float32 or 8 for bf16 (the wrapper has checked that
+// vec divides d and that every pointer is 16-byte aligned), or 1. Launches on
+// `stream`, allocates nothing, and returns cudaGetLastError() (0 when the
+// launch was accepted).
+extern "C" int halo_exchange_f32(const uint64_t* send_ptrs, const uint64_t* recv_ptrs,
+                                 const int* offsets, int n, long long rows, int d, int vec,
+                                 void* stream) {
+  return exchange<float4, float, 4>(send_ptrs, recv_ptrs, offsets, n, rows, d, vec, stream);
+}
+
+extern "C" int halo_exchange_bf16(const uint64_t* send_ptrs, const uint64_t* recv_ptrs,
+                                  const int* offsets, int n, long long rows, int d, int vec,
+                                  void* stream) {
+  return exchange<uint4, unsigned short, 8>(send_ptrs, recv_ptrs, offsets, n, rows, d, vec,
+                                            stream);
 }

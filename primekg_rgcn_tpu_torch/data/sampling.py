@@ -44,8 +44,8 @@ from primekg_rgcn_tpu_torch.ops.cuda.dense_segment_sum import \
     dense_sorted_segment_sum
 from primekg_rgcn_tpu_torch.ops.cuda.window_fetch import (GRANULE,
                                                           window_rows_fetch)
-from primekg_rgcn_tpu_torch.ops.rgcn_segment import \
-    materialize_relation_weights
+from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
+    materialize_relation_weights, promote_matmul)
 
 Draw = Callable[[Tuple[int, ...]], torch.Tensor]
 
@@ -214,16 +214,20 @@ def _unique_seeds(seeds: torch.Tensor, n: int):
 def _sorted_accumulate(gp: torch.Tensor, ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Sorted segment-sum of the dedup and table-gather backwards; ``ids``
-    are sorted and inside [0, num_segments).
+    are sorted and inside [0, num_segments). Sums in float32 and returns
+    gp's dtype.
 
     This is ``index_add_`` at every size. The JAX package sends targets of
     2^18 rows or more to the dense kernel (B2 here); on the H100, B2 was
     3.5x slower than ``index_add_`` on a dedup stream, whose in-range fill
     run one block walks alone, and no path here reaches 2^18 rows, so B2
-    serves :class:`IdentPickGather` only (``ROADMAP.md``, queue C).
+    serves :class:`IdentPickGather` only (``ROADMAP.md``, queue C). Below
+    2^18 rows the JAX package sums bf16 cotangents in bf16 (XLA's
+    ``segment_sum``); the float32 sum here is deterministic and closer.
     """
-    return torch.zeros(num_segments, gp.shape[1], dtype=gp.dtype,
-                       device=gp.device).index_add_(0, ids.long(), gp)
+    return torch.zeros(num_segments, gp.shape[1], dtype=torch.float32,
+                       device=gp.device).index_add_(
+                           0, ids.long(), gp.float()).to(gp.dtype)
 
 
 class DedupGather(torch.autograd.Function):
@@ -262,24 +266,28 @@ class TableGatherSorted(torch.autograd.Function):
 
 class IdentPickGather(torch.autograd.Function):
     """``table[ids]`` for global node ids, the sentinel N giving a zero row
-    (``_ident_pick_gather``). (perm, srt) are the argsort of ids and the
-    sorted ids: the backward gathers the cotangent rows into id order and
-    sums them with :func:`dense_sorted_segment_sum` (kernel B2 on the card),
-    whose sentinel run drops."""
+    (``_ident_pick_gather``), converted to ``out_dtype`` when one is given
+    (bf16 compute: gather, then convert; never the whole table). (perm,
+    srt) are the argsort of ids and the sorted ids: the backward gathers the
+    cotangent rows (``out_dtype``) into id order and sums them in float32
+    with :func:`dense_sorted_segment_sum` (kernel B2 on the card), whose
+    sentinel run drops, into a gradient of the table's dtype."""
 
     @staticmethod
-    def forward(ctx, table, ids, perm, srt):
+    def forward(ctx, table, ids, perm, srt, out_dtype=None):
         ctx.save_for_backward(perm, srt)
         n = table.shape[0]
         ctx.rows = n
+        ctx.dtype = table.dtype
         rows = table[ids.clamp(max=n - 1).long()]
-        return rows.masked_fill((ids >= n)[:, None], 0.0)
+        rows = rows.masked_fill((ids >= n)[:, None], 0.0)
+        return rows if out_dtype is None else rows.to(out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         perm, srt = ctx.saved_tensors
         dt = dense_sorted_segment_sum(g[perm.long()], srt, ctx.rows)
-        return dt, None, None, None
+        return dt.to(ctx.dtype), None, None, None, None
 
 
 # -- per-relation layout -------------------------------------------------------
@@ -342,24 +350,36 @@ def sample_batch(draw: Draw, csr: CsrCache, seeds: torch.Tensor,
                         seed_gather=seed_gather)
 
 
-def block_aggregate(layer_params, x_in: torch.Tensor, block) -> torch.Tensor:
+def block_aggregate(layer_params, x_in: torch.Tensor, block,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """One RGCN layer over a sampled block: x_in [M_in, Din] deduped
     input-table features (sentinel rows zero), or the raw [N, Din]
-    embedding table for an identity block. Returns [M_out, Dout]."""
+    embedding table for an identity block, whose gathered rows are then
+    converted to ``compute_dtype``. Returns [M_out, Dout].
+
+    The weights take x_in's dtype (the combined layout: ``compute_dtype``
+    when given), as in the JAX package; under bf16 the per-relation
+    layout's mean times its float32 ``inv_cnt`` promotes to float32, so
+    its output is float32 and the next layer runs in float32, and the
+    combined layout stays bf16 throughout."""
     if isinstance(block, CombinedBlock):
-        return _block_aggregate_combined(layer_params, x_in, block)
-    w_rel = materialize_relation_weights(layer_params)
+        return _block_aggregate_combined(layer_params, x_in, block,
+                                         compute_dtype)
+    w_rel = materialize_relation_weights(layer_params).to(x_in.dtype)
+    w_root = layer_params["w_root"].to(x_in.dtype)
+    bias = layer_params["bias"].to(x_in.dtype)
     r_count, m, fanout = block.src_local.shape
     # One dedup gather over the whole raw id stream, so the backward is a
     # single sorted segment-sum.
     inv_all = torch.cat([block.self_idx, block.src_local.reshape(-1)])
     rows = DedupGather.apply(x_in, inv_all, block.sort_perm, block.sort_uid)
-    out = rows[:m] @ layer_params["w_root"] + layer_params["bias"][None, :]
+    out = rows[:m] @ w_root + bias[None, :]
     for r in range(r_count):
         nbr = rows[m + r * m * fanout: m + (r + 1) * m * fanout]
         nbr = nbr.reshape(m, fanout, x_in.shape[1])
         mean = nbr.sum(dim=1) * block.inv_cnt[r][:, None]
-        out = out + mean @ w_rel[r]
+        out = out + promote_matmul(mean, w_rel[r])
     return out
 
 
@@ -671,24 +691,29 @@ def sample_batch_combined(draw: Draw, ccsr: CombinedCsr,
 
 
 def _block_aggregate_combined(layer_params, x_in: torch.Tensor,
-                              block: CombinedBlock) -> torch.Tensor:
+                              block: CombinedBlock,
+                              compute_dtype: Optional[torch.dtype] = None
+                              ) -> torch.Tensor:
     _combined_agg_impl()
-    w_rel = materialize_relation_weights(layer_params)   # [R, Din, Dout]
+    dt = compute_dtype if compute_dtype is not None else x_in.dtype
+    w_rel = materialize_relation_weights(layer_params).to(dt)  # [R, Din, Dout]
     r_count, din, dout = w_rel.shape
     inv_all = torch.cat([block.self_idx, block.src_local.reshape(-1)])
     if block.ident:
-        # x_in is the raw table; ids are global, the sentinel gives zeros.
+        # x_in is the raw table; ids are global, the sentinel gives zeros;
+        # the gathered rows are converted to dt inside the op.
         rows = IdentPickGather.apply(x_in, inv_all, block.sort_perm,
-                                     block.sort_uid)
+                                     block.sort_uid, dt)
     else:
         rows = DedupGather.apply(x_in, inv_all, block.sort_perm,
                                  block.sort_uid)
     m = block.m_out
-    out = rows[:m] @ layer_params["w_root"] + layer_params["bias"][None, :]
+    out = (rows[:m] @ layer_params["w_root"].to(dt)
+           + layer_params["bias"].to(dt)[None, :])
     budget = block.src_local.shape[1]
     # Per-(node, relation) sums by a one-hot einsum, then all R relation
     # transforms as one [M, R*Din] @ [R*Din, Dout] matmul.
-    msg = rows[m:].reshape(m, budget, din) * block.slot_w[..., None]
+    msg = rows[m:].reshape(m, budget, din) * block.slot_w.to(dt)[..., None]
     onehot = (block.rel_tag[..., None] == torch.arange(
         r_count, dtype=torch.int32, device=msg.device)).to(msg.dtype)
     agg = torch.einsum("mfr,mfd->mrd", onehot, msg)

@@ -99,8 +99,9 @@ def _evaluate(args, device):
     payload = ckpt.load(args.model_path, device=device)
     params = payload["params"]
     model_cfg = ModelConfig.from_dict(payload["model_config"])
-    log.info("Loaded checkpoint (epoch %s, %s params)", payload.get("epoch"),
-             count_params(params))
+    log.info("Loaded checkpoint (epoch %s, %s params, compute_dtype %s)",
+             payload.get("epoch"), count_params(params),
+             model_cfg.compute_dtype)
 
     ds = artifacts.load_dataset(args.data_dir, require_train=False)
     test = ds["test"]

@@ -80,6 +80,8 @@ def main(argv=None):
     payload = ckpt.load(args.model_path, device=device)
     params = payload["params"]
     model_cfg = ModelConfig.from_dict(payload["model_config"])
+    log.info("Loaded %s (compute_dtype %s)", args.model_path,
+             model_cfg.compute_dtype)
     ds = artifacts.load_dataset(args.data_dir, require_train=False)
     full = ds["full"] or ds["train"] or ds["test"]
     if full is None:

@@ -13,6 +13,10 @@ Dropout (training only) -> RGCN layer (d_h -> d_h); DistMult decoder, with
 optional dropout on the relation embeddings in training. The default config
 has 2,078,208 parameters, as the reference model. ``encoder_apply_sampled``
 runs the same encoder over a sampled neighbourhood (``data/sampling``).
+
+``cfg.compute_dtype`` ("float32" or "bfloat16") reaches every layer; the
+parameters, the decoder and the loss stay float32, and each encoder returns
+float32 rows.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 
 Params = Dict[str, Any]
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.compute_dtype``."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
 def _xavier_uniform(gen: torch.Generator, shape, fan_in: int,
@@ -102,8 +111,10 @@ def dropout(x: torch.Tensor, rate: float, *,
             generator: Optional[torch.Generator] = None,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability ``1 - rate`` and
-    scale it by ``1/keep``. The keep ``mask`` (bool, x's shape) is drawn
-    from ``generator`` on x's device unless the caller passes it."""
+    scale it by ``1/keep`` in x's dtype (a Python scalar keeps a bf16
+    tensor bf16, as a weak-typed ``jnp`` scalar does). The keep ``mask``
+    (bool, x's shape) is drawn from ``generator`` on x's device unless the
+    caller passes it."""
     keep = 1.0 - rate
     if mask is None:
         if generator is None:
@@ -119,14 +130,16 @@ def encoder_apply(params: Params, graph: RelGraph, cfg: ModelConfig, *,
                   mask: Optional[torch.Tensor] = None,
                   layer_fn=rgcn_layer_segment) -> torch.Tensor:
     """Full-graph encode: [N, hidden_dim] node embeddings (embed -> conv1
-    -> ReLU -> dropout -> conv2). Dropout applies only with ``train``; its
-    keep mask comes from ``generator`` or is given as ``mask``."""
+    -> ReLU -> dropout -> conv2), each layer in ``cfg.compute_dtype``.
+    Dropout applies only with ``train``; its keep mask comes from
+    ``generator`` or is given as ``mask``."""
     enc = params["encoder"]
-    x = layer_fn(enc["conv1"], enc["node_emb"], graph)
+    cdt = compute_dtype(cfg)
+    x = layer_fn(enc["conv1"], enc["node_emb"], graph, compute_dtype=cdt)
     x = torch.relu(x)
     if train and cfg.dropout > 0.0:
         x = dropout(x, cfg.dropout, generator=generator, mask=mask)
-    return layer_fn(enc["conv2"], x, graph)
+    return layer_fn(enc["conv2"], x, graph, compute_dtype=cdt)
 
 
 def model_apply(params: Params, graph: RelGraph, heads, tails, rels,
@@ -192,17 +205,23 @@ def encoder_apply_sampled(params: Params, batch: SampledBatch,
     layer, so the bias never leaks upward. Dropout applies only with
     ``train``; its keep mask comes from ``generator`` or is given as
     ``mask``.
+
+    Under bf16 compute the layer-0 rows are gathered in float32 and then
+    converted (never the whole table): by the identity block's pick gather
+    itself, else after the frontier gather. The output is float32.
     """
     enc = params["encoder"]
     n = cfg.num_nodes
-    if getattr(batch.blocks[0], "ident", False):
+    cdt = compute_dtype(cfg)
+    ident0 = bool(getattr(batch.blocks[0], "ident", False))
+    if ident0:
         x = x0 if x0 is not None else enc["node_emb"]
     elif x0 is not None:
-        x = x0
+        x = x0.to(cdt)
     else:
         sentinel = (batch.frontier == n)[:, None]
         x = TableGatherSorted.apply(enc["node_emb"],
-                                    batch.frontier.clamp(max=n - 1))
+                                    batch.frontier.clamp(max=n - 1)).to(cdt)
         x = torch.where(sentinel, torch.zeros((), device=x.device), x)
 
     layers = [enc["conv1"], enc["conv2"]]
@@ -210,11 +229,12 @@ def encoder_apply_sampled(params: Params, batch: SampledBatch,
         raise ValueError(
             f"need {len(layers)} sampled blocks, got {len(batch.blocks)}")
     for li, (layer, block) in enumerate(zip(layers, batch.blocks)):
-        x = block_aggregate(layer, x, block)
+        x = block_aggregate(layer, x, block,
+                            compute_dtype=cdt if li == 0 and ident0 else None)
         x = torch.where((block.out_ids == n)[:, None],
                         torch.zeros((), device=x.device), x)
         if li < len(layers) - 1:
             x = torch.relu(x)
             if train and cfg.dropout > 0.0:
                 x = dropout(x, cfg.dropout, generator=generator, mask=mask)
-    return x[batch.seed_gather.long()]
+    return x[batch.seed_gather.long()].float()

@@ -4,8 +4,9 @@ Each kernel source under ``primekg_rgcn_tpu_torch/csrc/`` has a plain C
 interface and is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 of its own in ``primekg_rgcn_tpu_torch/_build/``, named by a hash of its
 source and the flags, at first use; the library is then loaded with
-``ctypes``. ``vec_width`` is the launch helper the row-walking kernels
-share.
+``ctypes``. A source may be built more than once with other ``-D`` defines
+(B1: one library per table dtype, so that the two compile in parallel).
+``vec_width`` is the launch helper the row-walking kernels share.
 """
 
 from __future__ import annotations
@@ -43,20 +44,23 @@ class CudaLibrary:
     """One kernel source, its library and its C entry points.
 
     ``functions`` maps each exported C function to its ``ctypes`` argument
-    types; every entry returns a CUDA error code as ``int``.
+    types; every entry returns a CUDA error code as ``int``. ``defines``
+    are extra ``-D`` flags for this build of the source.
     """
 
     def __init__(self, source_name: str,
-                 functions: Dict[str, Sequence[type]]):
+                 functions: Dict[str, Sequence[type]],
+                 defines: Sequence[str] = ()):
         self.source = CSRC_DIR / source_name
         self.functions = dict(functions)
+        self.flags = (*NVCC_FLAGS, *defines)
         self._lib: Optional[ctypes.CDLL] = None
 
     def library_path(self) -> Path:
         """Where the built library lives, keyed by a hash of source and
         flags."""
         h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
     def build(self, verbose: bool = False) -> Tuple[Path, str]:
@@ -68,7 +72,7 @@ class CudaLibrary:
             return lib, ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+        cmd = [_nvcc(), *self.flags, *(("-Xptxas", "-v") if verbose else ()),
                "-o", str(tmp), str(self.source)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -94,13 +98,15 @@ class CudaLibrary:
 
 
 def vec_width(d: int, *tensors: torch.Tensor) -> int:
-    """Floats per lane for a kernel that walks [rows, D] float32 tables one
-    warp per row: float4 from D = 128, float2 from D = 64, so that a warp's
-    32 lanes cover a row; the vector must divide D and every table must be
-    aligned to it."""
+    """Elements per lane for a kernel that walks [rows, D] tables one warp
+    per row: 4 from D = 128, 2 from D = 64, so that a warp's 32 lanes cover
+    a row; the vector must divide D and every table must be aligned to its
+    own vector of that many elements (a float32 table to 16 or 8 bytes, a
+    bf16 one to 8 or 4)."""
     for vec, min_d in ((4, 128), (2, 64), (4, 4), (2, 2)):
         if d % vec == 0 and d >= min_d and all(
-                t.data_ptr() % (4 * vec) == 0 for t in tensors):
+                t.data_ptr() % (t.element_size() * vec) == 0
+                for t in tensors):
             return vec
     return 1
 

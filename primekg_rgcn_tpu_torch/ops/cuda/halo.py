@@ -3,8 +3,11 @@ PyTorch version and the wrapper that picks between them by device.
 
     recv[o][d] = send[d][o]   for every pair of shards (d, o)
 
-``send[d]`` is shard d's float32 [n, P, D] (block o: the P rows d serves to
-peer o); ``recv[o]`` is shard o's [n, P, D] (block d: what d sent it). This
+``send[d]`` is shard d's [n, P, D] (block o: the P rows d serves to peer
+o); ``recv[o]`` is shard o's [n, P, D] (block d: what d sent it), float32
+or, under bf16 compute, bfloat16 (the C entries ``halo_exchange_f32`` and
+``_bf16``; ``halo_exchange.launches`` counts every launch and
+``.launches_bf16`` the bf16 ones). This
 is the counterpart of ``pallas_halo_exchange`` in
 ``primekg_rgcn_tpu/ops/pallas/halo.py``: it replaces the TPU kernel
 ``_halo_kernel``, with the semantics of a tiled ``lax.all_to_all`` over the
@@ -34,8 +37,10 @@ from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
 MAX_SHARDS = 64
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
+_ARGS = (_p, _p, _p, _i, ctypes.c_longlong, _i, _i, _p)
 LIBRARY = CudaLibrary("halo_exchange.cu", {
-    "halo_exchange_f32": (_p, _p, _p, _i, ctypes.c_longlong, _i, _i, _p)})
+    "halo_exchange_f32": _ARGS, "halo_exchange_bf16": _ARGS})
+PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def halo_schedule(n: int) -> List[Tuple[str, int]]:
@@ -63,11 +68,13 @@ def _check(sends: Sequence[torch.Tensor]) -> None:
     n = len(sends)
     if not 1 <= n <= MAX_SHARDS:
         raise ValueError(f"need 1 to {MAX_SHARDS} shards, got {n}")
-    shape = tuple(sends[0].shape)
+    shape, dtype = tuple(sends[0].shape), sends[0].dtype
     for s in sends:
-        if s.dtype != torch.float32 or s.dim() != 3 or s.shape[0] != n:
-            raise ValueError(f"each send must be float32 [{n}, P, D], got "
-                             f"{s.dtype} {tuple(s.shape)}")
+        if s.dtype not in PAYLOAD_DTYPES or s.dim() != 3 or s.shape[0] != n:
+            raise ValueError(f"each send must be float32 or bfloat16 "
+                             f"[{n}, P, D], got {s.dtype} {tuple(s.shape)}")
+        if s.dtype != dtype:
+            raise ValueError(f"sends differ in dtype: {s.dtype} vs {dtype}")
         if tuple(s.shape) != shape:
             raise ValueError(f"sends differ in shape: {tuple(s.shape)} vs "
                              f"{shape}")
@@ -88,8 +95,8 @@ def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Exchange the shards' halo rows: ``recv[o][d] = sends[d][o]``.
 
     Args:
-        sends: one float32 [n, P, D] contiguous tensor per shard, all of one
-            shape and on one device.
+        sends: one [n, P, D] contiguous tensor per shard, float32 or
+            bfloat16, all of one shape and dtype and on one device.
 
     Returns the n recv tensors, each of its own allocation. On CPU tensors
     this runs the plain version; on CUDA tensors it launches the kernel or
@@ -110,26 +117,33 @@ def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 def launch(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Launch the kernel on CUDA tensors that ``halo_exchange`` has
-    checked; counts the launch."""
+    checked, the entry of their dtype; counts the launch (and a bf16 one).
+    16-byte vectors where D is a multiple of them and every pointer is
+    16-byte aligned, else one element a thread."""
     n, p, d = sends[0].shape
     recvs = [torch.empty_like(sends[0]) for _ in range(n)]
     if p * d == 0:
         return recvs
     ptrs = [s.data_ptr() for s in sends] + [r.data_ptr() for r in recvs]
-    vec = 4 if d % 4 == 0 and all(q % 16 == 0 for q in ptrs) else 1
+    wide = 16 // sends[0].element_size()
+    vec = wide if d % wide == 0 and all(q % 16 == 0 for q in ptrs) else 1
     table = ctypes.c_uint64 * n
+    bf16 = sends[0].dtype == torch.bfloat16
     lib = LIBRARY.load()
+    entry = lib.halo_exchange_bf16 if bf16 else lib.halo_exchange_f32
     with torch.cuda.device(sends[0].device):
-        rc = lib.halo_exchange_f32(
+        rc = entry(
             table(*ptrs[:n]), table(*ptrs[n:]),
             (ctypes.c_int * n)(*step_offsets(n)), n, p, d, vec,
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "halo_exchange")
     halo_exchange.launches += 1
+    halo_exchange.launches_bf16 += bf16
     return recvs
 
 
 halo_exchange.launches = 0
+halo_exchange.launches_bf16 = 0
 
 
 class HaloExchange(torch.autograd.Function):

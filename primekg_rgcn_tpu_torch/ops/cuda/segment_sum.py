@@ -3,6 +3,12 @@ version and the wrapper that picks between them by device.
 
     out[d, :] = sum_{e in [rowptr[d], rowptr[d+1])} x[src[e], :] * scale[e]
 
+x is a float32 or a bfloat16 table; the sum and the output are float32 for
+either, as the TPU kernel summed bf16 rows in float32 under bf16 compute
+(``mxu_dtype=bfloat16``). With a bf16 table and a scale, each product is
+rounded to bf16 before it is added, as the JAX layer rounds its float32
+messages to bf16 on the way into that kernel.
+
 This is the counterpart of ``primekg_rgcn_tpu/ops/pallas/segment_sum.py``:
 it replaces the TPU kernel ``_segment_kernel`` (reached through
 ``sorted_segment_sum_pallas``) together with the row gather in front of it.
@@ -11,9 +17,13 @@ its header comment gives the design (an edge-balanced merge-path partition,
 one warp per piece, and a fix-up launch that adds the carries of rows that
 cross pieces in piece order) and what bounds it on the H100 (memory bytes).
 ``piece_plan`` sizes the partition and its scratch, ``b1_width`` the row
-loads. It is built with ``nvcc`` for ``sm_90a`` at first use into
-``primekg_rgcn_tpu_torch/_build/`` and bound through ``ctypes``
-(``ops/cuda/build.py``).
+loads. A float32 table launches the entry ``gather_segment_sum_f32`` of
+``LIBRARY``, a bf16 one ``gather_segment_sum_bf16`` of ``LIBRARY_BF16``:
+the same source built twice, one table type each, so that the two compile
+in parallel. ``gather_segment_sum.launches`` counts every launch and
+``gather_segment_sum.launches_bf16`` the bf16 ones. It is built with
+``nvcc`` for ``sm_90a`` at first use into ``primekg_rgcn_tpu_torch/_build/``
+and bound through ``ctypes`` (``ops/cuda/build.py``).
 
 ``GatherSegmentSum`` is the differentiable form, the counterpart of the
 ``jax.custom_vjp`` in ``primekg_rgcn_tpu/ops/rgcn_segment.py``
@@ -32,9 +42,13 @@ import torch
 from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-LIBRARY = CudaLibrary("gather_segment_sum.cu", {
-    "gather_segment_sum_f32": (_p, _p, _p, _p, _p, _p, _p,
-                               _i, _i, _i, _i, _i, _i, _i, _i, _p)})
+_ARGS = (_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p)
+LIBRARY = CudaLibrary("gather_segment_sum.cu",
+                      {"gather_segment_sum_f32": _ARGS})
+LIBRARY_BF16 = CudaLibrary("gather_segment_sum.cu",
+                           {"gather_segment_sum_bf16": _ARGS},
+                           defines=("-DB1_TABLE_BF16",))
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 WAVE_WARPS_PER_SM = 32     # pieces a launch aims to keep resident per SM
@@ -72,16 +86,19 @@ def carry_scratch(num_pieces: int, d: int, device
 
 
 def b1_width(d: int, *tensors: torch.Tensor) -> Tuple[int, int]:
-    """``(vec, lanes)`` of the kernel's row loads: ``vec`` floats per lane
-    (16 bytes where D % 4 == 0 and every table is aligned to it, else 8 or
-    4 bytes), ``lanes`` the lanes that share one gathered row, the least
-    power of two that covers D / vec, at most the warp's 32. A warp then
-    loads 32 / lanes rows in one instruction: at D = 128 one row, at
-    D = 64 two (a half-warp each); a row wider than 32 vectors is walked in
-    column chunks."""
+    """``(vec, lanes)`` of the kernel's row loads: ``vec`` elements per
+    lane, 4 where D % 4 == 0 and every tensor is aligned to its own vector
+    of 4 elements (16 bytes of float32, 8 of bf16), else 2 or 1; ``lanes``
+    the lanes that share one gathered row, the least power of two that
+    covers D / vec, at most the warp's 32. A warp then loads 32 / lanes
+    rows in one instruction: one row at D = 128, two at D = 64 (a half-warp
+    each); a row wider than 32 vectors is walked in column chunks. A bf16
+    table takes the same widths: its 16-byte loads of 8 elements spilled in
+    the kernel and ran slower on the H100 (``csrc/gather_segment_sum.cu``)."""
     vec = 1
     for v in (4, 2):
-        if d % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors):
+        if d % v == 0 and all(t.data_ptr() % (t.element_size() * v) == 0
+                              for t in tensors):
             vec = v
             break
     lanes = 1
@@ -91,8 +108,8 @@ def b1_width(d: int, *tensors: torch.Tensor) -> Tuple[int, int]:
 
 
 def _check(x, src, rowptr, scale) -> None:
-    if x.dim() != 2 or x.shape[1] < 1 or x.dtype != torch.float32:
-        raise ValueError(f"x must be float32 [rows, D>=1], got "
+    if x.dim() != 2 or x.shape[1] < 1 or x.dtype not in TABLE_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16 [rows, D>=1], got "
                          f"{x.dtype} {tuple(x.shape)}")
     if src.dim() != 1 or src.dtype != torch.int32:
         raise ValueError(f"src must be int32 [E], got {src.dtype} "
@@ -129,7 +146,12 @@ def gather_segment_sum_plain(x: torch.Tensor, src: torch.Tensor,
                              rowptr: torch.Tensor,
                              scale: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """Plain PyTorch version: index_add_ of the gathered (scaled) rows.
+    """Plain PyTorch version: index_add_ of the gathered (scaled) rows in
+    float32; a bf16 table is converted to float32, and its scaled products
+    rounded to bf16 and back. The table is converted before the gather, so
+    that autograd's backward of this version (``rgcn_segment.
+    aggregate_plain``) sums a bf16 table's gradient in float32, as the
+    kernel's backward does.
 
     The CSR covers src: ``rowptr[0] == 0`` and ``rowptr[-1] == len(src)``.
     """
@@ -137,9 +159,9 @@ def gather_segment_sum_plain(x: torch.Tensor, src: torch.Tensor,
     counts = (rowptr[1:] - rowptr[:-1]).long()
     dst = torch.repeat_interleave(torch.arange(s, device=x.device), counts,
                                   output_size=src.shape[0])
-    msg = x[src]
+    msg = x.float()[src]
     if scale is not None:
-        msg = msg * scale[:, None]
+        msg = (msg * scale[:, None]).to(x.dtype).float()
     return torch.zeros(s, x.shape[1], dtype=torch.float32,
                        device=x.device).index_add_(0, dst, msg)
 
@@ -150,7 +172,8 @@ def gather_segment_sum(x: torch.Tensor, src: torch.Tensor,
     """``out[d] = sum_{e in [rowptr[d], rowptr[d+1])} x[src[e]] * scale[e]``.
 
     Args:
-        x: float32 [rows, D] table; every ``src`` id must index a row.
+        x: float32 or bfloat16 [rows, D] table; every ``src`` id must index
+            a row.
         src: int32 [E] gather ids in destination order.
         rowptr: int32 [S+1] CSR row pointers over src (``rowptr[0] == 0``,
             ``rowptr[-1] == E``, non-decreasing).
@@ -180,7 +203,8 @@ def gather_segment_sum(x: torch.Tensor, src: torch.Tensor,
 def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel and its fix-up on CUDA tensors that
-    ``gather_segment_sum`` has checked; counts one launch per call."""
+    ``gather_segment_sum`` has checked, the entry of x's dtype; counts one
+    launch per call (and one bf16 launch for a bf16 table)."""
     s, d = rowptr.shape[0] - 1, x.shape[1]
     out = torch.empty(s, d, dtype=torch.float32, device=x.device)
     if s == 0:
@@ -188,9 +212,11 @@ def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
     vec, lanes = b1_width(d, x, out)
     per_piece, pieces = piece_plan(s, src.shape[0], _num_sms(x.device))
     carry, carry_row = carry_scratch(pieces, d, x.device)
-    lib = LIBRARY.load()
+    bf16 = x.dtype == torch.bfloat16
+    entry = (LIBRARY_BF16.load().gather_segment_sum_bf16 if bf16
+             else LIBRARY.load().gather_segment_sum_f32)
     with torch.cuda.device(x.device):
-        rc = lib.gather_segment_sum_f32(
+        rc = entry(
             x.data_ptr(), src.data_ptr(), rowptr.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(),
             carry.data_ptr(), carry_row.data_ptr(),
@@ -198,10 +224,12 @@ def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "gather_segment_sum")
     gather_segment_sum.launches += 1
+    gather_segment_sum.launches_bf16 += bf16
     return out
 
 
 gather_segment_sum.launches = 0
+gather_segment_sum.launches_bf16 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,6 +254,12 @@ class GatherSegmentSum(torch.autograd.Function):
     arrays and scales are constants; only x gets a gradient. On the CPU
     both directions run the plain version, on the card both launch the
     kernel (and count).
+
+    A bf16 x gets a bf16 gradient, as the JAX VJP casts its float32 sum to
+    the input's dtype: the float32 cotangent is rounded to bf16 first and
+    summed by the bf16 kernel in float32. In edge mode that rounds each
+    scaled product a second time, where the JAX path rounds once, after the
+    scale (``ROADMAP.md``, queue C).
     """
 
     @staticmethod
@@ -236,8 +270,10 @@ class GatherSegmentSum(torch.autograd.Function):
             raise ValueError("scale is a constant of the graph and must not "
                              "require a gradient")
         ctx.bwd = bwd
+        ctx.dtype = x.dtype
         return gather_segment_sum(x, *fwd)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return gather_segment_sum(g.contiguous(), *ctx.bwd), None, None
+        g = g.to(ctx.dtype).contiguous()
+        return gather_segment_sum(g, *ctx.bwd).to(ctx.dtype), None, None

@@ -24,6 +24,14 @@ The counterpart of ``primekg_rgcn_tpu/parallel/node_shard.py``:
   B1 walks a row with one warp (174,336 padding edges on one bucket of the
   ``bench.py`` graph at n = 4). Padding adds exactly zero either way.
 
+Under bf16 compute (``cfg.compute_dtype``) each layer converts its rows to
+bf16 before the exchange, so the serve rows ship in bf16 (B4's bf16
+payload) and B1 gathers bf16 tables; the aggregates, normalisation and
+relation products are float32 and the layer returns float32, as the JAX
+layer does. Its B1 kept the default ``mxu_dtype`` there, so its backward
+summed float32 cotangents; here the bf16 table's backward rounds the
+cotangent to bf16 first (``ROADMAP.md``, queue C).
+
 All shards of a mesh live on one device (``parallel/mesh.py``): a sharded
 function is a loop over the shards and the collectives are plain functions.
 The relation loop is unrolled; the JAX package's ``lax.scan`` path for
@@ -41,11 +49,12 @@ import torch
 
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph, edge_arrays_from_graph
-from primekg_rgcn_tpu_torch.models.rgcn import Params, dropout
+from primekg_rgcn_tpu_torch.models.rgcn import (Params, compute_dtype,
+                                                dropout)
 from primekg_rgcn_tpu_torch.ops.cuda.halo import HaloExchange
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
-    AggOp, aggregate, materialize_relation_weights)
+    AggOp, aggregate, materialize_relation_weights, promote_matmul)
 from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, all_gather, psum
 from primekg_rgcn_tpu_torch.train.loop import Candidates, apply_update
 from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
@@ -333,7 +342,7 @@ def exchange(sends: List[torch.Tensor]) -> List[torch.Tensor]:
 
 def _one_relation(table, inv, w_r, *, op, n_loc, aggregate_first, agg_fn):
     if aggregate_first:
-        return (agg_fn(table, op)[:n_loc] * inv) @ w_r
+        return promote_matmul(agg_fn(table, op)[:n_loc] * inv, w_r)
     return agg_fn((table @ w_r).contiguous(), op)[:n_loc] * inv
 
 
@@ -359,10 +368,13 @@ def _accumulate(out, table, ops, inv_deg, w_rel, n_loc, aggregate_first,
 
 def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
                        sg: NodeShardedGraph, shard_ops: Sequence[ShardOps],
-                       *, agg_fn=aggregate,
-                       exchange_fn=exchange) -> List[torch.Tensor]:
+                       *, agg_fn=aggregate, exchange_fn=exchange,
+                       compute_dtype: torch.dtype = torch.float32
+                       ) -> List[torch.Tensor]:
     """One RGCN layer over every shard: ``xs[d]`` is shard d's float32
-    [n_loc, Din] rows; returns the shards' [n_loc, Dout] outputs.
+    [n_loc, Din] rows; returns the shards' float32 [n_loc, Dout] outputs.
+    The rows, weights and ``inv_deg`` are converted to ``compute_dtype``
+    first, so a bf16 layer exchanges and aggregates bf16 rows.
 
     The exchange comes first; then each shard aggregates its local-source
     group (which needs no received row), then its halo-source group over
@@ -373,8 +385,11 @@ def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
     B4 both ways on the card). Only a reference passes the plain versions.
     """
     n, n_loc = sg.n_devices, sg.n_loc
-    w_rel = materialize_relation_weights(layer_params)
+    w_rel = materialize_relation_weights(layer_params).to(compute_dtype)
+    w_root = layer_params["w_root"].to(compute_dtype)
+    bias = layer_params["bias"].to(compute_dtype)
     din, dout = w_rel.shape[1], w_rel.shape[2]
+    xs = [x.to(compute_dtype) for x in xs]
     x_pads = [torch.cat([x, x.new_zeros(1, din)]) for x in xs]
 
     # 1) the exchange: shard d sends rows x_pad[d][serve[d][o]] to peer o.
@@ -384,15 +399,16 @@ def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
     aggregate_first = din <= dout
     outs = []
     for d in range(n):
-        out = xs[d] @ layer_params["w_root"] + layer_params["bias"][None, :]
+        out = xs[d] @ w_root + bias[None, :]
+        inv_deg = sg.inv_deg[d].to(compute_dtype)
         # 2) local-source group, 3) halo-source group.
-        out = _accumulate(out, x_pads[d], shard_ops[d].local, sg.inv_deg[d],
+        out = _accumulate(out, x_pads[d], shard_ops[d].local, inv_deg,
                           w_rel, n_loc, aggregate_first, agg_fn)
         halo_table = torch.cat([recvs[d].reshape(-1, din),
                                 recvs[d].new_zeros(1, din)])
-        out = _accumulate(out, halo_table, shard_ops[d].halo, sg.inv_deg[d],
+        out = _accumulate(out, halo_table, shard_ops[d].halo, inv_deg,
                           w_rel, n_loc, aggregate_first, agg_fn)
-        outs.append(out)
+        outs.append(out.float())
     return outs
 
 
@@ -406,23 +422,25 @@ def sharded_encoder(params: Params, sg: NodeShardedGraph,
     """The encoder over the shards: each shard's slice of the (replicated)
     embedding table -> conv1 -> ReLU -> dropout -> conv2; returns the
     shards' [n_loc, hidden] rows. With ``train``, each shard's dropout mask
-    is drawn from ``generator`` in shard order, or given as ``masks[d]``."""
+    is drawn from ``generator`` in shard order, or given as ``masks[d]``.
+    Both layers run in ``cfg.compute_dtype``."""
     enc = params["encoder"]
     emb = enc["node_emb"]
+    cdt = compute_dtype(cfg)
     n, n_loc = sg.n_devices, sg.n_loc
     pad = n * n_loc - cfg.num_nodes
     if pad:
         emb = torch.cat([emb, emb.new_zeros(pad, emb.shape[1])])
     xs = list(emb.view(n, n_loc, -1).unbind(0))
     xs = node_sharded_layer(enc["conv1"], xs, sg, shard_ops, agg_fn=agg_fn,
-                            exchange_fn=exchange_fn)
+                            exchange_fn=exchange_fn, compute_dtype=cdt)
     xs = [torch.relu(x) for x in xs]
     if train and cfg.dropout > 0.0:
         xs = [dropout(x, cfg.dropout, generator=generator,
                       mask=None if masks is None else masks[d])
               for d, x in enumerate(xs)]
     return node_sharded_layer(enc["conv2"], xs, sg, shard_ops, agg_fn=agg_fn,
-                              exchange_fn=exchange_fn)
+                              exchange_fn=exchange_fn, compute_dtype=cdt)
 
 
 def _on_mesh(mesh: Mesh, sg: NodeShardedGraph):

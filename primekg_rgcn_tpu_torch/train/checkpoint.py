@@ -111,8 +111,11 @@ def load(path, *, device="cpu") -> Dict[str, Any]:
 
     Returns {"params", "model_config" (dict), "epoch", "best_val_loss",
     "best_val_acc"} with the parameters on ``device``, and the entries of
-    ``TRAINER_KEYS`` that the file holds (on the CPU). The file is a
-    pickle: load only trusted checkpoints.
+    ``TRAINER_KEYS`` that the file holds (on the CPU). ``model_config``
+    comes from the parameter shapes, with the ``compute_dtype`` of the
+    file's own ``model_config`` when it has one (else float32), so a model
+    trained in bf16 serves and evaluates in bf16. The file is a pickle:
+    load only trusted checkpoints.
     """
     path = Path(path)
     if not is_torch_checkpoint(path):

@@ -14,7 +14,10 @@ sampling (``train/sampled.SampledTrainer``; --sample_mode, --sparse_emb and
 --val_sampled as in the JAX CLI). --shard node trains the node-partitioned
 layout (``train/multichip.ShardedTrainer``) over --n_devices shards, all on
 the one --device; its halo exchange is kernel B4 on the card (the JAX
-CLI's --halo_impl has no counterpart). Checkpoints are reference-layout
+CLI's --halo_impl has no counterpart). --compute_dtype bfloat16 runs the
+layers in bf16 on every one of these paths (float32 by default, or with
+--resume the checkpoint's); the checkpoints record it, and serving and
+evaluation follow it. Checkpoints are reference-layout
 ``.pt`` files under ``<output_dir>/models`` and
 ``<output_dir>/checkpoints``; the log goes to stdout and
 ``<output_dir>/training.log``.
@@ -53,7 +56,10 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--early_stopping", type=int, default=0)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--compute_dtype", choices=["float32"], default="float32")
+    p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
+                   default=None,
+                   help="layer compute dtype (default float32, or with "
+                        "--resume the checkpoint's)")
     p.add_argument("--resume", default=None,
                    help="checkpoint (.pt) to resume from")
     p.add_argument("--synthetic", action="store_true",
@@ -192,6 +198,13 @@ def main(argv=None):
 
         (train_graph, full_graph, train_edges, val_edges,
          num_nodes, num_relations) = _load_graphs(args)
+        if args.compute_dtype is None:
+            args.compute_dtype = "float32"
+            if args.resume:
+                from primekg_rgcn_tpu_torch.train import checkpoint
+
+                args.compute_dtype = checkpoint.load(
+                    args.resume)["model_config"]["compute_dtype"]
         model_cfg = ModelConfig(
             num_nodes=num_nodes, num_relations=num_relations,
             embedding_dim=args.embedding_dim, hidden_dim=args.hidden_dim,

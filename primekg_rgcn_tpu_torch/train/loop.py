@@ -353,6 +353,11 @@ class Trainer:
 
     def resume(self, path) -> None:
         payload = ckpt_lib.load(path, device=self.device)
+        stored = payload["model_config"]["compute_dtype"]
+        if stored != self.model_cfg.compute_dtype:
+            raise ValueError(
+                f"{path} was trained with compute_dtype {stored!r}, this "
+                f"trainer runs {self.model_cfg.compute_dtype!r}")
         with torch.no_grad():
             _copy_params_(self.params, payload["params"])
         self.optimizer.load_state_dict(payload["optimizer_state_dict"])

@@ -15,6 +15,13 @@ Both layouts use x @ W conventions, so tensors map without transposition.
 The JAX package writes the same layout, so a model trained there serves
 here after ``python -m primekg_rgcn_tpu.train.torch_interop export ckpt
 out.pt``.
+
+The configuration is rebuilt from the parameter shapes and the ``args``
+namespace, and its ``compute_dtype`` from the file's ``model_config`` dict
+when the file has one (the port's trainer and :func:`save_reference_pt`
+write it); a file without it, as the reference and the JAX package write
+them, loads at float32. The JAX package reads a port file at float32
+whatever its ``model_config`` says.
 """
 
 from __future__ import annotations
@@ -81,7 +88,8 @@ def state_dict_from_params(params: Params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def config_from_params(params: Params, args=None) -> ModelConfig:
+def config_from_params(params: Params, args=None,
+                       compute_dtype: str = "float32") -> ModelConfig:
     """Rebuild the ModelConfig from parameter shapes (plus the dropout
     rates stored in the reference's argparse namespace, if any)."""
     num_nodes, embedding_dim = params["encoder"]["node_emb"].shape
@@ -93,7 +101,7 @@ def config_from_params(params: Params, args=None) -> ModelConfig:
         embedding_dim=int(embedding_dim), hidden_dim=int(hidden_dim),
         dropout=float(getattr(args, "dropout", 0.5)),
         decoder_dropout=float(getattr(args, "decoder_dropout", 0.0)),
-        num_bases=num_bases)
+        num_bases=num_bases, compute_dtype=compute_dtype)
 
 
 def load_reference_pt(path, *, device="cpu"
@@ -117,7 +125,11 @@ def reference_from_blob(blob, *, device="cpu"
     else:
         sd, meta = blob, {}
     params = params_from_state_dict(sd)
-    cfg = config_from_params(params, meta.get("args"))
+    stored = meta.get("model_config")
+    cfg = config_from_params(
+        params, meta.get("args"),
+        stored.get("compute_dtype", "float32") if isinstance(stored, dict)
+        else "float32")
     meta_out = {k: v for k, v in meta.items()
                 if isinstance(v, (int, float, str, bool))}
     return params_to(params, device), cfg, meta_out
@@ -125,13 +137,15 @@ def reference_from_blob(blob, *, device="cpu"
 
 def save_reference_pt(params: Params, cfg: ModelConfig, path,
                       meta: Optional[Dict[str, Any]] = None) -> None:
-    """Write params as a reference-layout checkpoint."""
+    """Write params as a reference-layout checkpoint, with ``cfg`` as its
+    ``model_config`` dict."""
     args = argparse.Namespace(
         embedding_dim=cfg.embedding_dim, hidden_dim=cfg.hidden_dim,
         dropout=cfg.dropout, decoder_dropout=cfg.decoder_dropout,
         num_bases=cfg.num_bases)
     torch.save({"model_state_dict": state_dict_from_params(params),
-                "args": args, **(meta or {})}, path)
+                "args": args, "model_config": cfg.to_dict(), **(meta or {})},
+               path)
 
 
 def params_from_jax(tree: Dict[str, Any], *, device="cpu") -> Params:

@@ -65,10 +65,12 @@ def test_init_is_seeded_and_bounded():
     assert a["encoder"]["node_emb"].abs().max() <= limit
 
 
-def test_bfloat16_compute_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ModelConfig(num_nodes=4, num_relations=1, compute_dtype="bfloat16")
-    cfg = ModelConfig(num_nodes=4, num_relations=1)
+def test_bfloat16_compute_is_accepted():
+    cfg = ModelConfig(num_nodes=4, num_relations=1, compute_dtype="bfloat16")
+    assert cfg.compute_dtype == "bfloat16"
+    assert pmodel.compute_dtype(cfg) == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ModelConfig(num_nodes=4, num_relations=1, compute_dtype="float16")
     assert ModelConfig.from_dict({**cfg.to_dict(), "extra": 1}) == cfg
 
 

@@ -119,7 +119,29 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    phase's 8 heads for relations 0-2 with scores within TOL of
    ``predict_cli``'s and ids equal on untied entries; its query timed
    beside the serve phase's ``query_ms``.
-23. the kernel summary line, then the card line, then the result line.
+23-27. BASELINE config 3 (full PrimeKG: ``primekg_full_like(seed=0,
+   scale=1.0)`` + ``bidirect``, 129,375 nodes, 30 relations, 4,601,678
+   directed edges) and config 4 (it sampled at fanouts 15/10):
+   full_kg_graph: the graph built by the C++ builder of ``native/`` and by
+   numpy, every array equal, both times and the sizes printed, ``"auto"``
+   taking the C++ builder. full_kg_grad: one step, dropout off, given
+   candidates, with the batch-restricted final layer (60 B1 launches) and
+   with the full one (120), losses within 1e-6 relative and gradients
+   within the grad criterion; the restricted layer on the card against its
+   CPU computation; the same in bf16 (bf16 launches only, grad_bf16's
+   tolerances). full_kg_overflow: a plan cut to one group a relation takes
+   the fallback, equal to the full step, one fallback and 120 launches.
+   full_kg_train: ``restrict_final="auto"`` resolves to a plan (the edge
+   ratio printed); the step with it (float32 and bf16) and with "off", 3
+   warm-up and 30 timed steps each, launches, fallbacks, peak memory and a
+   10-step profile; the restricted and the full final layer alone; B2
+   against ``index_add_`` on the restricted layer's segment-sum stream.
+   full_kg_trainer: ``Trainer`` for one epoch (45 steps of 1,024,
+   validation, checkpoints), losses finite. full_kg_sampled: config 4, the
+   block-mode step over the slim CSR: gradients through B2 and B3 against
+   their plain versions (``full_kg_sampled_grad``, fat and slim CSR), then
+   3 warm-up and 30 timed steps with a profile.
+28. the kernel summary line, then the card line, then the result line.
 
 bf16 compute (``compute_dtype="bfloat16"``, full width) adds, each beside
 its float32 counterpart:
@@ -141,6 +163,9 @@ its float32 counterpart:
   1e-3, each gradient within 5e-2 of the float32 step's in norm.
 - train_bf16 (after 7): 3 warm-up and 50 timed bf16 steps, 12 bf16 B1
   launches a step, and a 10-step profile.
+- train_restricted_on (after train_bf16): the train phase with the
+  batch-restricted final layer forced on at this graph's edge ratio (3.48;
+  "auto" leaves it off), 6 B1 launches a step.
 - cli_bf16 (after 8): ``train.cli --compute_dtype bfloat16`` at scale 0.1
   for 2 epochs, then ``predict_cli`` and ``evaluate.cli`` on its final
   model: both report bfloat16, every B1 launch a bf16 one.
@@ -761,16 +786,22 @@ def phase_grad(graph, cfg, edges, dev, plain_layer, f32_run=None):
     return max_err, {"loss": runs["kernel"][0], "grads": runs["kernel"][1]}
 
 
-def phase_train(graph, cfg, edges, dev, tmp, steps=50):
+def phase_train(graph, cfg, edges, dev, tmp, steps=50, label=None,
+                final_plan=None, launches_per_step=12):
     """The bench.py step on the port: timing, launches, memory, profile.
     At ``cfg.compute_dtype`` bf16 (phase ``train_bf16``) every B1 launch
-    must be a bf16 one. Returns the launches and the profile's breakdown."""
+    must be a bf16 one. With ``final_plan`` the step runs the
+    batch-restricted final layer (phase ``full_kg_train``), and the
+    fallbacks over the timed steps are counted. Returns the launches and
+    the profile's breakdown, and the step's figures."""
     import numpy as np
     import torch
 
     from primekg_rgcn_tpu_torch.config import TrainConfig
     from primekg_rgcn_tpu_torch.models import rgcn
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+    from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import \
+        final_layer_restricted
     from primekg_rgcn_tpu_torch.train import loop
     from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
                                                         trace_breakdown)
@@ -798,7 +829,8 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50):
         else:
             batch = batch.to(dev)
         return loop.train_step(params, opt, graph, edges_pad, batch.view(1, b),
-                               cfg, tcfg, generator=gen)
+                               cfg, tcfg, generator=gen,
+                               final_plan=final_plan)
 
     def timed(pinned):
         torch.cuda.synchronize()
@@ -808,30 +840,38 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / steps * 1e3, out
 
-    label = "train_bf16" if cfg.compute_dtype == "bfloat16" else "train"
+    bf16 = cfg.compute_dtype == "bfloat16"
+    label = label or ("train_bf16" if bf16 else "train")
     first = step()
     for _ in range(2):
         step()
     pageable_ms, _ = timed(pinned=False)
     torch.cuda.reset_peak_memory_stats()
+    fallbacks = final_layer_restricted.fallbacks
     reset_counts()
     step_ms, last = timed(pinned=True)
     launches = kern.launches
+    fallbacks = final_layer_restricted.fallbacks - fallbacks
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    if launches != 12 * steps:
-        raise AssertionError(f"{launches} kernel launches in {steps} steps, "
-                             f"expected {12 * steps}")
-    if label == "train_bf16":
+    # A restricted step that overflowed its plan runs the full final layer:
+    # two more B1 launches a relation.
+    want = launches_per_step * steps + 2 * graph.num_relations * fallbacks
+    if launches != want:
+        raise AssertionError(f"{launches} kernel launches in {steps} steps "
+                             f"({fallbacks} fallbacks), expected {want}")
+    if bf16:
         only_bf16(label, read_counts(), read_bf16_counts())
     first_loss = float(first[0] / first[2])
     last_loss = float(last[0] / last[2])
     if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
         raise AssertionError(f"non-finite loss {first_loss}, {last_loss}")
+    figures = dict(step_ms=step_ms, train_edges_per_s=b / step_ms * 1e3,
+                   launches=launches, launches_per_step=launches / steps,
+                   fallbacks=fallbacks, peak_memory_mb=peak_mb)
     emit(label, steps=steps, batch_size=b, train_edges=graph.num_edges,
-         train_edges_per_s=b / step_ms * 1e3, step_ms=step_ms,
-         step_ms_pageable_batch_copy=pageable_ms,
-         launches=launches, launches_per_step=launches / steps,
-         peak_memory_mb=peak_mb, first_loss=first_loss, last_loss=last_loss)
+         step_ms_pageable_batch_copy=pageable_ms, first_loss=first_loss,
+         last_loss=last_loss, restricted_final_layer=final_plan is not None,
+         **figures)
 
     # The profiler slows the host, which widens the device's idle gaps in
     # its own window: `idle_share` is read from that one window and is an
@@ -859,7 +899,7 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50):
                          **breakdown)
         emit(f"{label}_profile", steps=prof_steps,
              step_ms_under_profiler=prof_ms, **breakdown)
-    return launches, breakdown
+    return launches, breakdown, figures
 
 
 @contextlib.contextmanager
@@ -1317,7 +1357,7 @@ def phase_kernel_b3(graph, cfg, edges, dev):
     return rows
 
 
-def phase_sampled_grad(graph, cfg, edges, dev):
+def phase_sampled_grad(graph, cfg, edges, dev, label=None):
     """One full-size block-mode step's loss and gradients through kernels
     B2 and B3 and through their plain versions, over the fat CSR (1 B2
     launch, no B3) and the slim pairs CSR (1 B2, 2 B3), with the same
@@ -1326,14 +1366,15 @@ def phase_sampled_grad(graph, cfg, edges, dev):
     At ``cfg.compute_dtype`` bf16 (phase ``sampled_bf16``) over the slim
     CSR only, its B2 launch a bf16 one, within ``grad_bf16``'s tolerance:
     gradients within 1e-2 of each tensor's largest magnitude, the losses
-    within 1e-3."""
+    within 1e-3. ``label`` names the phase (``full_kg_sampled_grad``: the
+    config-3 graph)."""
     import numpy as np
 
     from primekg_rgcn_tpu_torch.config import TrainConfig
     from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
 
     bf16 = cfg.compute_dtype == "bfloat16"
-    label = "sampled_bf16" if bf16 else "sampled_grad"
+    label = label or ("sampled_bf16" if bf16 else "sampled_grad")
     params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
     if bf16:
         del csrs["fat"]
@@ -1390,7 +1431,8 @@ def phase_sampled_grad(graph, cfg, edges, dev):
 
 
 def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
-                        configs=("block/fat", "block/slim", "block4/slim")):
+                        configs=("block/fat", "block/slim", "block4/slim"),
+                        label=None):
     """``build_sampled_train_step`` timed as the JAX package's
     ``bench_sampled`` times it: a fresh batch of 1,024 positives drawn on
     the host each step, 3 warm-up then 30 timed steps on the host clock;
@@ -1398,7 +1440,7 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
     kernels B2 and B3) and block4 over the slim CSR. Then a 10-step profile
     of the main path. At ``cfg.compute_dtype`` bf16 (phase
     ``sampled_bf16``, block over the slim CSR) every B2 launch must be a
-    bf16 one."""
+    bf16 one. ``label`` names the phase (``full_kg_sampled``: config 4)."""
     import numpy as np
     import torch
 
@@ -1408,7 +1450,7 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
                                                         trace_breakdown)
 
     bf16 = cfg.compute_dtype == "bfloat16"
-    label = "sampled_bf16" if bf16 else "sampled_train"
+    label = label or ("sampled_bf16" if bf16 else "sampled_train")
     tcfg = TrainConfig(batch_size=1024)
     params0, edges_dev, _, csrs = sampled_setup(graph, cfg, edges, dev)
     results = {}
@@ -1474,6 +1516,7 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
                      device_events=0, idle_share="not measured")
             else:
                 busy_ms = bd["busy_us"] / prof_steps / 1e3
+                results[name]["device_busy_ms_per_step"] = busy_ms
                 emit(f"{label}_profile", config=name, steps=prof_steps,
                      step_ms_under_profiler=prof_ms,
                      device_busy_ms_per_step=busy_ms,
@@ -2710,6 +2753,430 @@ def phase_export(tmp, data, heads, served, query_ms, dev):
     return counts
 
 
+# -- BASELINE config 3 (full PrimeKG) and config 4 (it sampled) -------------
+
+FULL_KG_ARRAYS = ("src", "dst", "t_src", "t_dst", "inv_in_deg", "edge_scale",
+                  "t_edge_scale", "rowptr", "t_rowptr")
+FULL_KG_SIZE = (129375, 30, 4601678, 4609024)
+
+
+def phase_full_kg_graph(repo):
+    """BASELINE config 3's graph, ``primekg_full_like(seed=0, scale=1.0)`` +
+    ``bidirect``, built by the C++ builder of ``native/`` (``use_native=
+    "always"``) and by numpy (``"never"``): every array equal, both build
+    times, the sizes; ``"auto"`` takes the C++ builder at this size.
+    Returns the graph (on the CPU) and its directed edges [E, 3]."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch import native
+    from primekg_rgcn_tpu_torch.data import graph as pgraph
+    from primekg_rgcn_tpu_torch.data import synthetic
+
+    if not native.native_available():
+        raise AssertionError("full_kg_graph: the native graph builder did "
+                             "not build")
+    t0 = time.perf_counter()
+    raw = synthetic.primekg_full_like(seed=0, scale=1.0)
+    src, dst, rel = synthetic.bidirect(raw["src"], raw["dst"], raw["rel"])
+    generate_s = time.perf_counter() - t0
+    n, r = raw["num_nodes"], raw["num_relations"]
+    built, seconds = {}, {}
+    for mode in ("always", "never", "auto"):
+        calls = []
+        real = native.build_rel_graph_native
+        native.build_rel_graph_native = \
+            lambda *a, **k: calls.append(1) or real(*a, **k)
+        try:
+            t0 = time.perf_counter()
+            built[mode] = pgraph.build_rel_graph(src, dst, rel, n, r,
+                                                 use_native=mode)
+            seconds[mode] = time.perf_counter() - t0
+        finally:
+            native.build_rel_graph_native = real
+        if len(calls) != (mode != "never"):
+            raise AssertionError(f"full_kg_graph: use_native={mode!r} made "
+                                 f"{len(calls)} native builds")
+    for mode in ("never", "auto"):
+        for name in FULL_KG_ARRAYS:
+            a, b = getattr(built["always"], name), getattr(built[mode], name)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"full_kg_graph: {name} of the native "
+                                     f"build differs from use_native={mode!r}")
+    g = built["always"]
+    size = (g.num_nodes, g.num_relations, g.num_edges, g.padded_num_edges)
+    if size != FULL_KG_SIZE:
+        raise AssertionError(f"full_kg_graph: size {size}, expected "
+                             f"{FULL_KG_SIZE}")
+    deg = torch.diff(g.rowptr[:, :n + 1].long(), dim=1)
+    buckets = g.bucket_sizes()
+    emit("full_kg_graph", nodes=n, relations=r, edges=g.num_edges,
+         padded_edges=g.padded_num_edges, norm_mode=g.norm_mode,
+         max_in_degree=int(deg.max()), bucket_padded_edges_min=min(buckets),
+         bucket_padded_edges_max=max(buckets),
+         native_library=str(native.library_path().relative_to(repo)),
+         generate_s=generate_s, build_native_s=seconds["always"],
+         build_numpy_s=seconds["never"], build_auto_s=seconds["auto"],
+         arrays_equal=list(FULL_KG_ARRAYS))
+    return g, np.stack([src, dst, rel], 1)
+
+
+def full_kg_candidates(graph, edges, dev, plan, seed=0):
+    """One batch of 1,024 positives and their negatives, as a step draws
+    them, from the first seed from ``seed`` on whose batch fits ``plan``
+    (about one batch in a hundred overflows it at config 3), so that the
+    restricted layer's fast path is the one checked."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
+    from primekg_rgcn_tpu_torch.train import loop
+
+    edges_pad = loop.edges_with_sentinel(edges, dev)
+    for s in range(seed, seed + 10):
+        batch_idx = torch.from_numpy(np.random.default_rng(s).integers(
+            0, edges.shape[0], 1024)).to(dev)
+        gen = torch.Generator(dev).manual_seed(s)
+        cands = loop.sample_candidates(edges_pad, batch_idx, graph.num_nodes,
+                                       1, generator=gen)
+        ns, _, is_dup = pfl.sorted_batch(torch.cat([cands[0], cands[1]]))
+        if bool(pfl.batch_ranges(plan, ns, is_dup)[3]):
+            return cands
+    raise AssertionError("ten batches in a row overflow the plan")
+
+
+def phase_full_kg_grad(graph_cpu, graph, edges, dev):
+    """One config-3 step at full width, dropout off, on given candidates,
+    through B1 on the card: with the batch-restricted final layer ("on") and
+    with the full one ("off"). Losses within 1e-6 relative, every gradient
+    within the ``grad`` criterion (``close_scaled``: rtol 1e-4, atol 1e-4 x
+    the tensor's largest magnitude), 2R = 60 and 4R = 120 B1 launches. The
+    restricted layer on the card against its plain computation on the CPU
+    (the same function on CPU tensors), rows and gradients, at the same
+    criterion. The same steps in bf16: bf16 launches only, the restricted
+    step's gradients within 1e-2 of the largest magnitude of the full bf16
+    step's and within 5e-2 of the float32 restricted step's in norm
+    (``grad_bf16``'s tolerances). Then ``full_kg_overflow``: a plan whose
+    capacities are cut to one group takes the fallback; its loss and
+    gradients equal the full step's, one fallback counted, 120 launches.
+    Returns the largest gradient error of the float32 steps through B1
+    (restricted against full, and the fallback)."""
+    import dataclasses
+
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import ModelConfig
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+    from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
+    from primekg_rgcn_tpu_torch.train import loop
+
+    n, r = graph.num_nodes, graph.num_relations
+    kern = ss.gather_segment_sum
+    cfg = ModelConfig(num_nodes=n, num_relations=r, dropout=0.0)
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    plan = pfl.resolve_final_plan(graph, edges, 1024, 1, seed=42, mode="on")
+    params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    cands = full_kg_candidates(graph, edges, dev, plan)
+
+    def run(run_cfg, final_plan):
+        for _, p in leaves:
+            p.grad = None
+        reset_counts()
+        fallbacks = pfl.final_layer_restricted.fallbacks
+        loss, _ = loop.loss_from_candidates(params, graph, *cands, run_cfg,
+                                            train=True, final_plan=final_plan)
+        loss.backward()
+        torch.cuda.synchronize()
+        return dict(loss=loss.item(),
+                    grads=[p.grad.clone() for _, p in leaves],
+                    launches=kern.launches, launches_bf16=kern.launches_bf16,
+                    fallbacks=pfl.final_layer_restricted.fallbacks
+                    - fallbacks)
+
+    def check_launches(label, run_, want, bf16=False, fallbacks=0):
+        got = (run_["launches"], run_["launches_bf16"], run_["fallbacks"])
+        expect = (want, want if bf16 else 0, fallbacks)
+        if got != expect:
+            raise AssertionError(f"{label}: (B1 launches, bf16 launches, "
+                                 f"fallbacks) {got}, expected {expect}")
+
+    def compare(label, got, want):
+        if abs(got["loss"] - want["loss"]) > 1e-6 * abs(want["loss"]):
+            raise AssertionError(f"{label}: loss {got['loss']} against "
+                                 f"{want['loss']}")
+        per_leaf, max_err = {}, 0.0
+        for (name, _), a, b in zip(leaves, got["grads"], want["grads"]):
+            err = close_scaled(a, b, f"{label}/{name}")
+            max_err = max(max_err, err)
+            per_leaf[name] = {"max_abs_err": err,
+                              "max_abs": float(b.abs().max())}
+        return per_leaf, max_err
+
+    runs = {"on": run(cfg, plan), "off": run(cfg, None)}
+    check_launches("full_kg_grad/on", runs["on"], 2 * r)
+    check_launches("full_kg_grad/off", runs["off"], 4 * r)
+    per_leaf, max_err = compare("full_kg_grad", runs["on"], runs["off"])
+
+    # The restricted layer alone, on the card and on the CPU.
+    enc = params["encoder"]
+    with torch.no_grad():
+        h1 = torch.relu(rgcn_layer_segment(enc["conv1"], enc["node_emb"],
+                                           graph))
+    h1p = torch.cat([h1, h1.new_zeros(1, h1.shape[1])])
+    nodes = torch.cat([cands[0], cands[1]])
+    cot = torch.randn(nodes.numel(), cfg.hidden_dim, device=dev,
+                      generator=torch.Generator(dev).manual_seed(1))
+    plan_cpu = pfl.resolve_final_plan(graph_cpu, edges, 1024, 1, seed=42,
+                                      mode="on")
+    if plan_cpu.e_cap != plan.e_cap:
+        raise AssertionError("full_kg_grad: the CPU plan differs")
+    layer_runs = {}
+    for where, g, pl in (("card", graph, plan), ("cpu", graph_cpu,
+                                                 plan_cpu)):
+        conv2 = {k: v.detach().to(g.src.device).requires_grad_(True)
+                 for k, v in enc["conv2"].items()}
+        x = h1p.detach().to(g.src.device).requires_grad_(True)
+        t0 = time.perf_counter()
+        out = pfl.final_layer_restricted(conv2, x, g, pl,
+                                         nodes.to(g.src.device))
+        out.backward(cot.to(g.src.device))
+        if where == "card":
+            torch.cuda.synchronize()
+        layer_runs[where] = dict(
+            seconds=time.perf_counter() - t0,
+            tensors={"rows": out.detach().cpu(), "h1_pad": x.grad.cpu(),
+                     **{k: v.grad.cpu() for k, v in conv2.items()}})
+    layer_err = {name: {"max_abs_err": close_scaled(
+        layer_runs["card"]["tensors"][name], want,
+        f"full_kg_grad/restricted_layer/{name}"),
+        "max_abs": float(want.abs().max())}
+        for name, want in layer_runs["cpu"]["tensors"].items()}
+
+    # bf16: the restricted and the full step, every B1 launch a bf16 one.
+    runs16 = {"on": run(cfg16, plan), "off": run(cfg16, None)}
+    check_launches("full_kg_grad_bf16/on", runs16["on"], 2 * r, bf16=True)
+    check_launches("full_kg_grad_bf16/off", runs16["off"], 4 * r, bf16=True)
+    if abs(runs16["on"]["loss"] - runs16["off"]["loss"]) > \
+            1e-3 * abs(runs16["off"]["loss"]):
+        raise AssertionError("full_kg_grad_bf16: losses differ")
+    vs_full16, vs_f32 = {}, {}
+    for i, (name, _) in enumerate(leaves):
+        got = runs16["on"]["grads"][i]
+        vs_full16[name] = close_rel(got, runs16["off"]["grads"][i], 1e-2,
+                                    f"full_kg_grad_bf16/{name}")
+        ref = runs["on"]["grads"][i]
+        norm_rel = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+        if norm_rel > 5e-2:
+            raise AssertionError(f"full_kg_grad_bf16/{name}: differs from "
+                                 f"the float32 gradient by {norm_rel:.3g} "
+                                 "in norm, more than 5e-2")
+        vs_f32[name] = norm_rel
+    emit("full_kg_grad", loss_restricted=runs["on"]["loss"],
+         loss_full=runs["off"]["loss"],
+         launches_restricted=runs["on"]["launches"],
+         launches_full=runs["off"]["launches"], e_cap_sum=sum(plan.e_cap),
+         leaves=per_leaf, restricted_layer_vs_cpu=layer_err,
+         restricted_layer_cpu_s=layer_runs["cpu"]["seconds"],
+         bf16=dict(loss_restricted=runs16["on"]["loss"],
+                   loss_full=runs16["off"]["loss"],
+                   launches_restricted=runs16["on"]["launches_bf16"],
+                   launches_full=runs16["off"]["launches_bf16"],
+                   max_rel_err_vs_full_bf16=max(vs_full16.values()),
+                   norm_rel_vs_float32=vs_f32))
+    del runs16
+
+    # The forced overflow: every relation's capacity cut to one group.
+    g_ = plan.group
+    tiny = dataclasses.replace(
+        plan, e_cap=(g_,) * r, cap=torch.full_like(plan.cap, g_),
+        cap_start=torch.arange(r, device=dev) * g_)
+    over = run(cfg, tiny)
+    check_launches("full_kg_overflow", over, 4 * r, fallbacks=1)
+    over_leaf, over_err = compare("full_kg_overflow", over, runs["off"])
+    emit("full_kg_overflow", e_cap=g_, loss=over["loss"],
+         loss_full=runs["off"]["loss"], fallbacks=over["fallbacks"],
+         launches=over["launches"],
+         max_abs_err=max(v["max_abs_err"] for v in over_leaf.values()))
+    return max(max_err, over_err)
+
+
+def phase_full_kg_train(graph, edges, dev, tmp):
+    """Config 3's training step (``train/loop.train_step``, batch 1024, one
+    negative, adam, clip 1.0, dropout 0.5) with ``restrict_final="auto"``,
+    which must resolve to a plan (the ratio printed), float32 and bf16, and
+    with ``"off"``: 3 warm-up and 30 timed steps each, launches asserted
+    (2R and 4R B1 a step, 2R more per fallback), fallbacks, peak memory and
+    a 10-step profile (``phase_train``). Then the restricted layer's own
+    device time against the full final layer's (forward and backward, on
+    one step's inputs), and kernel B2 against ``index_add_`` on that step's
+    segment-sum stream (the grouped rows by their sorted (relation, node)
+    ids), B2 held against it. Returns the runs' figures and the B2 row."""
+    import dataclasses
+
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
+
+    n, r = graph.num_nodes, graph.num_relations
+    cfg = ModelConfig(num_nodes=n, num_relations=r)
+    tcfg = TrainConfig(batch_size=1024)
+    plan = pfl.resolve_final_plan(graph, edges, tcfg.batch_size,
+                                  tcfg.num_neg_samples, seed=tcfg.seed,
+                                  mode=tcfg.restrict_final)
+    forced = plan or pfl.resolve_final_plan(
+        graph, edges, tcfg.batch_size, tcfg.num_neg_samples, seed=tcfg.seed,
+        mode="on")
+    ratio = pfl.edge_ratio(graph, forced)
+    emit("full_kg_plan", restrict_final=tcfg.restrict_final,
+         resolved=plan is not None, edge_ratio=ratio,
+         auto_edge_ratio=pfl.AUTO_EDGE_RATIO, e_cap_sum=sum(forced.e_cap),
+         e_cap=list(forced.e_cap), group=forced.group)
+    if plan is None:
+        raise AssertionError(f"full_kg_train: restrict_final='auto' did not "
+                             f"resolve to a plan (edge ratio {ratio:.3f})")
+    out = {}
+    for label, run_cfg, final_plan, per_step in (
+            ("full_kg_train_auto", cfg, plan, 2 * r),
+            ("full_kg_train_off", cfg, None, 4 * r),
+            ("full_kg_train_auto_bf16",
+             dataclasses.replace(cfg, compute_dtype="bfloat16"), plan,
+             2 * r)):
+        launches, breakdown, figures = phase_train(
+            graph, run_cfg, edges, dev, tmp, steps=30, label=label,
+            final_plan=final_plan, launches_per_step=per_step)
+        out[label] = dict(figures, device_busy_ms_per_step=(
+            breakdown or {}).get("device_busy_ms_per_step"),
+            idle_share=(breakdown or {}).get("idle_share"),
+            idle_share_two_windows=(breakdown or {}).get(
+                "idle_share_two_windows"))
+
+    # The final layer alone: restricted against full, forward + backward.
+    params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    enc = params["encoder"]
+    conv2 = {k: v.requires_grad_(True) for k, v in enc["conv2"].items()}
+    with torch.no_grad():
+        h1 = torch.relu(rgcn_layer_segment(enc["conv1"], enc["node_emb"],
+                                           graph))
+    h1p = torch.cat([h1, h1.new_zeros(1, h1.shape[1])])
+    x_r, x_f = h1p.requires_grad_(True), h1.clone().requires_grad_(True)
+    cands = full_kg_candidates(graph, edges, dev, plan, seed=1)
+    nodes = torch.cat([cands[0], cands[1]])
+    cot = torch.randn(nodes.numel(), cfg.hidden_dim, device=dev,
+                      generator=torch.Generator(dev).manual_seed(2))
+
+    def restricted():
+        pfl.final_layer_restricted(conv2, x_r, graph, plan,
+                                   nodes).backward(cot)
+
+    def full():
+        rgcn_layer_segment(conv2, x_f, graph)[nodes].backward(cot)
+
+    def restricted_forward():
+        with torch.no_grad():
+            pfl.final_layer_restricted(conv2, x_r, graph, plan, nodes)
+
+    layer_t = time_calls({"restricted_fwd_bwd": restricted,
+                          "full_fwd_bwd": full,
+                          "restricted_fwd": restricted_forward})
+    emit("full_kg_final_layer", nodes=nodes.numel(), **layer_t)
+
+    # B2 against index_add_ on the restricted layer's segment-sum stream.
+    ns, _, is_dup = pfl.sorted_batch(nodes)
+    start, deg, off, _ = pfl.batch_ranges(plan, ns, is_dup)
+    seg, src, scale = pfl.enumerate_slots(graph, plan, start, deg, off)
+    with torch.no_grad():
+        grp = pfl.GatherGroupSum.apply(h1p, src, scale, plan.group)
+    seg_g = seg[::plan.group].contiguous()
+    ids = seg_g.to(torch.int32)
+    segs = r * nodes.numel()
+    got = pds.dense_sorted_segment_sum(grp, ids, segs)
+    want = torch.zeros(segs, grp.shape[1], device=dev).index_add(0, seg_g,
+                                                                 grp)
+    torch.cuda.synchronize()
+    err = close_scaled(got, want, "full_kg_train/b2_restricted_stream")
+    t = time_calls({
+        "kernel": lambda: pds.launch(grp, ids, segs),
+        "plain": lambda: pds.dense_sorted_segment_sum_plain(grp, ids, segs),
+        "library": lambda: torch.zeros(segs, grp.shape[1],
+                                       device=dev).index_add(0, seg_g, grp)})
+    b = b2_bound(grp, ids, segs)
+    runs = torch.unique_consecutive(ids, return_counts=True)[1]
+    b2_row = dict(shape="restricted_final_layer_stream", rows=grp.shape[0],
+                  d=grp.shape[1], segments=segs,
+                  real_rows=b["real_rows"], longest_run=int(runs.max()),
+                  runs=int(runs.numel()), **t, max_abs_err=err,
+                  **bound_fields(b))
+    emit("full_kg_b2_restricted_stream", **b2_row)
+    return out, b2_row
+
+
+def phase_full_kg_trainer(graph, edges, dev, tmp):
+    """``Trainer`` for one epoch on the config-3 graph: 46,080 training
+    edges (45 steps of 1,024), 4,096 validation edges, ``restrict_final=
+    "auto"`` (which must resolve to a plan), validation and best, periodic
+    and final checkpoints; B1 launches 2R a step (2R more per fallback) and
+    2R for the validation encode; every loss finite. Returns the counts."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
+    from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
+    from primekg_rgcn_tpu_torch.train import loop
+
+    n, r = graph.num_nodes, graph.num_relations
+    pick = np.random.default_rng(1).permutation(edges.shape[0])
+    train_edges, val_edges = edges[pick[:46080]], edges[pick[46080:50176]]
+    cfg = ModelConfig(num_nodes=n, num_relations=r)
+    tcfg = TrainConfig(epochs=1, batch_size=1024, save_every=1,
+                       restrict_final="auto")
+    out = tmp / "full_kg_trainer"
+    fallbacks = pfl.final_layer_restricted.fallbacks
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = loop.Trainer(cfg, tcfg, graph, graph, train_edges, val_edges,
+                           out, device=dev)
+    setup_s = time.perf_counter() - t0
+    if trainer.final_plan is None:
+        raise AssertionError("full_kg_trainer: restrict_final='auto' did not "
+                             "resolve to a plan")
+    result = trainer.train()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    fallbacks = pfl.final_layer_restricted.fallbacks - fallbacks
+    steps = 45
+    want = {"B1": 2 * r * (steps + fallbacks + 1), "B2": 0, "B3": 0, "B4": 0}
+    if counts != want:
+        raise AssertionError(f"full_kg_trainer: launches {counts}, expected "
+                             f"{want} ({fallbacks} fallbacks)")
+    hist = result["history"]
+    losses = hist["train_losses"] + hist["val_losses"]
+    if len(hist["train_losses"]) != 1 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"full_kg_trainer: losses {losses}")
+    files = ("models/best_model.pt", "models/final_model.pt",
+             "checkpoints/checkpoint_epoch_1.pt")
+    missing = [f for f in files if not (out / f).exists()]
+    if missing:
+        raise AssertionError(f"full_kg_trainer: missing {missing}")
+    emit("full_kg_trainer", train_edges=len(train_edges),
+         val_edges=len(val_edges), steps=steps, fallbacks=fallbacks,
+         launches=counts, train_loss=hist["train_losses"][0],
+         val_loss=hist["val_losses"][0], epoch_s=result["epoch_times_s"][0],
+         setup_s=setup_s, seconds=seconds,
+         train_edges_per_s=len(train_edges) / result["epoch_times_s"][0],
+         e_cap_sum=sum(trainer.final_plan.e_cap), checkpoints=list(files))
+    return counts
+
+
 def main():
     import torch
 
@@ -2724,10 +3191,12 @@ def main():
 
     import numpy as np
 
+    from primekg_rgcn_tpu_torch import native
     from primekg_rgcn_tpu_torch.config import ModelConfig
     from primekg_rgcn_tpu_torch.data import artifacts, synthetic
     from primekg_rgcn_tpu_torch.evaluate import predict_cli
     from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
     from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
     from primekg_rgcn_tpu_torch.ops.cuda import halo
     from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
@@ -2758,16 +3227,21 @@ def main():
          count=torch.cuda.device_count(), nvidia_smi=card)
 
     # -- 2. build -----------------------------------------------------------
-    # One nvcc per kernel source, all started together.
+    # One nvcc per kernel source, all started together, and g++ for the
+    # graph builder beside them.
     t0 = time.perf_counter()
     libraries = [ss.LIBRARY, ss.LIBRARY_BF16, pds.LIBRARY, pwf.LIBRARY,
                  halo.LIBRARY]
-    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(libraries) + 1) as pool:
+        graph_builder = pool.submit(native.native_available)
         built = list(pool.map(lambda lib: lib.build(verbose=True), libraries))
+        if not graph_builder.result():
+            raise AssertionError("the native graph builder did not build")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          libraries={str(path.relative_to(repo)): [
              ln.strip() for ln in out.splitlines()
-             if "registers" in ln or "spill" in ln] for path, out in built})
+             if "registers" in ln or "spill" in ln] for path, out in built},
+         graph_builder=str(native.library_path().relative_to(repo)))
 
     # -- 3. kernel vs plain on the card --------------------------------------
     raw = synthetic.primekg_like(seed=0, scale=1.0)
@@ -3092,8 +3566,21 @@ def main():
                                f32_run)
     del f32_run
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        train_launches, _ = phase_train(graph, cfg, edges, dev, Path(tmp))
-        train16_launches, _ = phase_train(graph, cfg16, edges, dev, Path(tmp))
+        train_launches, _, _ = phase_train(graph, cfg, edges, dev, Path(tmp))
+        train16_launches, _, _ = phase_train(graph, cfg16, edges, dev,
+                                             Path(tmp))
+        # The batch-restricted final layer forced on at the bench.py
+        # graph's edge ratio, where "auto" leaves it off: one side of the
+        # break-even that AUTO_EDGE_RATIO stands for.
+        bench_plan = pfl.resolve_final_plan(graph, edges, 1024, 1, seed=42,
+                                            mode="on")
+        emit("train_restricted_plan", edge_ratio=pfl.edge_ratio(
+            graph, bench_plan), e_cap_sum=sum(bench_plan.e_cap),
+            auto_resolves=pfl.resolve_final_plan(
+                graph, edges, 1024, 1, seed=42) is not None)
+        restricted_launches, _, _ = phase_train(
+            graph, cfg, edges, dev, Path(tmp), label="train_restricted_on",
+            final_plan=bench_plan, launches_per_step=6)
         cli_launches = phase_train_cli(Path(tmp))
         cli_eval = {"train_cli": eval_cli_after(Path(tmp) / "train_cli",
                                                 "train_cli")}
@@ -3155,6 +3642,20 @@ def main():
         export_counts = phase_export(Path(tmp), node_data, heads, served,
                                      query_ms, dev)
 
+        # -- 24-28. BASELINE configs 3 and 4: full PrimeKG ----------------
+        g3_cpu, edges3 = phase_full_kg_graph(repo)
+        g3 = g3_cpu.to(dev)
+        cfg3 = ModelConfig(num_nodes=g3.num_nodes,
+                           num_relations=g3.num_relations)
+        kg_grad_err = phase_full_kg_grad(g3_cpu, g3, edges3, dev)
+        kg_train, kg_b2 = phase_full_kg_train(g3, edges3, dev, Path(tmp))
+        kg_trainer = phase_full_kg_trainer(g3, edges3, dev, Path(tmp))
+        kg_sgrad_err = phase_sampled_grad(g3, cfg3, edges3, dev,
+                                          label="full_kg_sampled_grad")
+        kg_sampled, kg_sampled_counts = phase_sampled_train(
+            g3, cfg3, edges3, dev, Path(tmp), configs=("block/slim",),
+            label="full_kg_sampled")
+
     # -- 23. summary --------------------------------------------------------
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -3180,9 +3681,17 @@ def main():
                              "analysis": analysis_counts["B1"],
                              "export": export_counts["B1"],
                              "eval_after_cli": {k: v["B1"] for k, v in
-                                                cli_eval.items()}},
+                                                cli_eval.items()},
+                             "full_kg_train": {
+                                 k: v["launches"]
+                                 for k, v in kg_train.items()},
+                             "full_kg_trainer": kg_trainer["B1"],
+                             "train_restricted_on": restricted_launches},
         "launches_per_step": {"forward": 6, "backward": 6},
-        "max_abs_err": max(max_err, bwd_err, grad_err, ngrad_err),
+        "launches_per_step_full_kg": {
+            k: v["launches_per_step"] for k, v in kg_train.items()},
+        "max_abs_err": max(max_err, bwd_err, grad_err, ngrad_err,
+                           kg_grad_err),
         "ms": total(main_rows, "kernel_ms"),
         "call_ms": total(main_rows, "kernel_call_ms"),
         "wrapper_call_ms": total(main_rows, "wrapper_call_ms"),
@@ -3234,9 +3743,10 @@ def main():
         "launches_by_path": {
             "sampled_train": {k: v["launches"]["B2"]
                               for k, v in sampled.items()},
-            "sampled_cli": {k: v["B2"] for k, v in scli_launches.items()}},
+            "sampled_cli": {k: v["B2"] for k, v in scli_launches.items()},
+            "full_kg_sampled": kg_sampled_counts["B2"]},
         "launches_per_step": 1,
-        "max_abs_err": max(b2_err, sgrad_err),
+        "max_abs_err": max(b2_err, sgrad_err, kg_sgrad_err),
         "ms": b2_rows[0]["kernel_ms"],
         "call_ms": b2_rows[0]["kernel_call_ms"],
         "plain_ms": b2_rows[0]["plain_ms"],
@@ -3247,6 +3757,10 @@ def main():
         "dedup_shape_plain_ms": b2_rows[1]["plain_ms"],
         "dedup_shape_bound_ms": b2_rows[1]["bound_us"] / 1e3,
         "dedup_shape_library_ms": b2_rows[1]["library_ms"],
+        "restricted_stream": {
+            k: kg_b2[k] for k in ("rows", "d", "segments", "kernel_ms",
+                                  "plain_ms", "library_ms", "bound_us",
+                                  "bound_by", "max_abs_err")},
         "bf16": {
             "ms": b2_16_rows[0]["kernel_ms"],
             "call_ms": b2_16_rows[0]["kernel_call_ms"],
@@ -3265,7 +3779,10 @@ def main():
                    "the upcast included"},
         "per": "one block-mode step's launch in the identity backward "
                "(L = %d, D = %d, N = %d); library_ms is index_add_; "
-               "launches is the sampled_train block/slim count. "
+               "launches is the sampled_train block/slim count; "
+               "restricted_stream: B2 timed, not used, on one config-3 "
+               "step's restricted final-layer segment-sum stream, which "
+               "the port sums with index_add (library_ms). "
                % (b2_rows[0]["rows"], b2_rows[0]["d"],
                   b2_rows[0]["segments"]) + TIMES}, {
         "name": "window_rows_fetch", "id": "B3", "route": "cuda",
@@ -3274,7 +3791,8 @@ def main():
         "launches": main_counts["B3"],
         "launches_by_path": {
             "sampled_train": {k: v["launches"]["B3"]
-                              for k, v in sampled.items()}},
+                              for k, v in sampled.items()},
+            "full_kg_sampled": kg_sampled_counts["B3"]},
         "launches_per_step": 2,
         "max_abs_err": 0,
         "ms": total(b3_rows[:2], "kernel_ms"),

@@ -64,6 +64,11 @@ class TrainConfig:
     save_every: int = 10
     early_stopping: int = 0
     seed: int = 42
+    # The batch-restricted final layer (ops/rgcn_final_layer.py), the JAX
+    # package's tri-state: "auto"/None takes it when the graph's edges are
+    # >= AUTO_EDGE_RATIO x the plan's capacity, "on"/True always,
+    # "off"/False never. Read by the full-graph trainer only.
+    restrict_final: Any = "auto"
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

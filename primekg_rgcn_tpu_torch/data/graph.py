@@ -15,7 +15,8 @@ Besides the arrays of the JAX package's ``RelGraph`` (kept bit for bit), the
 graph carries each bucket's CSR ``rowptr`` over its N+1 destination rows,
 the schedule of the CUDA gather + segment-sum kernel in the forward, and
 the transpose CSR ``t_rowptr`` over its N+1 source rows, the schedule of the
-same kernel in the backward.
+same kernel in the backward. Large graphs are built by the C++ builder of
+``native/`` (``use_native``), bit for bit as numpy builds them.
 """
 
 from __future__ import annotations
@@ -106,6 +107,11 @@ def _pick_norm(norm: str, num_relations: int, num_nodes: int,
     return "edge" if dense_size > 4 * total_pad else "dense"
 
 
+# Edge count from which ``use_native="auto"`` takes the C++ builder, as in
+# the JAX package.
+NATIVE_MIN_EDGES = 1_000_000
+
+
 def build_rel_graph(
     src: np.ndarray,
     dst: np.ndarray,
@@ -114,6 +120,7 @@ def build_rel_graph(
     num_relations: int,
     *,
     bucket_pad_multiple: int = 512,
+    use_native: str = "auto",
     norm: str = "auto",
 ) -> RelGraph:
     """Build a RelGraph (on the CPU) from raw COO edge arrays.
@@ -123,6 +130,10 @@ def build_rel_graph(
     Args:
         bucket_pad_multiple: each relation bucket is padded up to a multiple
             of this (at least one multiple).
+        use_native: "auto" (the C++ builder of ``native/`` from
+            ``NATIVE_MIN_EDGES`` input edges, when it can be built, else
+            numpy), "always" (the C++ builder, raising when it cannot be
+            built) or "never" (numpy). Both give bit-identical arrays.
         norm: "dense", "edge", or "auto" (see the module docstring).
     """
     src = np.asarray(src, dtype=np.int64).ravel()
@@ -131,13 +142,28 @@ def build_rel_graph(
     if not (src.shape == dst.shape == rel.shape):
         raise ValueError(
             f"edge array shapes differ: {src.shape}, {dst.shape}, {rel.shape}")
+    if use_native not in ("auto", "always", "never"):
+        raise ValueError(f"unknown use_native {use_native!r}")
 
-    valid = (src >= 0) & (src < num_nodes) & (dst >= 0) & (dst < num_nodes)
-    valid &= (rel >= 0) & (rel < num_relations)
-    src, dst, rel = src[valid], dst[valid], rel[valid]
-    num_edges = int(src.shape[0])
+    lib = None
+    if use_native == "always" or (use_native == "auto"
+                                  and src.shape[0] >= NATIVE_MIN_EDGES):
+        from primekg_rgcn_tpu_torch import native
 
-    counts = np.bincount(rel, minlength=num_relations)
+        lib = native.get_lib()
+        if lib is None and use_native == "always":
+            raise RuntimeError("native graph builder unavailable (no C++ "
+                               f"compiler {native.COMPILER!r} or a failed "
+                               "build; see the log)")
+    if lib is not None:
+        counts, num_edges = native.count_buckets(lib, src, dst, rel,
+                                                 num_nodes, num_relations)
+    else:
+        valid = ((src >= 0) & (src < num_nodes) & (dst >= 0)
+                 & (dst < num_nodes) & (rel >= 0) & (rel < num_relations))
+        src, dst, rel = src[valid], dst[valid], rel[valid]
+        num_edges = int(src.shape[0])
+        counts = np.bincount(rel, minlength=num_relations)
     caps = [max(_round_up(int(c), bucket_pad_multiple), bucket_pad_multiple)
             for c in counts]
 
@@ -147,6 +173,39 @@ def build_rel_graph(
     for c in caps:
         offsets.append(offsets[-1] + int(c))
 
+    if lib is not None:
+        arrays = native.build_rel_graph_native(
+            lib, src, dst, rel, num_nodes, num_relations, caps,
+            norm_mode=norm_mode)
+    else:
+        arrays = _build_numpy(src, dst, rel, num_nodes, num_relations,
+                              counts, offsets, norm_mode)
+
+    # Per-bucket CSR row pointers over the dst-sorted and the src-sorted
+    # (transpose) orders; row N+1's pointer is the bucket's end.
+    rows = np.arange(num_nodes + 2)
+    rowptr = np.zeros((num_relations, num_nodes + 2), dtype=np.int32)
+    t_rowptr = np.zeros((num_relations, num_nodes + 2), dtype=np.int32)
+    for r in range(num_relations):
+        s, e = offsets[r], offsets[r + 1]
+        rowptr[r] = np.searchsorted(arrays["dst"][s:e], rows)
+        t_rowptr[r] = np.searchsorted(arrays["t_src"][s:e], rows)
+
+    return RelGraph(
+        **{k: torch.from_numpy(v) for k, v in arrays.items()},
+        rowptr=torch.from_numpy(rowptr),
+        t_rowptr=torch.from_numpy(t_rowptr),
+        rel_offsets=tuple(offsets),
+        num_nodes=int(num_nodes),
+        num_relations=int(num_relations),
+        num_edges=num_edges,
+    )
+
+
+def _build_numpy(src, dst, rel, num_nodes: int, num_relations: int, counts,
+                 offsets, norm_mode: str):
+    """The numpy builder of :func:`build_rel_graph` over valid edges."""
+    total = offsets[-1]
     # Sort by (relation, dst) so each bucket is contiguous and dst-sorted.
     order = np.lexsort((dst, rel))
     src, dst, rel = src[order], dst[order], rel[order]
@@ -156,8 +215,6 @@ def build_rel_graph(
     dst_pad = np.full(total, sentinel, dtype=np.int32)
     t_src_pad = np.full(total, sentinel, dtype=np.int32)
     t_dst_pad = np.full(total, sentinel, dtype=np.int32)
-    rowptr = np.zeros((num_relations, num_nodes + 2), dtype=np.int32)
-    t_rowptr = np.zeros((num_relations, num_nodes + 2), dtype=np.int32)
     if norm_mode == "dense":
         inv_deg = np.zeros((num_relations, num_nodes + 1), dtype=np.float32)
         edge_scale = np.zeros((0,), np.float32)
@@ -179,9 +236,6 @@ def build_rel_graph(
         t_order = np.argsort(bsrc, kind="stable")
         t_src_pad[start : start + c] = bsrc[t_order]
         t_dst_pad[start : start + c] = bdst[t_order]
-        rows = np.arange(num_nodes + 2)
-        rowptr[r] = np.searchsorted(dst_pad[start : offsets[r + 1]], rows)
-        t_rowptr[r] = np.searchsorted(t_src_pad[start : offsets[r + 1]], rows)
 
         deg = np.bincount(bdst, minlength=num_nodes + 1)
         if norm_mode == "dense":
@@ -197,21 +251,9 @@ def build_rel_graph(
             t_edge_scale[start : start + c] = inv[bdst[t_order]]
         in_start += c
 
-    return RelGraph(
-        src=torch.from_numpy(src_pad),
-        dst=torch.from_numpy(dst_pad),
-        t_src=torch.from_numpy(t_src_pad),
-        t_dst=torch.from_numpy(t_dst_pad),
-        inv_in_deg=torch.from_numpy(inv_deg),
-        edge_scale=torch.from_numpy(edge_scale),
-        t_edge_scale=torch.from_numpy(t_edge_scale),
-        rowptr=torch.from_numpy(rowptr),
-        t_rowptr=torch.from_numpy(t_rowptr),
-        rel_offsets=tuple(offsets),
-        num_nodes=int(num_nodes),
-        num_relations=int(num_relations),
-        num_edges=num_edges,
-    )
+    return {"src": src_pad, "dst": dst_pad, "t_src": t_src_pad,
+            "t_dst": t_dst_pad, "inv_in_deg": inv_deg,
+            "edge_scale": edge_scale, "t_edge_scale": t_edge_scale}
 
 
 def edge_arrays_from_graph(graph: RelGraph) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -4,7 +4,9 @@ Numpy code kept draw for draw equal to the JAX package's generator, so the
 same seed gives byte-identical edges in both packages. Statistics follow the
 reference's processed PrimeKG: 30,926 nodes (disease < drug < gene in id
 order) and 854,278 undirected rows over three relations, each stored as a
-forward and a reverse directed edge.
+forward and a reverse directed edge. ``primekg_full_like`` draws the
+unfiltered PrimeKG's shape instead (BASELINE.json config 3): 129,375 nodes
+and 30 relations.
 """
 
 from __future__ import annotations
@@ -109,6 +111,95 @@ def primekg_like(seed: int = 0, scale: float = 1.0) -> Dict[str, np.ndarray]:
         "type_ranges": {"disease": disease, "drug": drug, "gene/protein": gene},
     }
 
+
+
+# Full (unfiltered) PrimeKG stand-in, BASELINE.json config 3: 129,375 nodes
+# over ten node types and 30 relation buckets of 200 to 800,000 undirected
+# rows (~2.26M, ~4.6M directed after bidirect), with the same power-law
+# endpoint skew as primekg_like. Type sizes and row counts follow the public
+# PrimeKG census; the table is the JAX package's, so both packages draw the
+# same graph from a seed.
+PRIMEKG_FULL_TYPE_SIZES = {
+    "gene/protein": 27671, "drug": 7957, "disease": 17080,
+    "anatomy": 14035, "biological_process": 28642,
+    "molecular_function": 11169, "cellular_component": 4176,
+    "pathway": 2516, "effect/phenotype": 15311, "exposure": 818,
+}
+PRIMEKG_FULL_RELATIONS = (
+    # (name, src_type, dst_type, undirected rows)
+    ("anatomy_protein_present", "anatomy", "gene/protein", 800_000),
+    ("protein_protein", "gene/protein", "gene/protein", 321_075),
+    ("drug_drug", "drug", "drug", 300_000),
+    ("bioprocess_protein", "biological_process", "gene/protein", 180_000),
+    ("cellcomp_protein", "cellular_component", "gene/protein", 90_000),
+    ("disease_phenotype_positive", "disease", "effect/phenotype", 90_000),
+    ("disease_protein", "disease", "gene/protein", 80_411),
+    ("molfunc_protein", "molecular_function", "gene/protein", 70_000),
+    ("bioprocess_bioprocess", "biological_process", "biological_process",
+     60_000),
+    ("drug_effect", "drug", "effect/phenotype", 50_000),
+    ("pathway_protein", "pathway", "gene/protein", 40_000),
+    ("disease_disease", "disease", "disease", 35_000),
+    ("anatomy_anatomy", "anatomy", "anatomy", 30_000),
+    ("contraindication", "drug", "disease", 30_000),
+    ("drug_protein", "drug", "gene/protein", 25_653),
+    ("phenotype_phenotype", "effect/phenotype", "effect/phenotype", 25_000),
+    ("anatomy_protein_absent", "anatomy", "gene/protein", 20_000),
+    ("indication", "drug", "disease", 18_000),
+    ("molfunc_molfunc", "molecular_function", "molecular_function", 13_000),
+    ("phenotype_protein", "effect/phenotype", "gene/protein", 6_000),
+    ("cellcomp_cellcomp", "cellular_component", "cellular_component", 4_000),
+    ("off_label_use", "drug", "disease", 2_500),
+    ("pathway_pathway", "pathway", "pathway", 2_500),
+    ("exposure_disease", "exposure", "disease", 2_000),
+    ("exposure_exposure", "exposure", "exposure", 1_500),
+    ("exposure_bioprocess", "exposure", "biological_process", 1_500),
+    ("exposure_protein", "exposure", "gene/protein", 1_200),
+    ("disease_phenotype_negative", "disease", "effect/phenotype", 1_000),
+    ("exposure_molfunc", "exposure", "molecular_function", 300),
+    ("exposure_cellcomp", "exposure", "cellular_component", 200),
+)
+
+
+def primekg_full_like(seed: int = 0, scale: float = 1.0,
+                      *, alpha: float = ALPHA) -> Dict[str, np.ndarray]:
+    """Full-PrimeKG-shaped graph: 129,375*scale nodes, 30 relations,
+    ~2.26M*scale^2 undirected rows (~4.5M*scale^2 directed after
+    :func:`bidirect`).
+
+    Returns what :func:`primekg_like` returns, plus ``relation_names``;
+    relation ids follow sorted(name) order and node types are laid out in
+    sorted type order.
+    """
+    rng = np.random.default_rng(seed)
+    ranges: Dict[str, Tuple[int, int]] = {}
+    lo = 0
+    for t in sorted(PRIMEKG_FULL_TYPE_SIZES):
+        n_t = max(int(PRIMEKG_FULL_TYPE_SIZES[t] * scale), 4)
+        ranges[t] = (lo, lo + n_t)
+        lo += n_t
+    num_nodes = lo
+
+    names = sorted(r[0] for r in PRIMEKG_FULL_RELATIONS)
+    rel_id = {n: i for i, n in enumerate(names)}
+    rows_src, rows_dst, rows_rel = [], [], []
+    for name, st, dt, rows in PRIMEKG_FULL_RELATIONS:
+        n_rows = max(int(rows * scale * scale), 8)
+        rows_src.append(
+            _sample_powerlaw_endpoints(rng, n_rows, *ranges[st], alpha))
+        rows_dst.append(
+            _sample_powerlaw_endpoints(rng, n_rows, *ranges[dt], alpha))
+        rows_rel.append(np.full(n_rows, rel_id[name], dtype=np.int64))
+
+    return {
+        "src": np.concatenate(rows_src),
+        "dst": np.concatenate(rows_dst),
+        "rel": np.concatenate(rows_rel),
+        "num_nodes": num_nodes,
+        "num_relations": len(names),
+        "relation_names": tuple(names),
+        "type_ranges": ranges,
+    }
 
 def bidirect(src: np.ndarray, dst: np.ndarray, rel: np.ndarray
              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -33,6 +33,8 @@ from primekg_rgcn_tpu_torch.data.sampling import (SampledBatch,
                                                   block_aggregate)
 from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
                                                  distmult_score_all_tails)
+from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import (
+    FinalLayerPlan, final_layer_restricted)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 
 Params = Dict[str, Any]
@@ -147,7 +149,8 @@ def model_apply(params: Params, graph: RelGraph, heads, tails, rels,
                 generator: Optional[torch.Generator] = None,
                 enc_mask: Optional[torch.Tensor] = None,
                 dec_mask: Optional[torch.Tensor] = None,
-                layer_fn=rgcn_layer_segment) -> torch.Tensor:
+                layer_fn=rgcn_layer_segment,
+                final_plan: Optional[FinalLayerPlan] = None) -> torch.Tensor:
     """Training forward: encode the whole graph, score a triple batch [B].
 
     The encoder runs over the entire message-passing graph for every batch
@@ -155,15 +158,34 @@ def model_apply(params: Params, graph: RelGraph, heads, tails, rels,
     decoder dropout (on the gathered relation embeddings) apply, with masks
     drawn from ``generator`` (encoder first) or given as
     ``enc_mask``/``dec_mask``.
+
+    ``final_plan`` (``ops/rgcn_final_layer.plan_final_layer``) computes the
+    final conv at the heads' and tails' rows only, with the same values and
+    gradients; layer 1 (through ``layer_fn``) and its dropout run as in
+    :func:`encoder_apply`.
     """
-    node_emb = encoder_apply(params, graph, cfg, train=train,
-                             generator=generator, mask=enc_mask,
-                             layer_fn=layer_fn)
+    if final_plan is not None:
+        enc = params["encoder"]
+        cdt = compute_dtype(cfg)
+        x = torch.relu(layer_fn(enc["conv1"], enc["node_emb"], graph,
+                                compute_dtype=cdt))
+        if train and cfg.dropout > 0.0:
+            x = dropout(x, cfg.dropout, generator=generator, mask=enc_mask)
+        x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])], dim=0)
+        out = final_layer_restricted(enc["conv2"], x_pad, graph, final_plan,
+                                     torch.cat([heads, tails]),
+                                     compute_dtype=cdt)
+        head_emb, tail_emb = out[: heads.shape[0]], out[heads.shape[0]:]
+    else:
+        node_emb = encoder_apply(params, graph, cfg, train=train,
+                                 generator=generator, mask=enc_mask,
+                                 layer_fn=layer_fn)
+        head_emb, tail_emb = node_emb[heads], node_emb[tails]
     rel_emb = params["decoder"]["rel_emb"][rels]
     if train and cfg.decoder_dropout > 0.0:
         rel_emb = dropout(rel_emb, cfg.decoder_dropout, generator=generator,
                           mask=dec_mask)
-    return distmult_score(node_emb[heads], node_emb[tails], rel_emb)
+    return distmult_score(head_emb, tail_emb, rel_emb)
 
 
 def predict(params: Params, graph: RelGraph, heads, tails, rels,

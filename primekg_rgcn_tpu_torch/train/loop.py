@@ -6,7 +6,10 @@ jitted ``lax.scan``; here PyTorch runs eagerly, so an epoch is a Python loop
 of steps, but what the JAX host sees is kept: shuffling, negative sampling,
 the full-graph encode, the BCE loss, gradient accumulation, clipping and
 the optimizer update all stay on the device, and the host reads one
-(loss, accuracy) pair per epoch, with no ``.item()`` per step.
+(loss, accuracy) pair per epoch, with no ``.item()`` per step. The one
+exception is the batch-restricted final layer (``final_plan``): it reads
+its overflow flag once per step, where the JAX package branches on the
+device.
 
 Semantics kept from the JAX package:
 
@@ -21,7 +24,10 @@ Semantics kept from the JAX package:
   decoupled (``torch.optim.AdamW``), sgd is plain; eps 1e-8, betas
   (0.9, 0.999), as optax's defaults;
 - validation encodes the full graph once and scores every batch against the
-  cached embeddings.
+  cached embeddings;
+- ``TrainConfig.restrict_final`` resolves the batch-restricted final layer's
+  plan once per trainer (``ops/rgcn_final_layer.resolve_final_plan``); the
+  sampled and node-sharded trainers and validation do not use it.
 
 Random numbers come from two explicit generators: one on the CPU (the
 initial parameters and each epoch's permutation, the same on any device for
@@ -46,6 +52,8 @@ from primekg_rgcn_tpu_torch.models.rgcn import (Params, encoder_apply,
                                                 init_params, model_apply,
                                                 param_leaves)
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
+from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import (FinalLayerPlan,
+                                                         resolve_final_plan)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 from primekg_rgcn_tpu_torch.train import checkpoint as ckpt_lib
 from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
@@ -122,12 +130,15 @@ def loss_from_candidates(params: Params, graph: RelGraph, heads, tails, rels,
                          generator: Optional[torch.Generator] = None,
                          enc_mask: Optional[torch.Tensor] = None,
                          dec_mask: Optional[torch.Tensor] = None,
-                         layer_fn=rgcn_layer_segment):
+                         layer_fn=rgcn_layer_segment,
+                         final_plan: Optional[FinalLayerPlan] = None):
     """Masked BCE-with-logits loss of one candidate batch through the
-    full-graph model: (loss_mean, (correct, count)), all 0-d tensors."""
+    full-graph model (the final layer batch-restricted with a
+    ``final_plan``): (loss_mean, (correct, count)), all 0-d tensors."""
     scores = model_apply(params, graph, heads, tails, rels, model_cfg,
                          train=train, generator=generator, enc_mask=enc_mask,
-                         dec_mask=dec_mask, layer_fn=layer_fn)
+                         dec_mask=dec_mask, layer_fn=layer_fn,
+                         final_plan=final_plan)
     loss_sum, correct, count = bce_stats(scores, labels, weights)
     return loss_sum / count.clamp(min=1.0), (correct, count)
 
@@ -135,7 +146,8 @@ def loss_from_candidates(params: Params, graph: RelGraph, heads, tails, rels,
 def update_step(params: Params, optimizer: torch.optim.Optimizer,
                 graph: RelGraph, micro_batches: Sequence[Candidates],
                 model_cfg: ModelConfig, train_cfg: TrainConfig, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                final_plan: Optional[FinalLayerPlan] = None) -> torch.Tensor:
     """One optimizer update over the micro-batches: the mean of their loss
     gradients, clipped by global norm, then the optimizer step. The
     gradient that was applied stays in each leaf's ``.grad``.
@@ -147,7 +159,7 @@ def update_step(params: Params, optimizer: torch.optim.Optimizer,
     for cands in micro_batches:
         loss, (correct, count) = loss_from_candidates(
             params, graph, *cands, model_cfg, train=True,
-            generator=generator)
+            generator=generator, final_plan=final_plan)
         loss.backward()
         stats += torch.stack([loss.detach() * count, correct, count])
     apply_update(optimizer, train_cfg, accum=len(micro_batches))
@@ -173,16 +185,18 @@ def train_step(params: Params, optimizer: torch.optim.Optimizer,
                graph: RelGraph, edges_pad: torch.Tensor,
                batch_indices: torch.Tensor, model_cfg: ModelConfig,
                train_cfg: TrainConfig, *,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               final_plan: Optional[FinalLayerPlan] = None) -> torch.Tensor:
     """The step ``bench.py`` times: candidates for each micro-batch row of
     ``batch_indices`` [accum, B] (indices into ``edges_pad``), then
-    :func:`update_step`. Returns its stats tensor; nothing is read back to
-    the host."""
+    :func:`update_step`. Returns its stats tensor. Without a
+    ``final_plan`` nothing is read back to the host; with one, the
+    restricted layer reads its overflow flag once per micro-batch."""
     micro = [sample_candidates(edges_pad, bi, graph.num_nodes,
                                train_cfg.num_neg_samples, generator=generator)
              for bi in batch_indices]
     return update_step(params, optimizer, graph, micro, model_cfg, train_cfg,
-                       generator=generator)
+                       generator=generator, final_plan=final_plan)
 
 
 def build_train_epoch(graph: RelGraph, edges: np.ndarray,
@@ -191,7 +205,12 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
     """One training epoch over ``edges`` ([E, 3] real train edges) on the
     graph's device. Returns ``epoch_fn(host_gen, device_gen) -> (loss,
     acc)``, 0-d tensors on the device; the permutation comes from
-    ``host_gen`` (CPU), negatives and dropout from ``device_gen``."""
+    ``host_gen`` (CPU), negatives and dropout from ``device_gen``.
+
+    The batch-restricted final layer's plan is resolved here, once, per
+    ``train_cfg.restrict_final`` (seeded by ``train_cfg.seed``, as the JAX
+    package plans it), and kept as ``epoch_fn.final_plan`` (None when the
+    full layer runs)."""
     device = graph.src.device
     num_edges = int(edges.shape[0])
     b = train_cfg.batch_size
@@ -200,6 +219,10 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
     n_updates = -(-n_steps // accum)
     pad = n_updates * accum * b - num_edges
     edges_pad = edges_with_sentinel(edges, device)
+    final_plan = resolve_final_plan(graph, edges, b,
+                                    train_cfg.num_neg_samples,
+                                    seed=train_cfg.seed,
+                                    mode=train_cfg.restrict_final)
 
     def epoch_fn(host_gen: torch.Generator, device_gen: torch.Generator):
         perm = torch.randperm(num_edges, generator=host_gen)
@@ -209,9 +232,10 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
         for u in range(n_updates):
             stats += train_step(params, optimizer, graph, edges_pad,
                                 batch_indices[u], model_cfg, train_cfg,
-                                generator=device_gen)
+                                generator=device_gen, final_plan=final_plan)
         return stats[0] / stats[2], stats[1] / stats[2]
 
+    epoch_fn.final_plan = final_plan
     return epoch_fn
 
 
@@ -278,6 +302,7 @@ class Trainer:
         self.train_epoch_fn = build_train_epoch(
             train_graph.to(self.device), train_edges, model_cfg, train_cfg,
             self.params, self.optimizer)
+        self.final_plan = self.train_epoch_fn.final_plan
         self.eval_epoch_fn = build_eval_epoch(
             full_graph.to(self.device), val_edges, model_cfg, train_cfg)
 

@@ -30,7 +30,8 @@ bad = sorted(m for m in sys.modules
                                     "primekg_rgcn_tpu"))
 absent = sorted({m.split(".")[0] for m in sys.modules} & {
     "pandas", "sklearn", "matplotlib", "networkx"})
-print(json.dumps({"modules": len(names), "bad": bad, "absent": absent}))
+print(json.dumps({"modules": len(names), "names": names, "bad": bad,
+                  "absent": absent}))
 """
 # An import statement at a module's top level (column 0).
 TOP_LEVEL_HOST_ONLY = re.compile(
@@ -45,6 +46,22 @@ def test_importing_every_module_loads_no_jax():
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     assert seen["modules"] >= 15
     assert seen["bad"] == []
+
+
+def test_the_import_walk_covers_the_final_layer_and_the_native_builder():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("ops.rgcn_final_layer", "native", "data.synthetic",
+                 "data.graph"):
+        assert f"primekg_rgcn_tpu_torch.{name}" in seen["names"]
+    assert seen["bad"] == []
+    # The C++ builder is the port's own copy, built into the port's
+    # _build directory, not the JAX package's.
+    binding = (PORT / "native" / "__init__.py").read_text()
+    assert (PORT / "native" / "graphbuild.cpp").exists()
+    assert "primekg_rgcn_tpu/" not in binding
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():

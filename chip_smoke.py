@@ -7,8 +7,9 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: compiles the four kernels under ``primekg_rgcn_tpu_torch/csrc/``
-   with nvcc (sm_90a), one process per library, all at once (B1's source
-   twice: its float32 and its bf16 entry, each with its kernel instances).
+   with nvcc (sm_90a), one process per library, all at once (B1's and B2's
+   sources twice each: their float32 and bf16 entries, each with its
+   kernel instances).
 3. kernel: the kernel against its plain PyTorch version on the card, at the
    six (relation bucket, D) shapes one encode of the full default model
    gives it (with those inputs), in edge-norm mode, at several widths and on
@@ -51,23 +52,27 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    from its final model and ``evaluate.cli.main`` on it (eval_cli: AUC-ROC
    and MRR finite).
 9. kernel_b2: kernel B2 (``csrc/dense_segment_sum.cu``) against its plain
-   version on the real identity-backward stream of one block-mode step
-   (774,400 rows, D = 64, N = 30,926), at the outer layer's dedup shape
-   (135,168 rows, D = 128) and on edge cases; kernel, plain and
-   ``index_add_`` times beside the bound. Children hand B2 unsorted ids and
-   B3 a window past its table; both must stop on the device-side assert.
+   version on the two real streams of one block-mode step, recorded from
+   the step: the identity backward's (774,400 rows, D = 64, N = 30,926)
+   and the outer layer's dedup backward's (135,168 rows, D = 128), and on
+   edge cases, among them its row split's (a run of 250,000 rows, runs cut
+   at every piece boundary, a leading gap, one real row then sentinels, an
+   output of N·D just under 2^31); two launches ``torch.equal`` at each;
+   kernel, plain and ``index_add_`` times beside the bound. Children hand
+   B2 unsorted ids and B3 a window past its table; both must stop on the
+   device-side assert.
 10. kernel_b3: kernel B3 (``csrc/window_fetch.cu``) against its plain
    version at the window shapes of a block and a block4 step over the slim
    CSR (their real starts) and at width 64, exactly equal; kernel, plain and
    row-gather times beside the bound.
 11. sampled_grad: one full-size block-mode step's loss and gradients
    through B2 and B3 and through their plain versions, over the fat CSR
-   (1 B2 launch) and the slim pairs CSR (1 B2, 2 B3); the slim loss must
-   equal the fat one.
+   (2 B2 launches: identity and dedup backward) and the slim pairs CSR
+   (2 B2, 2 B3); the slim loss must equal the fat one.
 12. sampled_train: ``build_sampled_train_step`` at fanouts 15/10, 3
    warm-up and 30 timed steps, block over the fat CSR, block over the slim
-   CSR and block4 over the slim CSR: step_ms, edges/s, launches per step,
-   peak memory; a 10-step profile of block over the slim CSR.
+   CSR and block4 over the slim CSR: step_ms, edges/s, launches per step
+   (2 B2), peak memory; a 10-step profile of block over the slim CSR.
 13. sampled_cli: ``train.cli.main --sample_fanouts 15 10`` at scale 0.1 in
    block mode, and in block4 mode with ``--sparse_emb --val_sampled``, each
    then served by ``predict_cli.main`` and evaluated by
@@ -125,22 +130,26 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    full_kg_graph: the graph built by the C++ builder of ``native/`` and by
    numpy, every array equal, both times and the sizes printed, ``"auto"``
    taking the C++ builder. full_kg_grad: one step, dropout off, given
-   candidates, with the batch-restricted final layer (60 B1 launches) and
-   with the full one (120), losses within 1e-6 relative and gradients
+   candidates, with the batch-restricted final layer (60 B1 launches, 1
+   B2: its forward segment-sum) and with the full one (120, no B2),
+   losses within 1e-6 relative and gradients
    within the grad criterion; the restricted layer on the card against its
    CPU computation; the same in bf16 (bf16 launches only, grad_bf16's
    tolerances). full_kg_overflow: a plan cut to one group a relation takes
    the fallback, equal to the full step, one fallback and 120 launches.
    full_kg_train: ``restrict_final="auto"`` resolves to a plan (the edge
    ratio printed); the step with it (float32 and bf16) and with "off", 3
-   warm-up and 30 timed steps each, launches, fallbacks, peak memory and a
-   10-step profile; the restricted and the full final layer alone; B2
-   against ``index_add_`` on the restricted layer's segment-sum stream.
+   warm-up and 30 timed steps each, launches (1 B2 a restricted step
+   that takes the fast path), fallbacks, peak memory and a 10-step
+   profile; the restricted and the full final layer alone; B2 on the
+   restricted layer's segment-sum stream beside ``index_add_``.
    full_kg_trainer: ``Trainer`` for one epoch (45 steps of 1,024,
-   validation, checkpoints), losses finite. full_kg_sampled: config 4, the
-   block-mode step over the slim CSR: gradients through B2 and B3 against
-   their plain versions (``full_kg_sampled_grad``, fat and slim CSR), then
-   3 warm-up and 30 timed steps with a profile.
+   validation, checkpoints; 1 B2 a step), losses finite. full_kg_sampled:
+   config 4, the block-mode step over the slim CSR: gradients through B2
+   and B3 against their plain versions (``full_kg_sampled_grad``, fat and
+   slim CSR), B2 on the step's identity and dedup streams
+   (``full_kg_b2_streams``), then 3 warm-up and 30 timed steps with a
+   profile.
 28. the kernel summary line, then the card line, then the result line.
 
 bf16 compute (``compute_dtype="bfloat16"``, full width) adds, each beside
@@ -153,8 +162,8 @@ its float32 counterpart:
   scales); kernel, wrapper, plain and library times (cuSPARSE on a bf16
   CSR, or the float32 call on the upcast table, named) beside the bf16
   bound and the float32 kernel's time. After 9, B2's bf16 variant at a bf16
-  block step's identity-backward stream and edge cases, ``index_add_`` of
-  the upcast rows beside it; after 14, B4's at the node step's shapes, bit
+  block step's identity- and dedup-backward streams and edge cases,
+  ``index_add_`` of the upcast rows beside it; after 14, B4's at the node step's shapes, bit
   for bit, ``copy_`` beside it. Two children feed B1's bf16 variant a bad
   CSR and one B2's unsorted ids: each must stop on the device-side assert.
 - grad_bf16 (after 6): one full-size step in bf16 through the kernels and
@@ -171,7 +180,7 @@ its float32 counterpart:
   model: both report bfloat16, every B1 launch a bf16 one.
 - sampled_bf16 (after 12): a block-over-slim step's loss and gradients
   through B2's bf16 variant and B3 against their plain versions (as
-  grad_bf16), then 30 timed steps, 1 bf16 B2 and 2 B3 launches a step.
+  grad_bf16), then 30 timed steps, 2 bf16 B2 and 2 B3 launches a step.
 - node_bf16 (after 16): the 4-shard encode against the dense bf16 encode
   within 2e-2, 2 bf16 B4 and 30 bf16 B1 launches; 30 timed steps, 4 bf16
   B4 and 60 bf16 B1 launches a step.
@@ -792,8 +801,10 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50, label=None,
     At ``cfg.compute_dtype`` bf16 (phase ``train_bf16``) every B1 launch
     must be a bf16 one. With ``final_plan`` the step runs the
     batch-restricted final layer (phase ``full_kg_train``), and the
-    fallbacks over the timed steps are counted. Returns the launches and
-    the profile's breakdown, and the step's figures."""
+    fallbacks over the timed steps are counted; each step that takes the
+    layer's fast path makes one B2 launch, on float32 grouped sums at
+    either dtype, and a fallback none. Returns the launches and the
+    profile's breakdown, and the step's figures."""
     import numpy as np
     import torch
 
@@ -851,6 +862,7 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50, label=None,
     reset_counts()
     step_ms, last = timed(pinned=True)
     launches = kern.launches
+    counts, counts_bf16 = read_counts(), read_bf16_counts()
     fallbacks = final_layer_restricted.fallbacks - fallbacks
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # A restricted step that overflowed its plan runs the full final layer:
@@ -859,15 +871,22 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50, label=None,
     if launches != want:
         raise AssertionError(f"{launches} kernel launches in {steps} steps "
                              f"({fallbacks} fallbacks), expected {want}")
-    if bf16:
-        only_bf16(label, read_counts(), read_bf16_counts())
+    want_b2 = (steps - fallbacks) if final_plan is not None else 0
+    if (counts["B2"], counts_bf16["B2"]) != (want_b2, 0):
+        raise AssertionError(f"{label}: B2 launches {counts['B2']} (bf16 "
+                             f"{counts_bf16['B2']}), expected {want_b2} "
+                             f"float32 ones")
+    if bf16 and counts["B1"] != counts_bf16["B1"]:
+        raise AssertionError(f"{label}: B1 launches {counts['B1']}, bf16 "
+                             f"ones {counts_bf16['B1']}")
     first_loss = float(first[0] / first[2])
     last_loss = float(last[0] / last[2])
     if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
         raise AssertionError(f"non-finite loss {first_loss}, {last_loss}")
     figures = dict(step_ms=step_ms, train_edges_per_s=b / step_ms * 1e3,
                    launches=launches, launches_per_step=launches / steps,
-                   fallbacks=fallbacks, peak_memory_mb=peak_mb)
+                   b2_launches=counts["B2"], fallbacks=fallbacks,
+                   peak_memory_mb=peak_mb)
     emit(label, steps=steps, batch_size=b, train_edges=graph.num_edges,
          step_ms_pageable_batch_copy=pageable_ms, first_loss=first_loss,
          last_loss=last_loss, restricted_final_layer=final_plan is not None,
@@ -1199,16 +1218,113 @@ def bound_fields(b):
                 bytes=b["bytes"])
 
 
+def b2_twice_equal(name, msg, srt, n, first=None):
+    """Two launches of B2 on the same inputs must agree bit for bit (the
+    row split and its fix-up add in a fixed order); ``first`` is one
+    launch's result when the caller has it."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+
+    if first is None:
+        first = pds.dense_sorted_segment_sum(msg, srt, n)
+    second = pds.dense_sorted_segment_sum(msg, srt, n)
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name}: two B2 launches on the same inputs "
+                             f"differ")
+
+
+def b2_stream_row(label, name, msg, srt, n):
+    """B2 on one recorded stream: held against its plain version
+    (``close_scaled``) and two launches against each other, then kernel,
+    plain and ``index_add_`` (of the float32 rows, the upcast included)
+    times beside ``b2_bound``, with the stream's real rows, runs and longest
+    run and the kernel's share of the bound. Emits ``<label>`` and returns
+    the row."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+
+    got = pds.dense_sorted_segment_sum(msg, srt, n)
+    want = pds.dense_sorted_segment_sum_plain(msg, srt, n)
+    torch.cuda.synchronize()
+    err = close_scaled(got, want, f"{label}/{name}")
+    b2_twice_equal(f"{label}/{name}", msg, srt, n, got)
+    del got, want
+    idx = srt.clamp(max=n).long()
+    buf = torch.zeros(n + 1, msg.shape[1], device=msg.device)
+    t = time_calls({
+        "kernel": lambda: pds.launch(msg, srt, n),
+        "plain": lambda: pds.dense_sorted_segment_sum_plain(msg, srt, n),
+        "library": lambda: buf.index_add_(0, idx, msg.float())})
+    b = bound_fields(b2_bound(msg, srt, n))
+    runs = torch.unique_consecutive(srt[srt < n], return_counts=True)[1]
+    row = dict(shape=name, dtype=str(msg.dtype).replace("torch.", ""),
+               rows=msg.shape[0], d=msg.shape[1], segments=n,
+               real_rows=int((srt < n).sum()), longest_run=int(runs.max()),
+               runs=int(runs.numel()), **t, max_abs_err=err,
+               bound_share=b["bound_us"] / 1e3 / t["kernel_ms"],
+               over_library=t["kernel_ms"] / t["library_ms"], **b)
+    emit(label, **row)
+    return row
+
+
+def sampled_b2_streams(label, step, params, cfg, pos, dev):
+    """The B2 calls of one sampled step, recorded: ``{"ident": (msg, srt,
+    n), "dedup": ...}``, told apart by the sorted ids each block holds (the
+    outer block's dedup backward runs first). Every call must be one of
+    the two."""
+    calls = {}
+    with sampler_kernels(("record", calls)):
+        _, _, batch = sampled_forward_backward(step, params, cfg, pos, dev)
+    blocks = {"ident": batch.blocks[0], "dedup": batch.blocks[1]}
+    if not blocks["ident"].ident or blocks["dedup"].ident:
+        raise AssertionError(f"{label}: expected an identity inner block and "
+                             f"a dedup outer block")
+    streams = {}
+    for msg, srt, n in calls.get("b2", []):
+        name = [k for k, blk in blocks.items()
+                if srt.data_ptr() == blk.sort_uid.data_ptr()]
+        if len(name) != 1 or name[0] in streams:
+            raise AssertionError(f"{label}: a B2 call of no block "
+                                 f"({len(calls['b2'])} calls)")
+        streams[name[0]] = (msg, srt, n)
+    if sorted(streams) != ["dedup", "ident"]:
+        raise AssertionError(f"{label}: B2 streams {sorted(streams)}")
+    return streams
+
+
+def close_scaled_chunked(got, want, name, rows=1 << 22):
+    """``close_scaled`` over chunks of ``rows`` rows: for outputs too large
+    for its temporaries."""
+    import torch
+
+    top = max(float(want[i:i + rows].abs().max())
+              for i in range(0, want.shape[0], rows))
+    err = 0.0
+    for i in range(0, want.shape[0], rows):
+        a, b = got[i:i + rows], want[i:i + rows]
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-4 * max(top, 1e-30),
+            msg=lambda m: f"{name} rows {i}..: {m}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
 def phase_kernel_b2(graph, cfg, edges, dev, repo):
-    """Kernel B2 against its plain version on the card: the identity
-    backward's real id stream of one block-mode step (main path), the
-    outer layer's dedup stream at its shape, and edge cases; kernel, plain
+    """Kernel B2 against its plain version on the card: the two streams one
+    block-mode step gives it (the identity backward's, the main path, and
+    the outer layer's dedup backward), recorded from the step, and edge
+    cases, among them the row split's: one run of 200,000 rows across many
+    pieces, runs cut at every piece boundary, a leading gap, one real row
+    then sentinels, and an output of N·D just under 2^31 elements (8.6 GB);
+    two launches ``torch.equal`` at every stream and case; kernel, plain
     and index_add_ times beside the bound; child processes hand B2 (both
     variants) unsorted ids and B3 a window past its table, and must stop
     on the device-side assert.
 
     At ``cfg.compute_dtype`` bf16 (phase ``kernel_bf16``, lines
-    ``kernel_bf16_b2_*``) the step's stream is bf16 cotangent rows: the
+    ``kernel_bf16_b2_*``) the step's streams are bf16 cotangent rows: the
     bf16 variant, every case in bf16, ``index_add_`` of the upcast rows
     (the upcast included) as the library call, and no children."""
     import numpy as np
@@ -1216,6 +1332,7 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
 
     from primekg_rgcn_tpu_torch.config import TrainConfig
     from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.ops.cuda.segment_sum import _num_sms
     from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
 
     bf16 = cfg.compute_dtype == "bfloat16"
@@ -1228,45 +1345,18 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
     params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
     step = build_sampled_train_step(csrs["fat"], cfg, TrainConfig(),
                                     fanouts=(15, 10), mode="block", device=dev)
-    calls = {}
-    with sampler_kernels(("record", calls)):
-        _, _, batch = sampled_forward_backward(step, params, cfg, pos, dev)
-    (msg, srt, n), = calls["b2"]
-    outer = batch.blocks[1]
-    if not batch.blocks[0].ident or outer.ident:
-        raise AssertionError("expected an identity inner block and a dedup "
-                             "outer block")
+    streams = sampled_b2_streams(label, step, params, cfg, pos, dev)
     dtype = torch.bfloat16 if bf16 else torch.float32
-    if msg.dtype != dtype:
-        raise AssertionError(f"{label}: the step's stream is {msg.dtype}")
-    gen = torch.Generator(dev).manual_seed(2)
-    dedup_ids = outer.sort_uid
-    dedup_msg = torch.randn(dedup_ids.numel(), 128, device=dev,
-                            generator=gen).to(dtype)
-    rows, max_err = [], 0.0
-    for name, m, s, segs in (("ident_backward/main_path", msg, srt, n),
-                             ("dedup_backward_shape", dedup_msg, dedup_ids,
-                              outer.m_in)):
-        got = pds.dense_sorted_segment_sum(m, s, segs)
-        want = pds.dense_sorted_segment_sum_plain(m, s, segs)
-        torch.cuda.synchronize()
-        err = close_scaled(got, want, f"{label}/{name}")
-        max_err = max(max_err, err)
-        idx = s.clamp(max=segs)
-        buf = torch.zeros(segs + 1, m.shape[1], device=dev)
-        t = time_calls({
-            "kernel": lambda: pds.launch(m, s, segs),
-            "plain": lambda: pds.dense_sorted_segment_sum_plain(m, s, segs),
-            "library": lambda: buf.index_add_(0, idx, m.float())})
-        b = b2_bound(m, s, segs)
-        runs = torch.unique_consecutive(s[s < segs], return_counts=True)[1]
-        row = dict(shape=name, rows=m.shape[0], d=m.shape[1], segments=segs,
-                   real_rows=b["real_rows"], longest_run=int(runs.max()),
-                   runs=int(runs.numel()), **t, max_abs_err=err,
-                   **bound_fields(b))
-        rows.append(row)
-        emit(f"{label}_shape", **row)
+    if any(m.dtype != dtype for m, _, _ in streams.values()):
+        raise AssertionError(f"{label}: the step's streams are "
+                             f"{[m.dtype for m, _, _ in streams.values()]}")
+    rows = [b2_stream_row(f"{label}_shape", name, *streams[key])
+            for name, key in (("ident_backward/main_path", "ident"),
+                              ("dedup_backward", "dedup"))]
+    max_err = max(r["max_abs_err"] for r in rows)
+    del streams
 
+    gen = torch.Generator(dev).manual_seed(2)
     rng = np.random.default_rng(3)
 
     def case(ids, d, segs, offset=0):
@@ -1275,6 +1365,9 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
         return (flat[offset:].view(ids.shape[0], d),
                 torch.from_numpy(ids.astype(np.int32)).to(dev), segs)
 
+    # The device's piece length for a stream of 100,000 real rows.
+    min_rows, pieces = pds.piece_plan(100000, _num_sms(dev))
+    per = max(min_rows, -(-100000 // pieces))
     cases = {
         "empty": case(np.zeros(0, np.int64), 64, 500),
         "only_sentinels": case(np.full(3000, 500), 64, 500),
@@ -1286,15 +1379,45 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
                                 2100, offset=1),
         "sentinel_tail": case(np.concatenate([np.sort(rng.integers(
             0, 5000, 40000)), np.full(30000, 5000)]), 64, 5000),
+        "run_across_many_pieces": case(np.concatenate([
+            np.sort(rng.integers(0, 100, 5000)), np.full(250000, 100),
+            np.sort(rng.integers(101, 3000, 5000))]), 64, 3000),
+        "runs_cut_at_every_piece_boundary": case(
+            np.arange(100000) // (per - 1), 128, 100000 // (per - 1) + 1),
+        "leading_gap": case(np.sort(rng.integers(900000, 1000000, 50000)),
+                            64, 1000000),
+        "one_real_row_then_sentinels": case(np.concatenate([
+            [17], np.full(100000, 40000)]), 64, 40000),
     }
     for name, (m, s, segs) in cases.items():
         got = pds.dense_sorted_segment_sum(m, s, segs)
         want = pds.dense_sorted_segment_sum_plain(m, s, segs)
         torch.cuda.synchronize()
         err = close_scaled(got, want, f"{label}/{name}")
+        b2_twice_equal(f"{label}/{name}", m, s, segs, got)
         max_err = max(max_err, err)
         emit(f"{label}_case", case=name, rows=m.shape[0], d=m.shape[1],
-             segments=segs, max_abs_err=err)
+             segments=segs, max_abs_err=err, twice_equal=True)
+    del cases, got, want
+
+    # N·D just under 2^31: 64-bit output offsets, 8.6 GB of float32 (the
+    # zeros and the sums of the rows near the end lie past 2^31 bytes).
+    segs = (2 ** 31 - 1) // 64
+    ids = np.concatenate([np.sort(rng.integers(0, segs, 300000)),
+                          [segs - 1] * 5, [segs] * 7])
+    m, s, _ = case(ids, 64, segs)
+    got = pds.dense_sorted_segment_sum(m, s, segs)
+    want = pds.dense_sorted_segment_sum_plain(m, s, segs)
+    torch.cuda.synchronize()
+    err = close_scaled_chunked(got, want, f"{label}/huge_output")
+    del want
+    b2_twice_equal(f"{label}/huge_output", m, s, segs, got)
+    del got
+    torch.cuda.empty_cache()
+    max_err = max(max_err, err)
+    emit(f"{label}_case", case="huge_output", rows=m.shape[0], d=64,
+         segments=segs, output_elements=segs * 64, max_abs_err=err,
+         twice_equal=True)
 
     for name, child in children.items():
         out, _ = child.communicate(timeout=300)
@@ -1359,12 +1482,13 @@ def phase_kernel_b3(graph, cfg, edges, dev):
 
 def phase_sampled_grad(graph, cfg, edges, dev, label=None):
     """One full-size block-mode step's loss and gradients through kernels
-    B2 and B3 and through their plain versions, over the fat CSR (1 B2
-    launch, no B3) and the slim pairs CSR (1 B2, 2 B3), with the same
-    parameters, batch, negatives, draws and dropout mask.
+    B2 and B3 and through their plain versions, over the fat CSR (2 B2
+    launches: the identity and the dedup backward; no B3) and the slim
+    pairs CSR (2 B2, 2 B3), with the same parameters, batch, negatives,
+    draws and dropout mask.
 
     At ``cfg.compute_dtype`` bf16 (phase ``sampled_bf16``) over the slim
-    CSR only, its B2 launch a bf16 one, within ``grad_bf16``'s tolerance:
+    CSR only, its B2 launches bf16 ones, within ``grad_bf16``'s tolerance:
     gradients within 1e-2 of each tensor's largest magnitude, the losses
     within 1e-3. ``label`` names the phase (``full_kg_sampled_grad``: the
     config-3 graph)."""
@@ -1378,8 +1502,8 @@ def phase_sampled_grad(graph, cfg, edges, dev, label=None):
     params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
     if bf16:
         del csrs["fat"]
-    expect = {"fat": {"B1": 0, "B2": 1, "B3": 0, "B4": 0},
-              "slim": {"B1": 0, "B2": 1, "B3": 2, "B4": 0}}
+    expect = {"fat": {"B1": 0, "B2": 2, "B3": 0, "B4": 0},
+              "slim": {"B1": 0, "B2": 2, "B3": 2, "B4": 0}}
     losses, max_err, out = {}, 0.0, {}
     for csr_name, csr in csrs.items():
         step = build_sampled_train_step(csr, cfg, TrainConfig(),
@@ -1438,7 +1562,8 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
     the host each step, 3 warm-up then 30 timed steps on the host clock;
     block over the fat CSR, block over the slim pairs CSR (the main path of
     kernels B2 and B3) and block4 over the slim CSR. Then a 10-step profile
-    of the main path. At ``cfg.compute_dtype`` bf16 (phase
+    of the main path; 2 B2 launches a step (identity and dedup backward),
+    2 B3 over the slim CSR. At ``cfg.compute_dtype`` bf16 (phase
     ``sampled_bf16``, block over the slim CSR) every B2 launch must be a
     bf16 one. ``label`` names the phase (``full_kg_sampled``: config 4)."""
     import numpy as np
@@ -1485,7 +1610,8 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
         first_loss, last_loss = float(first[0]), float(last[0])
         if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
             raise AssertionError(f"{name}: non-finite loss")
-        want = {"B1": 0, "B2": steps,
+        # B2: the identity and the dedup backward.
+        want = {"B1": 0, "B2": 2 * steps,
                 "B3": 2 * steps if name.endswith("slim") else 0, "B4": 0}
         if counts != want:
             raise AssertionError(f"{name}: launches {counts}, expected {want}")
@@ -2853,8 +2979,9 @@ def phase_full_kg_grad(graph_cpu, graph, edges, dev):
     the tensor's largest magnitude), 2R = 60 and 4R = 120 B1 launches. The
     restricted layer on the card against its plain computation on the CPU
     (the same function on CPU tensors), rows and gradients, at the same
-    criterion. The same steps in bf16: bf16 launches only, the restricted
-    step's gradients within 1e-2 of the largest magnitude of the full bf16
+    criterion. One B2 launch (float32, at either dtype) in a restricted
+    step, none in a full one. The same steps in bf16: bf16 B1 launches
+    only, the restricted step's gradients within 1e-2 of the largest magnitude of the full bf16
     step's and within 5e-2 of the float32 restricted step's in norm
     (``grad_bf16``'s tolerances). Then ``full_kg_overflow``: a plan whose
     capacities are cut to one group takes the fallback; its loss and
@@ -2896,15 +3023,21 @@ def phase_full_kg_grad(graph_cpu, graph, edges, dev):
         return dict(loss=loss.item(),
                     grads=[p.grad.clone() for _, p in leaves],
                     launches=kern.launches, launches_bf16=kern.launches_bf16,
+                    b2=(read_counts()["B2"], read_bf16_counts()["B2"]),
                     fallbacks=pfl.final_layer_restricted.fallbacks
                     - fallbacks)
 
     def check_launches(label, run_, want, bf16=False, fallbacks=0):
-        got = (run_["launches"], run_["launches_bf16"], run_["fallbacks"])
-        expect = (want, want if bf16 else 0, fallbacks)
+        # The restricted layer's segment-sum: one float32 B2 launch on its
+        # fast path, at either dtype; none on the full layer or a fallback.
+        b2 = (int(want == 2 * r and not fallbacks), 0)
+        got = (run_["launches"], run_["launches_bf16"], run_["b2"],
+               run_["fallbacks"])
+        expect = (want, want if bf16 else 0, b2, fallbacks)
         if got != expect:
             raise AssertionError(f"{label}: (B1 launches, bf16 launches, "
-                                 f"fallbacks) {got}, expected {expect}")
+                                 f"(B2, bf16 B2), fallbacks) {got}, "
+                                 f"expected {expect}")
 
     def compare(label, got, want):
         if abs(got["loss"] - want["loss"]) > 1e-6 * abs(want["loss"]):
@@ -2942,12 +3075,16 @@ def phase_full_kg_grad(graph_cpu, graph, edges, dev):
         conv2 = {k: v.detach().to(g.src.device).requires_grad_(True)
                  for k, v in enc["conv2"].items()}
         x = h1p.detach().to(g.src.device).requires_grad_(True)
+        reset_counts()
         t0 = time.perf_counter()
         out = pfl.final_layer_restricted(conv2, x, g, pl,
                                          nodes.to(g.src.device))
         out.backward(cot.to(g.src.device))
         if where == "card":
             torch.cuda.synchronize()
+        if read_counts()["B2"] != (where == "card"):
+            raise AssertionError(f"full_kg_grad/restricted_layer/{where}: "
+                                 f"B2 launches {read_counts()['B2']}")
         layer_runs[where] = dict(
             seconds=time.perf_counter() - t0,
             tensors={"rows": out.detach().cpu(), "h1_pad": x.grad.cpu(),
@@ -3014,9 +3151,10 @@ def phase_full_kg_train(graph, edges, dev, tmp):
     (2R and 4R B1 a step, 2R more per fallback), fallbacks, peak memory and
     a 10-step profile (``phase_train``). Then the restricted layer's own
     device time against the full final layer's (forward and backward, on
-    one step's inputs), and kernel B2 against ``index_add_`` on that step's
-    segment-sum stream (the grouped rows by their sorted (relation, node)
-    ids), B2 held against it. Returns the runs' figures and the B2 row."""
+    one step's inputs), and kernel B2 on that step's segment-sum stream (the
+    grouped rows by their sorted (relation, node) ids: the restricted
+    layer's one B2 launch a step) beside ``index_add_``. Returns the runs'
+    figures and the B2 row."""
     import dataclasses
 
     import torch
@@ -3024,7 +3162,6 @@ def phase_full_kg_train(graph, edges, dev, tmp):
     from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
     from primekg_rgcn_tpu_torch.models import rgcn
     from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
-    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
     from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 
     n, r = graph.num_nodes, graph.num_relations
@@ -3091,34 +3228,36 @@ def phase_full_kg_train(graph, edges, dev, tmp):
                           "restricted_fwd": restricted_forward})
     emit("full_kg_final_layer", nodes=nodes.numel(), **layer_t)
 
-    # B2 against index_add_ on the restricted layer's segment-sum stream.
+    # B2 on the restricted layer's segment-sum stream, index_add_ beside it.
     ns, _, is_dup = pfl.sorted_batch(nodes)
     start, deg, off, _ = pfl.batch_ranges(plan, ns, is_dup)
     seg, src, scale = pfl.enumerate_slots(graph, plan, start, deg, off)
     with torch.no_grad():
         grp = pfl.GatherGroupSum.apply(h1p, src, scale, plan.group)
-    seg_g = seg[::plan.group].contiguous()
-    ids = seg_g.to(torch.int32)
-    segs = r * nodes.numel()
-    got = pds.dense_sorted_segment_sum(grp, ids, segs)
-    want = torch.zeros(segs, grp.shape[1], device=dev).index_add(0, seg_g,
-                                                                 grp)
-    torch.cuda.synchronize()
-    err = close_scaled(got, want, "full_kg_train/b2_restricted_stream")
-    t = time_calls({
-        "kernel": lambda: pds.launch(grp, ids, segs),
-        "plain": lambda: pds.dense_sorted_segment_sum_plain(grp, ids, segs),
-        "library": lambda: torch.zeros(segs, grp.shape[1],
-                                       device=dev).index_add(0, seg_g, grp)})
-    b = b2_bound(grp, ids, segs)
-    runs = torch.unique_consecutive(ids, return_counts=True)[1]
-    b2_row = dict(shape="restricted_final_layer_stream", rows=grp.shape[0],
-                  d=grp.shape[1], segments=segs,
-                  real_rows=b["real_rows"], longest_run=int(runs.max()),
-                  runs=int(runs.numel()), **t, max_abs_err=err,
-                  **bound_fields(b))
-    emit("full_kg_b2_restricted_stream", **b2_row)
+    ids = seg[::plan.group].to(torch.int32).contiguous()
+    b2_row = b2_stream_row("full_kg_b2_restricted_stream",
+                           "restricted_final_layer_stream", grp, ids,
+                           r * nodes.numel())
     return out, b2_row
+
+
+def phase_full_kg_b2_streams(graph, cfg, edges, dev):
+    """Config 4's two B2 streams, recorded from one block-mode step over the
+    slim CSR (the identity and the dedup backward), each held against its
+    plain version, twice ``torch.equal``, and timed beside ``index_add_``
+    and the bound (``b2_stream_row``). Returns the rows."""
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
+
+    params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
+    step = build_sampled_train_step(csrs["slim"], cfg, TrainConfig(),
+                                    fanouts=(15, 10), mode="block",
+                                    device=dev)
+    streams = sampled_b2_streams("full_kg_b2_streams", step, params, cfg,
+                                 pos, dev)
+    return [b2_stream_row("full_kg_b2_streams", name, *streams[key])
+            for name, key in (("config4_ident_backward", "ident"),
+                              ("config4_dedup_backward", "dedup"))]
 
 
 def phase_full_kg_trainer(graph, edges, dev, tmp):
@@ -3126,7 +3265,8 @@ def phase_full_kg_trainer(graph, edges, dev, tmp):
     edges (45 steps of 1,024), 4,096 validation edges, ``restrict_final=
     "auto"`` (which must resolve to a plan), validation and best, periodic
     and final checkpoints; B1 launches 2R a step (2R more per fallback) and
-    2R for the validation encode; every loss finite. Returns the counts."""
+    2R for the validation encode, B2 one a step that took the restricted
+    layer's fast path; every loss finite. Returns the counts."""
     import numpy as np
 
     from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
@@ -3154,7 +3294,8 @@ def phase_full_kg_trainer(graph, edges, dev, tmp):
     counts = read_counts()
     fallbacks = pfl.final_layer_restricted.fallbacks - fallbacks
     steps = 45
-    want = {"B1": 2 * r * (steps + fallbacks + 1), "B2": 0, "B3": 0, "B4": 0}
+    want = {"B1": 2 * r * (steps + fallbacks + 1), "B2": steps - fallbacks,
+            "B3": 0, "B4": 0}
     if counts != want:
         raise AssertionError(f"full_kg_trainer: launches {counts}, expected "
                              f"{want} ({fallbacks} fallbacks)")
@@ -3230,7 +3371,8 @@ def main():
     # One nvcc per kernel source, all started together, and g++ for the
     # graph builder beside them.
     t0 = time.perf_counter()
-    libraries = [ss.LIBRARY, ss.LIBRARY_BF16, pds.LIBRARY, pwf.LIBRARY,
+    libraries = [ss.LIBRARY, ss.LIBRARY_BF16, pds.LIBRARY, pds.LIBRARY_BF16,
+                 pwf.LIBRARY,
                  halo.LIBRARY]
     with concurrent.futures.ThreadPoolExecutor(len(libraries) + 1) as pool:
         graph_builder = pool.submit(native.native_available)
@@ -3578,9 +3720,10 @@ def main():
             graph, bench_plan), e_cap_sum=sum(bench_plan.e_cap),
             auto_resolves=pfl.resolve_final_plan(
                 graph, edges, 1024, 1, seed=42) is not None)
-        restricted_launches, _, _ = phase_train(
+        restricted_launches, _, restricted_figures = phase_train(
             graph, cfg, edges, dev, Path(tmp), label="train_restricted_on",
             final_plan=bench_plan, launches_per_step=6)
+        restricted_b2 = restricted_figures["b2_launches"]
         cli_launches = phase_train_cli(Path(tmp))
         cli_eval = {"train_cli": eval_cli_after(Path(tmp) / "train_cli",
                                                 "train_cli")}
@@ -3652,6 +3795,7 @@ def main():
         kg_trainer = phase_full_kg_trainer(g3, edges3, dev, Path(tmp))
         kg_sgrad_err = phase_sampled_grad(g3, cfg3, edges3, dev,
                                           label="full_kg_sampled_grad")
+        kg_b2_streams = phase_full_kg_b2_streams(g3, cfg3, edges3, dev)
         kg_sampled, kg_sampled_counts = phase_sampled_train(
             g3, cfg3, edges3, dev, Path(tmp), configs=("block/slim",),
             label="full_kg_sampled")
@@ -3744,23 +3888,28 @@ def main():
             "sampled_train": {k: v["launches"]["B2"]
                               for k, v in sampled.items()},
             "sampled_cli": {k: v["B2"] for k, v in scli_launches.items()},
-            "full_kg_sampled": kg_sampled_counts["B2"]},
-        "launches_per_step": 1,
-        "max_abs_err": max(b2_err, sgrad_err, kg_sgrad_err),
+            "full_kg_sampled": kg_sampled_counts["B2"],
+            "full_kg_train": {k: v["b2_launches"]
+                              for k, v in kg_train.items()},
+            "full_kg_trainer": kg_trainer["B2"],
+            "train_restricted_on": restricted_b2},
+        "launches_per_step": {"sampled_block": 2, "restricted_step": 1},
+        "max_abs_err": max(b2_err, sgrad_err, kg_sgrad_err,
+                           kg_b2["max_abs_err"],
+                           *(r["max_abs_err"] for r in kg_b2_streams)),
         "ms": b2_rows[0]["kernel_ms"],
         "call_ms": b2_rows[0]["kernel_call_ms"],
         "plain_ms": b2_rows[0]["plain_ms"],
         "bound_ms": b2_rows[0]["bound_us"] / 1e3,
         "bound_by": b2_rows[0]["bound_by"],
         "library_ms": b2_rows[0]["library_ms"],
-        "dedup_shape_ms": b2_rows[1]["kernel_ms"],
-        "dedup_shape_plain_ms": b2_rows[1]["plain_ms"],
-        "dedup_shape_bound_ms": b2_rows[1]["bound_us"] / 1e3,
-        "dedup_shape_library_ms": b2_rows[1]["library_ms"],
-        "restricted_stream": {
-            k: kg_b2[k] for k in ("rows", "d", "segments", "kernel_ms",
-                                  "plain_ms", "library_ms", "bound_us",
-                                  "bound_by", "max_abs_err")},
+        "streams": {
+            f"{r['shape']}/{r['dtype']}": {k: r[k] for k in (
+                "rows", "d", "segments", "real_rows", "runs", "longest_run",
+                "kernel_ms", "kernel_call_ms", "plain_ms", "library_ms",
+                "bound_us", "bound_by", "bound_share", "over_library",
+                "max_abs_err")}
+            for r in (*b2_rows, *b2_16_rows, kg_b2, *kg_b2_streams)},
         "bf16": {
             "ms": b2_16_rows[0]["kernel_ms"],
             "call_ms": b2_16_rows[0]["kernel_call_ms"],
@@ -3777,12 +3926,13 @@ def main():
                    "a bf16 block step's identity-backward stream; "
                    "library_ms is index_add_ of the rows upcast to float32, "
                    "the upcast included"},
-        "per": "one block-mode step's launch in the identity backward "
-               "(L = %d, D = %d, N = %d); library_ms is index_add_; "
-               "launches is the sampled_train block/slim count; "
-               "restricted_stream: B2 timed, not used, on one config-3 "
-               "step's restricted final-layer segment-sum stream, which "
-               "the port sums with index_add (library_ms). "
+        "per": "one block-mode step's identity-backward launch (L = %d, "
+               "D = %d, N = %d); a block step makes 2 (identity and dedup "
+               "backward), a config-3 restricted step 1; streams gives "
+               "every timed stream (the step's identity and dedup streams "
+               "at float32 and bf16, the config-3 restricted layer's, "
+               "config 4's identity and dedup); library_ms is index_add_; "
+               "launches is the sampled_train block/slim count. "
                % (b2_rows[0]["rows"], b2_rows[0]["d"],
                   b2_rows[0]["segments"]) + TIMES}, {
         "name": "window_rows_fetch", "id": "B3", "route": "cuda",

@@ -17,8 +17,9 @@ gives the reasoning, which holds here unchanged:
   identity regime of a near-saturated innermost layer).
 - Gradients as ``torch.autograd.Function``s where the JAX package has a
   ``custom_vjp``: ``DedupGather``, ``TableGatherSorted`` and
-  ``IdentPickGather``, whose backward gathers the cotangent rows into id
-  order and sums them with kernel B2 (``ops/cuda/dense_segment_sum``).
+  ``IdentPickGather``, whose backwards gather the cotangent rows into id
+  order and sum them with kernel B2 (``ops/cuda/dense_segment_sum``) on
+  the card, deterministically.
 - Block mode over a slim packed CSR fetches each node's window of records
   with kernel B3 (``ops/cuda/window_fetch``) on the card and with its plain
   version on the CPU.
@@ -40,8 +41,8 @@ import numpy as np
 import torch
 
 from primekg_rgcn_tpu_torch.data.graph import RelGraph, edge_arrays_from_graph
-from primekg_rgcn_tpu_torch.ops.cuda.dense_segment_sum import \
-    dense_sorted_segment_sum
+from primekg_rgcn_tpu_torch.ops.cuda.dense_segment_sum import (
+    dense_sorted_segment_sum, dense_sorted_segment_sum_plain)
 from primekg_rgcn_tpu_torch.ops.cuda.window_fetch import (GRANULE,
                                                           window_rows_fetch)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
@@ -214,20 +215,23 @@ def _unique_seeds(seeds: torch.Tensor, n: int):
 def _sorted_accumulate(gp: torch.Tensor, ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Sorted segment-sum of the dedup and table-gather backwards; ``ids``
-    are sorted and inside [0, num_segments). Sums in float32 and returns
-    gp's dtype.
+    are int32, sorted and inside [0, num_segments). Sums in float32 and
+    returns gp's dtype.
 
-    This is ``index_add_`` at every size. The JAX package sends targets of
-    2^18 rows or more to the dense kernel (B2 here); on the H100, B2 was
-    3.5x slower than ``index_add_`` on a dedup stream, whose in-range fill
-    run one block walks alone, and no path here reaches 2^18 rows, so B2
-    serves :class:`IdentPickGather` only (``ROADMAP.md``, queue C). Below
-    2^18 rows the JAX package sums bf16 cotangents in bf16 (XLA's
-    ``segment_sum``); the float32 sum here is deterministic and closer.
+    On the card this is :func:`dense_sorted_segment_sum`, kernel B2, at
+    every size: deterministic, no float atomics, and faster than
+    ``index_add_`` on these streams, whose in-range fill run B2 splits
+    across warps (``PERF.md`` §6). The JAX package sends only targets of
+    2^18 rows or more to its dense kernel, a TPU scatter-cost crossover;
+    below that it sums bf16 cotangents in bf16 (XLA's ``segment_sum``),
+    where the port sums in float32. On the CPU it is B2's plain version,
+    ``index_add_`` in float32.
     """
-    return torch.zeros(num_segments, gp.shape[1], dtype=torch.float32,
-                       device=gp.device).index_add_(
-                           0, ids.long(), gp.float()).to(gp.dtype)
+    if gp.device.type == "cpu":
+        return dense_sorted_segment_sum_plain(gp, ids, num_segments).to(
+            gp.dtype)
+    return dense_sorted_segment_sum(gp.contiguous(), ids,
+                                    num_segments).to(gp.dtype)
 
 
 class DedupGather(torch.autograd.Function):

@@ -5,8 +5,8 @@ interface and is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 of its own in ``primekg_rgcn_tpu_torch/_build/``, named by a hash of its
 source and the flags, at first use; the library is then loaded with
 ``ctypes``. A source may be built more than once with other ``-D`` defines
-(B1: one library per table dtype, so that the two compile in parallel).
-``vec_width`` is the launch helper the row-walking kernels share.
+(B1 and B2: one library per row dtype, so that the two compile in
+parallel).
 """
 
 from __future__ import annotations
@@ -18,8 +18,6 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
-
-import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -95,20 +93,6 @@ class CudaLibrary:
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
-
-
-def vec_width(d: int, *tensors: torch.Tensor) -> int:
-    """Elements per lane for a kernel that walks [rows, D] tables one warp
-    per row: 4 from D = 128, 2 from D = 64, so that a warp's 32 lanes cover
-    a row; the vector must divide D and every table must be aligned to its
-    own vector of that many elements (a float32 table to 16 or 8 bytes, a
-    bf16 one to 8 or 4)."""
-    for vec, min_d in ((4, 128), (2, 64), (4, 4), (2, 2)):
-        if d % vec == 0 and d >= min_d and all(
-                t.data_ptr() % (t.element_size() * vec) == 0
-                for t in tensors):
-            return vec
-    return 1
 
 
 def check_rc(rc: int, name: str) -> None:

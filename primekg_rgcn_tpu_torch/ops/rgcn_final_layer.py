@@ -18,9 +18,10 @@ Construction:
 - All relations go in one pass, where the JAX package loops over them: the
   ranges of every (relation, node) pair are laid out in one static buffer of
   ``sum(e_cap)`` slots, relation r's at its own offset. One gather and
-  grouped sum (``GatherGroupSum``), one sorted segment-sum (``index_add``)
-  into ``[R * B, Din]`` and one ``[B, R * Din] @ [R * Din, Dout]`` product
-  follow. The sums are taken in another order than the JAX loop's.
+  grouped sum (``GatherGroupSum``), one sorted segment-sum
+  (``SortedSegmentSum``: kernel B2 on the card) into ``[R * B, Din]`` and
+  one ``[B, R * Din] @ [R * Din, Dout]`` product follow. The sums are
+  taken in another order than the JAX loop's.
 - Batch duplicates are found by a stable sort: a repeated node gets an
   empty range and copies its first occurrence's output row, so duplicate
   rows receive the sum of their cotangents in the backward.
@@ -32,10 +33,13 @@ Construction:
   steps. ``e_cap`` is sized by simulating the negative sampler on the real
   degree table when the plan is built.
 
-The segment-sums and the gather's backward are plain torch ops
-(``index_add``), as the JAX package leaves them to XLA: no TPU kernel is
-replaced here. On the card ``index_add`` sums with atomics, in no fixed
-order.
+The JAX package leaves both segment-sums to XLA; no TPU kernel is replaced
+here. The forward one has sorted ids, which is kernel B2's contract, and
+goes through it on the card (``ops/cuda/dense_segment_sum.
+SortedSegmentSum``; its backward is a gather): deterministic, and faster
+than ``index_add`` on this stream. The gather's backward scatters into the
+table's rows by unsorted ids and stays ``index_add``, which on the card sums
+with atomics, in no fixed order.
 
 bf16 compute keeps the rounding points of ``ops/rgcn_segment.py``'s table: bf16
 table rows (an edge-norm product rounded to bf16), float32 sums, a float32
@@ -53,6 +57,8 @@ import numpy as np
 import torch
 
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
+from primekg_rgcn_tpu_torch.ops.cuda.dense_segment_sum import \
+    SortedSegmentSum
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
     materialize_relation_weights, promote_matmul, rgcn_layer_segment)
 
@@ -315,8 +321,7 @@ def final_layer_restricted(
 
     seg, src, scale = enumerate_slots(graph, plan, start, deg, off)
     grp = GatherGroupSum.apply(h1c, src, scale, g)
-    agg = torch.zeros(num_rel * b, din, dtype=torch.float32,
-                      device=grp.device).index_add(0, seg[::g], grp)
+    agg = SortedSegmentSum.apply(grp, seg[::g], num_rel * b)
     if graph.norm_mode == "dense":
         inv = graph.inv_in_deg[:, ns].reshape(-1, 1).to(compute_dtype)
         agg = agg * inv

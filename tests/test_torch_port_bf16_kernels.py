@@ -26,7 +26,7 @@ from primekg_rgcn_tpu.ops.pallas.segment_sum import (dense_sorted_segment_sum,
                                                      sorted_segment_sum_pallas)
 from primekg_rgcn_tpu.ops.rgcn_segment import make_gather_segment_sum
 from primekg_rgcn_tpu.parallel.mesh import make_mesh as j_mesh
-from primekg_rgcn_tpu_torch.ops.cuda import build, halo
+from primekg_rgcn_tpu_torch.ops.cuda import halo
 from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
 from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as pss
 
@@ -210,10 +210,12 @@ def test_bf16_load_widths_count_two_byte_elements():
     assert pss.b1_width(64, t[2:2 + 64 * 8].view(8, 64)) == (2, 32)
     assert pss.b1_width(64, t[4:4 + 64 * 8].view(8, 64)) == (4, 16)
     assert pss.b1_width(7, t[:7].view(1, 7)) == (1, 8)
-    # B2's vec_width counts elements and aligns each tensor to its own.
-    assert build.vec_width(64, t[:64].view(1, 64), torch.zeros(1, 64)) == 2
-    assert build.vec_width(128, t[2:130].view(1, 128)) == 2
-    assert build.vec_width(128, t[4:132].view(1, 128)) == 4
+    # B2's b2_width counts elements and aligns each tensor to its own: 16
+    # bytes (8 bf16) a lane where the view allows it, four rows of D = 64
+    # per warp load.
+    assert pds.b2_width(64, t[:64].view(1, 64), torch.zeros(1, 64)) == (8, 8)
+    assert pds.b2_width(128, t[2:130].view(1, 128)) == (2, 32)
+    assert pds.b2_width(128, t[4:132].view(1, 128)) == (4, 32)
 
 
 def test_cpu_bf16_calls_count_no_launch():

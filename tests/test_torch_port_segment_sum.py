@@ -8,6 +8,7 @@ import torch
 
 from primekg_rgcn_tpu.ops.pallas.segment_sum import sorted_segment_sum_pallas
 from primekg_rgcn_tpu_torch.ops.cuda import build
+from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
 from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as pss
 
 
@@ -97,11 +98,12 @@ def test_wrapper_rejects_csr_that_does_not_cover_src(rowptr):
         pss.gather_segment_sum(x, src, torch.tensor(rowptr, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("d,vec", [(128, 4), (256, 4), (64, 2), (96, 2),
+@pytest.mark.parametrize("d,vec", [(128, 4), (256, 4), (64, 4), (96, 4),
                                    (8, 4), (6, 2), (1, 1), (3, 1)])
 def test_vector_width(d, vec):
+    # B2's float32 rows: 16 bytes a lane wherever D % 4 == 0.
     t = torch.zeros(4, d)
-    assert build.vec_width(d, t) == vec
+    assert pds.b2_width(d, t)[0] == vec
 
 
 @pytest.mark.parametrize("d,offset,vec,lanes", [
@@ -124,9 +126,10 @@ def test_b1_width(d, offset, vec, lanes):
 
 
 def test_b1_width_leaves_the_shared_helper_alone():
-    # B2 keeps build.vec_width (float2 at D = 64); B1 takes float4 there.
+    # B1 and B2 pick their float32 widths each for itself; at D = 64 both
+    # read two rows per warp load, 16 bytes a lane.
     t = torch.zeros(4, 64)
-    assert build.vec_width(64, t) == 2 and pss.b1_width(64, t) == (4, 16)
+    assert pds.b2_width(64, t) == pss.b1_width(64, t) == (4, 16)
 
 
 @pytest.mark.parametrize("s,e,sms,per_piece,pieces", [

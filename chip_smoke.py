@@ -83,18 +83,32 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    graph) and on edge cases (n = 2 and 8, P = 1, D = 8, odd D, unaligned
    views); kernel, plain and ``copy_`` times beside the byte bound.
 15. node_grad: one node-sharded step (4 shards on the card, dropout off) on
-   given candidates through B1 and B4 (2 B1 launches per layer and bucket
-   with real edges, 4 B4 launches), against the same step through the
-   plain versions and against the full-graph step's gradients on the same
-   candidates.
+   given candidates through B1, B4 and B2 (2 B1 launches per layer and
+   bucket with real edges, 4 B4 launches, 20 B2: the sorted backward of
+   every ``_take``), against the same step through the plain versions and
+   against the full-graph step's gradients on the same candidates.
 16. node_train: ``build_node_sharded_train_step`` with B4, batch 1024,
    adam, dropout 0.5: 3 warm-up and 30 timed steps, launches per step
-   asserted, peak memory, a 10-step profile.
+   asserted, peak memory, a 10-step profile; ``step_twice_equal`` (one
+   step run twice from one state: the same bits?), printed, and the same
+   with ``_take``'s backward the atomic ``index_add_``.
 17. node_serve: ``predict_cli.main --shard node --n_devices 4`` for the
    serve phase's queries; its top-10 ids must equal the dense ones;
    sharded encode and query times.
 18. node_cli: ``train.cli.main --shard node --n_devices 4`` at scale 0.1
    for 2 epochs, then served and evaluated with ``--shard node``.
+18a. the edge layout (``parallel/edge_shard.py``), 4 shards on the card:
+   edge_grad: one step (dropout masks given) through B1 (2 launches per
+   layer and (shard, relation) chunk with real edges: 48) against the same
+   step through B1's plain version and against the full-graph step on the
+   same candidates and masks, at the grad criterion; edge_bf16: the same
+   at bf16 (bf16 launches only; grad_bf16's tolerances, and within 5e-2
+   in norm of the float32 edge step and the bf16 full-graph step).
+   edge_train: 3 warm-up and 30 timed steps, launches asserted, peak
+   memory, a 10-step profile, ``step_twice_equal`` asserted. edge_cli:
+   ``train.cli.main --shard edge --n_devices 4
+   --gradient_accumulation_steps 2`` at scale 0.1 for 2 epochs, then
+   ``evaluate.cli.main`` on its best model.
 19. eval: ``evaluate.cli.main --filtered --rank_direction both`` at full
    width on the full-size graph with the train CLI's drug-gene hold-out
    (14,658 directed test edges): 6 B1 launches, every results.json key
@@ -150,6 +164,16 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    slim CSR), B2 on the step's identity and dedup streams
    (``full_kg_b2_streams``), then 3 warm-up and 30 timed steps with a
    profile.
+   The sharded layouts on config 3's graph, 4 shards: the node partition
+   (``uniform_caps`` by default at 30 relations, so the layer runs the
+   relation scan, ``ScanAccumulate``: 3 B1 launches a bucket in a step)
+   and full_kg_node_grad (node_grad's checks); full_kg_node_train, 10
+   timed steps, beside the same step with ``uniform_caps=False`` (the
+   kept partials, 2 B1 a bucket), whose peak memory the scan exists to
+   save (full_kg_node_memory); full_kg_node_serve: the sharded encode
+   against the dense one within rtol 2e-4 and its top-10 ids against the
+   dense ones; full_kg_edge_grad and full_kg_edge_train (10 timed steps)
+   as edge_grad and edge_train.
 28. the kernel summary line, then the card line, then the result line.
 
 bf16 compute (``compute_dtype="bfloat16"``, full width) adds, each beside
@@ -1134,11 +1158,12 @@ def read_bf16_counts():
             "B4": halo.halo_exchange.launches_bf16}
 
 
-def only_bf16(label, counts, bf16_counts, expect=None):
-    """Every B1, B2 and B4 launch of a bf16 run went to its bf16 variant
-    (and, with ``expect``, the counts are those)."""
-    mixed = {k: (counts[k], v) for k, v in bf16_counts.items()
-             if counts[k] != v}
+def only_bf16(label, counts, bf16_counts, expect=None,
+              kinds=("B1", "B2", "B4")):
+    """Every launch of ``kinds`` (B1, B2 and B4) in a bf16 run went to its
+    bf16 variant (and, with ``expect``, the counts are those)."""
+    mixed = {k: (counts[k], bf16_counts[k]) for k in kinds
+             if counts[k] != bf16_counts[k]}
     if mixed or (expect is not None and counts != expect):
         raise AssertionError(f"{label}: launches {counts}, bf16 "
                              f"{bf16_counts}; expected {expect} all bf16")
@@ -1703,12 +1728,90 @@ N_SHARDS = 4
 def node_launches(psg, step=True):
     """Launches of one node-sharded step (or, ``step=False``, one encode):
     B1 once per layer and (shard, group, relation) bucket with real edges,
-    twice in a step (forward, backward over the transpose CSR); B4 once per
-    layer, twice in a step."""
+    twice in a step (forward, backward over the transpose CSR), three times
+    through the relation scan of a ``uniform_caps`` partition (its backward
+    recomputes the partial first); B4 once per layer, twice in a step; B2
+    in a step's backward of every ``_take``: each shard's serve list per
+    layer, its two endpoint fetches and its relation lookup, 5 n."""
     buckets = int((psg.rowptr_local[..., -1] > 0).sum()
                   + (psg.rowptr_halo[..., -1] > 0).sum())
-    k = 2 if step else 1
-    return {"B1": 2 * buckets * k, "B2": 0, "B3": 0, "B4": 2 * k}
+    if not step:
+        return {"B1": 2 * buckets, "B2": 0, "B3": 0, "B4": 2}
+    per_bucket = 3 if psg.uniform_caps else 2
+    return {"B1": 2 * buckets * per_bucket, "B2": 5 * psg.n_devices,
+            "B3": 0, "B4": 4}
+
+
+def edge_launches(esg, step=True):
+    """Launches of one edge-sharded step (or, ``step=False``, one encode):
+    B1 once per layer and (shard, relation) chunk with real edges, twice in
+    a step (forward, backward over the transpose CSR); no other kernel."""
+    buckets = int((esg.rowptr[..., -1] > 0).sum())
+    return {"B1": 2 * buckets * (2 if step else 1), "B2": 0, "B3": 0,
+            "B4": 0}
+
+
+@contextlib.contextmanager
+def node_plain():
+    """While open, the node layer's ``_take`` backward sums with B2's plain
+    version, so that a plain reference step (B1's and B4's plain versions
+    passed as ``agg_fn`` and ``exchange_fn``) launches no kernel."""
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+    from primekg_rgcn_tpu_torch.parallel import node_shard
+
+    saved = node_shard.dense_sorted_segment_sum
+    node_shard.dense_sorted_segment_sum = pds.dense_sorted_segment_sum_plain
+    try:
+        yield
+    finally:
+        node_shard.dense_sorted_segment_sum = saved
+
+
+@contextlib.contextmanager
+def take_index_add():
+    """While open, the node layer's ``_take`` is ``index_select``, whose
+    backward is the atomic ``index_add_``: the layer as it was before its
+    sorted backward, for the determinism check's comparison."""
+    from primekg_rgcn_tpu_torch.parallel import node_shard
+
+    saved = node_shard._take
+    node_shard._take = lambda table, ids, sort=None: table.index_select(
+        0, ids.reshape(-1)).view(*ids.shape, table.shape[1])
+    try:
+        yield
+    finally:
+        node_shard._take = saved
+
+
+def step_twice_equal(step, params, opt, batch, dev, seed=1):
+    """Runs ``step(params, opt, batch, generator)`` twice from the same
+    parameters, optimizer state and generator seed; True when both runs
+    leave the same bits in every parameter, gradient and the stats. The
+    parameters and optimizer state are put back after."""
+    import copy
+
+    import torch
+
+    leaves = list(named_leaves(params))
+    snap = [p.detach().clone() for _, p in leaves]
+    state = copy.deepcopy(opt.state_dict())
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for (_, p), v in zip(leaves, snap):
+                p.copy_(v)
+        opt.load_state_dict(copy.deepcopy(state))
+        stats = step(params, opt, batch, torch.Generator(dev).manual_seed(
+            seed))
+        torch.cuda.synchronize()
+        runs.append([stats.clone()]
+                    + [t.detach().clone() for _, p in leaves
+                       for t in (p, p.grad)])
+    with torch.no_grad():
+        for (_, p), v in zip(leaves, snap):
+            p.copy_(v)
+    opt.load_state_dict(state)
+    return all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def b4_bound(sends):
@@ -1818,12 +1921,14 @@ def node_batch(edges_pad, idx):
     return torch.cat([edges_pad[idx], (idx < e)[:, None].long()], dim=1)
 
 
-def phase_node_grad(graph, psg, cfg, edges, dev):
+def phase_node_grad(graph, psg, cfg, edges, dev, label="node_grad"):
     """One node-sharded step's loss and gradients (dropout off) on given
-    candidates, through B1 and B4, against the same step through their
-    plain versions and against the full-graph step on the same candidates.
-    The update is plain SGD at lr 0, so every run starts from the same
-    parameters and leaves its gradient in ``.grad``."""
+    candidates, through B1, B4 and B2 (the ``_take`` backward), against the
+    same step through their plain versions and against the full-graph step
+    on the same candidates. The update is plain SGD at lr 0, so every run
+    starts from the same parameters and leaves its gradient in ``.grad``.
+    On a ``uniform_caps`` partition (phase ``full_kg_node_grad``) the layer
+    runs the relation scan."""
     import numpy as np
     import torch
 
@@ -1851,7 +1956,8 @@ def phase_node_grad(graph, psg, cfg, edges, dev):
     runs = {}
     for name, step in steps.items():
         reset_counts()
-        stats = step.update(params, opt, cands)
+        with node_plain() if name == "plain" else contextlib.nullcontext():
+            stats = step.update(params, opt, cands)
         torch.cuda.synchronize()
         runs[name] = (float(stats[0] / stats[2]),
                       {k: p.grad.clone() for k, p in leaves}, read_counts())
@@ -1866,32 +1972,36 @@ def phase_node_grad(graph, psg, cfg, edges, dev):
     if runs["kernel"][2] != node_launches(psg) or \
             any(runs["plain"][2].values()):
         raise AssertionError(
-            f"node_grad launches: kernel {runs['kernel'][2]}, plain "
+            f"{label} launches: kernel {runs['kernel'][2]}, plain "
             f"{runs['plain'][2]}; expected {node_launches(psg)} and none")
     if not np.isfinite(runs["kernel"][0]):
-        raise AssertionError("non-finite node-sharded loss")
+        raise AssertionError(f"{label}: non-finite node-sharded loss")
     out, max_err = {}, 0.0
     for ref in ("plain", "full_graph"):
         np.testing.assert_allclose(runs["kernel"][0], runs[ref][0], rtol=1e-5)
         per_leaf = {}
         for k, want in runs[ref][1].items():
             err = close_scaled(runs["kernel"][1][k], want,
-                               f"node_grad/{ref}/{k}")
+                               f"{label}/{ref}/{k}")
             max_err = max(max_err, err)
             per_leaf[k] = {"max_abs_err": err,
                            "max_abs": float(want.abs().max())}
         out[ref] = dict(loss=runs[ref][0], leaves=per_leaf)
-    emit("node_grad", loss_kernel=runs["kernel"][0],
+    emit(label, loss_kernel=runs["kernel"][0], scan=psg.uniform_caps,
          launches=runs["kernel"][2], against=out)
     return max_err
 
 
-def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
+def phase_node_train(psg, cfg, edges, dev, tmp, steps=30, label=None):
     """``build_node_sharded_train_step`` with B4 at batch 1024, adam and
     dropout 0.5: a fresh host batch each step, 3 warm-up then 30 timed
     steps on the host clock, the launches of every kernel counted and
-    asserted; then a 10-step profile. At ``cfg.compute_dtype`` bf16 (phase
-    ``node_bf16``) every B1 and B4 launch must be a bf16 one."""
+    asserted; then a 10-step profile, and whether the step run twice from
+    one state gives the same bits (``step_twice_equal``, also with the
+    ``_take`` backward the atomic ``index_add_``, printed). At
+    ``cfg.compute_dtype`` bf16 (phase ``node_bf16``) every B1 and B4 launch
+    must be a bf16 one, and B2's on the serve lists' bf16 rows (2 n a
+    step; the fetches and the relation lookup take float32 rows)."""
     import numpy as np
     import torch
 
@@ -1903,7 +2013,8 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
     from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
                                                         trace_breakdown)
 
-    label = "node_bf16" if cfg.compute_dtype == "bfloat16" else "node_train"
+    bf16 = cfg.compute_dtype == "bfloat16"
+    label = label or ("node_bf16" if bf16 else "node_train")
     tcfg = TrainConfig(batch_size=1024)
     ncfg, params, edges_pad = node_setup(cfg, edges, dev, dropout=0.5)
     step = build_node_sharded_train_step(make_mesh(N_SHARDS, dev), psg, ncfg,
@@ -1933,20 +2044,31 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
     want = {k: v * steps for k, v in node_launches(psg).items()}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
-    if label == "node_bf16":
-        only_bf16(label, counts, read_bf16_counts())
+    if bf16:
+        bf16_counts = read_bf16_counts()
+        only_bf16(label, counts, bf16_counts, kinds=("B1", "B4"))
+        if bf16_counts["B2"] != 2 * psg.n_devices * steps:
+            raise AssertionError(f"{label}: bf16 B2 launches "
+                                 f"{bf16_counts['B2']}")
     first_loss = float(first[0] / first[2])
     last_loss = float(last[0] / last[2])
     if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
         raise AssertionError(f"{label}: non-finite loss {first_loss}, "
                              f"{last_loss}")
     result = dict(steps=steps, batch_size=tcfg.batch_size, shards=N_SHARDS,
-                  step_ms=step_ms,
+                  scan=psg.uniform_caps, step_ms=step_ms,
                   train_edges_per_s=tcfg.batch_size / step_ms * 1e3,
                   launches=counts,
                   launches_per_step={k: v / steps for k, v in counts.items()},
                   peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
                   first_loss=first_loss, last_loss=last_loss)
+    batch = node_batch(edges_pad, torch.from_numpy(rng.integers(
+        0, edges.shape[0], tcfg.batch_size)).to(dev))
+    result["step_twice_equal"] = step_twice_equal(step, params, opt, batch,
+                                                  dev)
+    with take_index_add():
+        result["step_twice_equal_index_add"] = step_twice_equal(
+            step, params, opt, batch, dev)
     emit(label, **result)
 
     prof_steps = 10
@@ -1968,7 +2090,10 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30):
              step_ms_under_profiler=prof_ms, device_busy_ms_per_step=busy_ms,
              idle_share_two_windows=1.0 - busy_ms / step_ms,
              b4_share_of_busy=b4_us / bd["busy_us"], **bd)
-    return counts
+        result.update(device_busy_ms_per_step=busy_ms,
+                      idle_share=bd.get("idle_share"),
+                      idle_share_two_windows=1.0 - busy_ms / step_ms)
+    return counts, result
 
 
 def phase_node_bf16_encode(graph, psg, cfg, dev):
@@ -2092,7 +2217,18 @@ def phase_cli_bf16(tmp):
             "bfloat16", "--output_dir", str(tmp / f"cli_bf16_{name}"),
             *extra])
         counts[name] = read_counts()
-        only_bf16(f"cli_bf16/{name}", counts[name], read_bf16_counts())
+        bf16_counts = read_bf16_counts()
+        if name == "node":
+            # The sorted _take backwards: bf16 rows on the serve lists (2 of
+            # the 5 a shard makes in a step), float32 on the fetches and
+            # the relation lookup.
+            only_bf16("cli_bf16/node", counts[name], bf16_counts,
+                      kinds=("B1", "B4"))
+            if 5 * bf16_counts["B2"] != 2 * counts[name]["B2"]:
+                problems.append(f"node B2 launches {counts[name]['B2']}, "
+                                f"bf16 {bf16_counts['B2']}")
+        else:
+            only_bf16(f"cli_bf16/{name}", counts[name], bf16_counts)
         losses = run["history"]["train_losses"] + run["history"]["val_losses"]
         if not np.all(np.isfinite(losses)):
             problems.append(f"{name} losses {losses}")
@@ -2232,6 +2368,333 @@ def phase_node_cli(tmp):
     return train_counts
 
 
+def edge_setup(graph, cfg, edges, dev):
+    """The edge shards of ``graph`` over N_SHARDS (host build timed), the
+    mesh, parameters from seed 0 that require a gradient and the train
+    edges with their sentinel row, on the card."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.parallel.edge_shard import shard_rel_graph
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.train import loop
+
+    t0 = time.perf_counter()
+    esg = shard_rel_graph(graph, N_SHARDS)
+    shard_s = time.perf_counter() - t0
+    params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    return (esg, shard_s, make_mesh(N_SHARDS, dev), params,
+            loop.edges_with_sentinel(edges, dev))
+
+
+def phase_edge_grad(graph, cfg, edges, dev, label="edge_grad",
+                    f32_run=None):
+    """One edge-sharded step (4 shards on the card, encoder dropout 0.5 and
+    decoder dropout 0.1 with their masks given) on given candidates,
+    through B1 (2 launches per layer and (shard, relation) chunk with real
+    edges), against the same step through B1's plain version and against
+    the full-graph step (``loss_from_candidates``) on the same candidates
+    and masks: the loss within rtol 1e-5 and every gradient at the ``grad``
+    criterion. SGD at lr 0 leaves each run's gradient in ``.grad``.
+
+    At ``cfg.compute_dtype`` bf16 (``edge_bf16``, ``f32_run`` the float32
+    step on the same inputs): every B1 launch a bf16 one, the plain run
+    swapping B1 for its plain version inside ``GatherSegmentSum``
+    (``b1_plain``), the gradients within 1e-2 of each largest magnitude and
+    the losses within 1e-3 of the plain run's, each gradient within 5e-2 in
+    norm of the float32 edge step's and of the bf16 full-graph step's (the
+    edge layer rounds each partial to bf16, the full-graph one sums in
+    float32: the same function at other rounding points). Returns (largest
+    error, the kernel run)."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.ops.rgcn_segment import (aggregate,
+                                                         aggregate_plain)
+    from primekg_rgcn_tpu_torch.parallel.edge_shard import (
+        build_sharded_train_step)
+    from primekg_rgcn_tpu_torch.train import loop
+
+    bf16 = cfg.compute_dtype == "bfloat16"
+    esg, shard_s, mesh, params, edges_pad = edge_setup(graph, cfg, edges,
+                                                       dev)
+    leaves = list(named_leaves(params))
+    tcfg = TrainConfig(optimizer="sgd", lr=0.0, grad_clip=0.0)
+    opt = loop.make_optimizer(tcfg, params)
+    steps = {"kernel": build_sharded_train_step(mesh, esg, cfg, tcfg),
+             "plain": build_sharded_train_step(
+                 mesh, esg, cfg, tcfg,
+                 agg_fn=aggregate if bf16 else aggregate_plain)}
+    idx = torch.from_numpy(np.random.default_rng(0).integers(
+        0, edges.shape[0], 1024)).to(dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    cands = steps["kernel"].draw(node_batch(edges_pad, idx), gen)
+    enc_mask = torch.rand(graph.num_nodes, cfg.hidden_dim, generator=gen,
+                          device=dev) < 1.0 - cfg.dropout
+    dec = [torch.rand(c[2].shape[0], cfg.hidden_dim, generator=gen,
+                      device=dev) < 1.0 - cfg.decoder_dropout
+           for c in cands[0]]
+    runs = {}
+    for name, step in steps.items():
+        reset_counts()
+        with b1_plain() if bf16 and name == "plain" else \
+                contextlib.nullcontext():
+            stats = step.update(params, opt, cands, enc_masks=[enc_mask],
+                                dec_masks=[dec])
+        torch.cuda.synchronize()
+        runs[name] = dict(loss=float(stats[0] / stats[2]),
+                          grads={k: p.grad.clone() for k, p in leaves},
+                          counts=read_counts(),
+                          bf16_counts=read_bf16_counts())
+    opt.zero_grad(set_to_none=True)
+    full = tuple(torch.cat([c[i] for c in cands[0]]) for i in range(5))
+    loss, _ = loop.loss_from_candidates(params, graph, *full, cfg,
+                                        train=True, enc_mask=enc_mask,
+                                        dec_mask=torch.cat(dec))
+    loss.backward()
+    torch.cuda.synchronize()
+    runs["full_graph"] = dict(loss=loss.item(),
+                              grads={k: p.grad.clone() for k, p in leaves})
+    opt.zero_grad(set_to_none=True)
+    want = edge_launches(esg)
+    if runs["kernel"]["counts"] != want or \
+            any(runs["plain"]["counts"].values()):
+        raise AssertionError(
+            f"{label} launches: kernel {runs['kernel']['counts']}, plain "
+            f"{runs['plain']['counts']}; expected {want} and none")
+    if bf16:
+        only_bf16(label, runs["kernel"]["counts"],
+                  runs["kernel"]["bf16_counts"])
+    if not np.isfinite(runs["kernel"]["loss"]):
+        raise AssertionError(f"{label}: non-finite loss")
+    out, max_err = {}, 0.0
+    for ref in ("plain", "full_graph"):
+        got_loss, want_loss = runs["kernel"]["loss"], runs[ref]["loss"]
+        per_leaf = {}
+        if bf16 and ref == "full_graph":
+            for k, want_g in runs[ref]["grads"].items():
+                per_leaf[k] = {"norm_rel": norm_rel(
+                    runs["kernel"]["grads"][k], want_g, f"{label}/{ref}/{k}")}
+            out[ref] = dict(loss=want_loss, leaves=per_leaf)
+            continue
+        np.testing.assert_allclose(got_loss, want_loss,
+                                   rtol=1e-3 if bf16 else 1e-5)
+        for k, want_g in runs[ref]["grads"].items():
+            got = runs["kernel"]["grads"][k]
+            err = (close_rel(got, want_g, 1e-2, f"{label}/{ref}/{k}")
+                   * float(want_g.abs().max()) if bf16 else
+                   close_scaled(got, want_g, f"{label}/{ref}/{k}"))
+            max_err = max(max_err, err)
+            per_leaf[k] = {"max_abs_err": err,
+                           "max_abs": float(want_g.abs().max())}
+        out[ref] = dict(loss=want_loss, leaves=per_leaf)
+    if bf16:
+        out["float32_edge_step"] = dict(loss=f32_run["loss"], leaves={
+            k: {"norm_rel": norm_rel(runs["kernel"]["grads"][k], want_g,
+                                     f"{label}/float32/{k}")}
+            for k, want_g in f32_run["grads"].items()})
+    emit(label, shards=N_SHARDS, shard_s=shard_s,
+         local_edges=esg.src.shape[1], loss_kernel=runs["kernel"]["loss"],
+         launches=runs["kernel"]["counts"],
+         launches_bf16=runs["kernel"]["bf16_counts"], against=out)
+    return max_err, runs["kernel"]
+
+
+def norm_rel(got, want, name, limit=5e-2):
+    """||got - want|| / ||want||, which must stay within ``limit``."""
+    rel = float((got.float() - want.float()).norm()
+                / want.float().norm().clamp(min=1e-30))
+    if rel > limit:
+        raise AssertionError(f"{name}: differs by {rel:.3g} in norm, more "
+                             f"than {limit}")
+    return rel
+
+
+def phase_edge_train(graph, cfg, edges, dev, tmp, steps=30,
+                     label="edge_train"):
+    """``build_sharded_train_step`` over 4 edge shards at batch 1024, adam,
+    clip 1.0, dropout 0.5: a fresh host batch each step (pinned copy), 3
+    warm-up then ``steps`` timed steps on the host clock, the B1 launches
+    asserted (``edge_launches``), peak memory, a 10-step profile, and
+    ``step_twice_equal``, which must hold: B1 and the shard-order sum are
+    deterministic. Returns the launches and the figures."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.parallel.edge_shard import (
+        build_sharded_train_step)
+    from primekg_rgcn_tpu_torch.train import loop
+    from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
+                                                        trace_breakdown)
+
+    tcfg = TrainConfig(batch_size=1024)
+    esg, shard_s, mesh, params, edges_pad = edge_setup(graph, cfg, edges,
+                                                       dev)
+    t0 = time.perf_counter()
+    step = build_sharded_train_step(mesh, esg, cfg, tcfg)
+    build_s = time.perf_counter() - t0
+    opt = loop.make_optimizer(tcfg, params)
+    gen = torch.Generator(dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def one():
+        idx = torch.from_numpy(rng.integers(0, edges.shape[0],
+                                            tcfg.batch_size))
+        idx = idx.pin_memory().to(dev, non_blocking=True)
+        return step(params, opt, node_batch(edges_pad, idx), gen)
+
+    first = one()
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        last = one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = read_counts()
+    want = {k: v * steps for k, v in edge_launches(esg).items()}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    losses = [float(first[0] / first[2]), float(last[0] / last[2])]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    batch = node_batch(edges_pad, torch.from_numpy(rng.integers(
+        0, edges.shape[0], tcfg.batch_size)).to(dev))
+    twice = step_twice_equal(step, params, opt, batch, dev)
+    if not twice:
+        raise AssertionError(f"{label}: two runs of one step from one state "
+                             f"differ")
+    result = dict(steps=steps, batch_size=tcfg.batch_size, shards=N_SHARDS,
+                  shard_s=shard_s, build_s=build_s, step_ms=step_ms,
+                  train_edges_per_s=tcfg.batch_size / step_ms * 1e3,
+                  launches=counts,
+                  launches_per_step={k: v / steps for k, v in counts.items()},
+                  peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+                  first_loss=losses[0], last_loss=losses[1],
+                  step_twice_equal=twice)
+    prof_steps = 10
+    torch.cuda.synchronize()
+    with profile_trace(tmp / f"{label}_profile"):
+        t0 = time.perf_counter()
+        for _ in range(prof_steps):
+            one()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
+    bd = trace_breakdown(tmp / f"{label}_profile" / "trace.json")
+    if bd is None:
+        result["idle_share"] = "not measured"
+    else:
+        busy_ms = bd["busy_us"] / prof_steps / 1e3
+        result.update(step_ms_under_profiler=prof_ms,
+                      device_busy_ms_per_step=busy_ms,
+                      idle_share=bd["idle_share"],
+                      idle_share_two_windows=1.0 - busy_ms / step_ms,
+                      us_by_kind=bd["us_by_kind"])
+    emit(label, **result)
+    return counts, result
+
+
+def phase_edge_cli(tmp):
+    """``train.cli.main --shard edge --n_devices 4
+    --gradient_accumulation_steps 2`` at synthetic scale 0.1 for 2 epochs
+    (B1 launches, no B4), then ``evaluate.cli.main`` on its best model.
+    Returns the training's and the evaluation's launches."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.train import cli as train_cli
+
+    out = tmp / "edge_cli"
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_cli.main([
+        "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+        "--seed", "0", "--device", "cuda", "--shard", "edge",
+        "--n_devices", str(N_SHARDS), "--gradient_accumulation_steps", "2",
+        "--output_dir", str(out)])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    hist = result["history"]
+    problems = []
+    if not np.all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
+        problems.append(f"losses {hist}")
+    for f in ("best_model.pt", "final_model.pt"):
+        if not (out / "models" / f).exists():
+            problems.append(f"missing models/{f}")
+    if counts["B1"] == 0 or counts["B4"] or counts["B2"]:
+        problems.append(f"launches {counts}")
+    if problems:
+        raise AssertionError("edge_cli: " + "; ".join(problems))
+    emit("edge_cli", seconds=seconds, launches=counts, history=hist,
+         epoch_time_s=result["epoch_times_s"])
+    return counts, eval_cli_after(out, "edge_cli", model="best_model.pt")
+
+
+def phase_full_kg_node_serve(graph, psg, dev):
+    """The node-sharded encode on config 3's graph (``uniform_caps`` at R =
+    30, so the relation scan's forward) against the dense encode, at rtol
+    2e-4 with atol 2e-4 of the largest magnitude; one encode's launches
+    (``node_launches``); then the sharded top-10 of 8 heads against the
+    dense top-10, ids equal where the scores are untied. Returns the
+    encode's launches."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import ModelConfig
+    from primekg_rgcn_tpu_torch.evaluate.sharded_ranking import (
+        build_sharded_topk)
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.ops.distmult import distmult_score_all_tails
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.parallel.node_shard import (
+        build_node_sharded_forward)
+
+    cfg = ModelConfig(num_nodes=graph.num_nodes,
+                      num_relations=graph.num_relations)
+    params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    mesh = make_mesh(N_SHARDS, dev)
+    encode = build_node_sharded_forward(mesh, psg, cfg, gather=False)
+    k = 10
+    heads = torch.arange(0, graph.num_nodes, graph.num_nodes // 8,
+                         device=dev)[:8]
+    rels = torch.arange(8, device=dev) % graph.num_relations
+    with torch.no_grad():
+        reset_counts()
+        emb_dm = encode(params)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        dense = rgcn.get_embeddings(params, graph, cfg)
+        got = emb_dm.reshape(-1, cfg.hidden_dim)[:graph.num_nodes]
+        top = float(dense.abs().max())
+        torch.testing.assert_close(got, dense, rtol=2e-4, atol=2e-4 * top,
+                                   msg=lambda m: f"full_kg_node_serve: {m}")
+        rel_emb = params["decoder"]["rel_emb"]
+        s_i = build_sharded_topk(mesh, emb_dm, rel_emb, graph.num_nodes,
+                                 k)(heads, rels)
+        ref = torch.topk(distmult_score_all_tails(
+            dense[heads], rel_emb[rels], dense), k, dim=1)
+        encode_ms = host_ms(lambda: encode(params), reps=5)
+    if counts != node_launches(psg, step=False):
+        raise AssertionError(f"full_kg_node_serve: launches {counts}, "
+                             f"expected {node_launches(psg, step=False)}")
+    exact = [untied_ids_equal(*(a[q].cpu().numpy() for a in (
+        s_i[0], s_i[1], ref.values, ref.indices))) for q in range(8)]
+    emit("full_kg_node_serve", shards=N_SHARDS, scan=psg.uniform_caps,
+         launches=counts,
+         max_abs_err=float((got - dense).abs().max()), max_abs=top,
+         queries=8, topk=k, ids_equal_dense_exactly=all(exact),
+         encode_ms=encode_ms)
+    return counts
+
+
 EVAL_KEYS = {
     "classification": {"auc_roc", "auc_pr", "precision", "recall",
                        "f1_score", "threshold"},
@@ -2245,10 +2708,11 @@ MODEL_INFO_KEYS = {"checkpoint_path", "epoch", "num_nodes", "num_relations",
                    "best_val_loss", "best_val_acc"}
 
 
-def eval_cli_after(out, label, *extra):
-    """``evaluate.cli.main`` on a CLI phase's final model and synthetic
-    data; AUC-ROC and MRR must be finite (2 epochs at scale 0.1 is a smoke
-    run, so no value is asserted). Returns the launches of the call."""
+def eval_cli_after(out, label, *extra, model="final_model.pt"):
+    """``evaluate.cli.main`` on a CLI phase's ``model`` (its final one by
+    default) and synthetic data; AUC-ROC and MRR must be finite (2 epochs
+    at scale 0.1 is a smoke run, so no value is asserted). Returns the
+    launches of the call."""
     import numpy as np
 
     from primekg_rgcn_tpu_torch.evaluate import cli as eval_cli
@@ -2256,7 +2720,7 @@ def eval_cli_after(out, label, *extra):
     reset_counts()
     t0 = time.perf_counter()
     m = eval_cli.main([
-        "--model_path", str(out / "models" / "final_model.pt"),
+        "--model_path", str(out / "models" / model),
         "--data_dir", str(out / "synthetic_data"),
         "--output_dir", str(out / "eval"), "--device", "cuda", *extra])
     seconds = time.perf_counter() - t0
@@ -3757,9 +4221,10 @@ def main():
         b4_rows = phase_kernel_b4(psg, dev)
         b4_16_rows = phase_kernel_b4(psg, dev, torch.bfloat16)
         ngrad_err = phase_node_grad(graph, psg, cfg, edges, dev)
-        node_counts = phase_node_train(psg, cfg, edges, dev, Path(tmp))
+        node_counts, _ = phase_node_train(psg, cfg, edges, dev, Path(tmp))
         node16_encode = phase_node_bf16_encode(graph, psg, cfg16, dev)
-        node16_counts = phase_node_train(psg, cfg16, edges, dev, Path(tmp))
+        node16_counts, _ = phase_node_train(psg, cfg16, edges, dev,
+                                            Path(tmp))
         node_data = Path(tmp) / "node_serve"
         node_data.mkdir()
         artifacts.save_split_npz(node_data / "full_graph.npz", split)
@@ -3772,6 +4237,14 @@ def main():
         cli_eval["node_cli"] = eval_cli_after(
             Path(tmp) / "node_cli", "node_cli", "--shard", "node",
             "--n_devices", str(N_SHARDS))
+
+        # -- the edge-sharded layout ----------------------------------------
+        edge_err, edge_f32 = phase_edge_grad(graph, cfg, edges, dev)
+        edge16_err, _ = phase_edge_grad(graph, cfg16, edges, dev,
+                                        label="edge_bf16", f32_run=edge_f32)
+        del edge_f32
+        edge_counts, _ = phase_edge_train(graph, cfg, edges, dev, Path(tmp))
+        edge_cli_counts, cli_eval["edge_cli"] = phase_edge_cli(Path(tmp))
 
         # -- 19-20. evaluation --------------------------------------------
         eval_ctx = phase_eval(Path(tmp), node_data, raw, params, cfg, graph,
@@ -3799,6 +4272,37 @@ def main():
         kg_sampled, kg_sampled_counts = phase_sampled_train(
             g3, cfg3, edges3, dev, Path(tmp), configs=("block/slim",),
             label="full_kg_sampled")
+
+        # -- the sharded layouts on config 3's graph ------------------------
+        t0 = time.perf_counter()
+        psg3 = partition_nodes(g3_cpu, N_SHARDS)
+        partition_s = time.perf_counter() - t0
+        psg3_kept = partition_nodes(g3_cpu, N_SHARDS, uniform_caps=False)
+        emit("full_kg_node_partition", seconds=partition_s,
+             shards=N_SHARDS, uniform_caps=psg3.uniform_caps,
+             n_loc=psg3.n_loc, halo_width=psg3.halo_width,
+             local_cap=psg3.offsets_local[1], halo_cap=psg3.offsets_halo[1],
+             real_local_edges=int((psg3.dst_local < psg3.n_loc).sum()),
+             real_halo_edges=int((psg3.dst_halo < psg3.n_loc).sum()),
+             launches_per_step=node_launches(psg3),
+             launches_per_step_kept_partials=node_launches(psg3_kept))
+        kg_ngrad_err = phase_node_grad(g3, psg3, cfg3, edges3, dev,
+                                       label="full_kg_node_grad")
+        kg_node = {}
+        for name, part in (("full_kg_node_train", psg3),
+                           ("full_kg_node_train_kept_partials", psg3_kept)):
+            kg_node[name] = phase_node_train(part, cfg3, edges3, dev,
+                                             Path(tmp), steps=10, label=name)
+        scan_mb, kept_mb = (kg_node[k][1]["peak_memory_mb"] for k in kg_node)
+        emit("full_kg_node_memory", scan_peak_memory_mb=scan_mb,
+             kept_partials_peak_memory_mb=kept_mb, saved_mb=kept_mb - scan_mb)
+        del psg3_kept
+        kg_nserve = phase_full_kg_node_serve(g3, psg3, dev)
+        kg_egrad_err, _ = phase_edge_grad(g3, cfg3, edges3, dev,
+                                          label="full_kg_edge_grad")
+        kg_edge_counts, _ = phase_edge_train(g3, cfg3, edges3, dev, Path(tmp),
+                                             steps=10,
+                                             label="full_kg_edge_train")
 
     # -- 23. summary --------------------------------------------------------
     def total(rows, key):
@@ -3830,12 +4334,25 @@ def main():
                                  k: v["launches"]
                                  for k, v in kg_train.items()},
                              "full_kg_trainer": kg_trainer["B1"],
-                             "train_restricted_on": restricted_launches},
+                             "train_restricted_on": restricted_launches,
+                             "edge_train": edge_counts["B1"],
+                             "edge_cli": edge_cli_counts["B1"],
+                             "full_kg_node_train": {
+                                 k: v[0]["B1"] for k, v in kg_node.items()},
+                             "full_kg_node_serve": kg_nserve["B1"],
+                             "full_kg_edge_train": kg_edge_counts["B1"]},
         "launches_per_step": {"forward": 6, "backward": 6},
+        "launches_per_step_sharded": {
+            "node_train": node_counts["B1"] / 30,
+            "edge_train": edge_counts["B1"] / 30,
+            **{k: v[1]["launches_per_step"]["B1"]
+               for k, v in kg_node.items()},
+            "full_kg_edge_train": kg_edge_counts["B1"] / 10},
         "launches_per_step_full_kg": {
             k: v["launches_per_step"] for k, v in kg_train.items()},
         "max_abs_err": max(max_err, bwd_err, grad_err, ngrad_err,
-                           kg_grad_err),
+                           kg_grad_err, edge_err, kg_ngrad_err,
+                           kg_egrad_err),
         "ms": total(main_rows, "kernel_ms"),
         "call_ms": total(main_rows, "kernel_call_ms"),
         "wrapper_call_ms": total(main_rows, "wrapper_call_ms"),
@@ -3871,7 +4388,7 @@ def main():
                 "cli_bf16": {k: v["B1"] for k, v in cli16_launches.items()},
                 "node_bf16": node16_counts["B1"],
                 "node_bf16_encode": node16_encode["B1"]},
-            "max_abs_err": max(b1_16_err, grad16_err),
+            "max_abs_err": max(b1_16_err, grad16_err, edge16_err),
             "per": "the bf16-table variant (gather_segment_sum_bf16) at the "
                    "same twelve shapes, the tables rounded to bf16; every "
                    "launch on these paths is a bf16 one (grad_bf16: 6 "
@@ -3879,7 +4396,10 @@ def main():
         "per": "one training step: ms, plain_ms, bound_ms and library_ms sum "
                "the six forward launches (one encode), the bwd_ keys the six "
                "backward launches over the transpose CSR; launches is the "
-               "train phase's count. " + TIMES}, {
+               "train phase's count; launches_per_step_sharded gives the "
+               "node and edge steps' (4 shards; config 3's node step "
+               "through the relation scan, 3 launches a bucket, beside the "
+               "kept partials' 2). " + TIMES}, {
         "name": "dense_sorted_segment_sum", "id": "B2", "route": "cuda",
         "source": "primekg_rgcn_tpu_torch/csrc/dense_segment_sum.cu",
         "replaces": "primekg_rgcn_tpu/ops/pallas/segment_sum.py:420",
@@ -3892,8 +4412,13 @@ def main():
             "full_kg_train": {k: v["b2_launches"]
                               for k, v in kg_train.items()},
             "full_kg_trainer": kg_trainer["B2"],
-            "train_restricted_on": restricted_b2},
-        "launches_per_step": {"sampled_block": 2, "restricted_step": 1},
+            "train_restricted_on": restricted_b2,
+            "node_train": node_counts["B2"],
+            "node_bf16": node16_counts["B2"],
+            "full_kg_node_train": {k: v[0]["B2"]
+                                   for k, v in kg_node.items()}},
+        "launches_per_step": {"sampled_block": 2, "restricted_step": 1,
+                              "node_step": 5 * N_SHARDS},
         "max_abs_err": max(b2_err, sgrad_err, kg_sgrad_err,
                            kg_b2["max_abs_err"],
                            *(r["max_abs_err"] for r in kg_b2_streams)),
@@ -3931,7 +4456,10 @@ def main():
                "backward), a config-3 restricted step 1; streams gives "
                "every timed stream (the step's identity and dedup streams "
                "at float32 and bf16, the config-3 restricted layer's, "
-               "config 4's identity and dedup); library_ms is index_add_; "
+               "config 4's identity and dedup); a node-sharded step makes "
+               "20 (the sorted backward of each shard's serve lists, "
+               "endpoint fetches and relation lookup); library_ms is "
+               "index_add_; "
                "launches is the sampled_train block/slim count. "
                % (b2_rows[0]["rows"], b2_rows[0]["d"],
                   b2_rows[0]["segments"]) + TIMES}, {
@@ -3967,7 +4495,10 @@ def main():
                              "node_cli": ncli_counts["B4"],
                              "node_eval": neval_counts["B4"],
                              "eval_after_node_cli":
-                                 cli_eval["node_cli"]["B4"]},
+                                 cli_eval["node_cli"]["B4"],
+                             "full_kg_node_train": {
+                                 k: v[0]["B4"] for k, v in kg_node.items()},
+                             "full_kg_node_serve": kg_nserve["B4"]},
         "launches_per_step": {"forward": 2, "backward": 2},
         "max_abs_err": 0,
         "ms": total(b4_rows, "kernel_ms"),

@@ -50,6 +50,19 @@ in ``ops/cuda/segment_sum.py``, or its plain version on the CPU).
   node layer, halo    parallel/node_shard.py       serve rows in bf16
   payload             :476-485, :493-494, :544     through B4; B1 over
                                                    bf16 tables
+  node relation scan  parallel/node_shard.py       as the unrolled loop;
+                      :355-458                     the table's gradient
+                                                   summed over the
+                                                   relations in float32,
+                                                   rounded once
+  node ``_take``      ``jnp.take``'s VJP, a        float32 sum (B2),
+  backward            scatter-add in the rows'     cast to the table's
+                      dtype                        dtype
+  edge layer          parallel/edge_shard.py       aggregate rounded to
+                      :157-245                     bf16, normalised,
+                                                   summed over the
+                                                   shards and transformed
+                                                   in bf16; float32 out
   ==================  ===========================  =====================
 
   Torch refuses a matmul of two dtypes where ``jnp`` promotes, so

@@ -34,14 +34,22 @@ cotangent to bf16 first (``ROADMAP.md``, queue C).
 
 All shards of a mesh live on one device (``parallel/mesh.py``): a sharded
 function is a loop over the shards and the collectives are plain functions.
-The relation loop is unrolled; the JAX package's ``lax.scan`` path for
-uniform caps (R >= 16, the config-5 graph) is not ported yet
-(``ROADMAP.md``).
+
+Two relation loops, as in the JAX layer. A partition without
+``uniform_caps`` (the default below 16 relations) runs the unrolled loop,
+whose backward keeps each relation's normalised partial. A ``uniform_caps``
+partition (the default from 16 relations: full PrimeKG's 30) runs
+:class:`ScanAccumulate`, the counterpart of ``_scan_accumulate``: one
+accumulator in the forward, and a backward that recomputes each relation's
+partial (B1 over ``rowptr``) before it routes the cotangent back to the
+table (B1 over ``t_rowptr``), so that nothing of size R x n_loc x D is kept
+between the two. Its buckets are the real edges too: the uniform padding
+only shapes the partition arrays.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +59,8 @@ from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph, edge_arrays_from_graph
 from primekg_rgcn_tpu_torch.models.rgcn import (Params, compute_dtype,
                                                 dropout)
+from primekg_rgcn_tpu_torch.ops.cuda.dense_segment_sum import \
+    dense_sorted_segment_sum
 from primekg_rgcn_tpu_torch.ops.cuda.halo import HaloExchange
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
@@ -116,16 +126,6 @@ class NodeShardedGraph:
     n_devices: int
     uniform_caps: bool
 
-    _TENSORS = ("src_local", "dst_local", "src_halo", "dst_halo",
-                "t_src_local", "t_dst_local", "t_src_halo", "t_dst_halo",
-                "inv_deg", "serve", "rowptr_local", "t_rowptr_local",
-                "rowptr_halo", "t_rowptr_halo")
-
-    def to(self, device) -> "NodeShardedGraph":
-        """The same partition with every array on ``device``."""
-        return replace(self, **{k: getattr(self, k).to(device)
-                                for k in self._TENSORS})
-
 
 def partition_nodes(graph: RelGraph, n_devices: int, *,
                     pad_multiple: int = 256,
@@ -134,8 +134,7 @@ def partition_nodes(graph: RelGraph, n_devices: int, *,
 
     ``uniform_caps`` pads every relation bucket to the same capacity, the
     layout of the JAX package's ``lax.scan`` layer; default on when
-    num_relations >= 16. The port's layer runs the unrolled relation loop
-    only and refuses a uniform-caps partition.
+    num_relations >= 16. The layer then runs :class:`ScanAccumulate`.
     """
     n = n_devices
     if uniform_caps is None:
@@ -286,37 +285,48 @@ def partition_nodes(graph: RelGraph, n_devices: int, *,
 
 
 class ShardOps(NamedTuple):
-    """One shard's operands: its serve list (int64 [n, P]) and, per
-    relation, the local and halo groups' ``GatherSegmentSum`` operands over
-    the bucket's real edges (``None`` for a bucket without any)."""
+    """One shard's operands: its serve list (int64 [n, P]) with its sort
+    (``_sort_ids``, for the deterministic backward of ``_take``), its
+    ``inv_deg`` rows [R, n_loc + 1] and, per relation, the local and halo
+    groups' ``GatherSegmentSum`` operands over the bucket's real edges
+    (``None`` for a bucket without any)."""
 
     serve: torch.Tensor
+    serve_sort: Tuple[torch.Tensor, torch.Tensor]
+    inv_deg: torch.Tensor
     local: List[Optional[AggOp]]
     halo: List[Optional[AggOp]]
 
 
-def build_shard_ops(sg: NodeShardedGraph) -> List[ShardOps]:
-    """Per-shard operands on the partition's device: slices of its arrays,
-    no copies (but the serve lists, widened once for indexing). Reads each
-    bucket's real edge count back to the host once."""
-    if sg.uniform_caps:
-        raise NotImplementedError(
-            "uniform_caps partitions feed the JAX package's lax.scan layer "
-            "(_scan_accumulate), which is not ported yet (ROADMAP.md A10); "
-            "partition with uniform_caps=False")
+def build_shard_ops(sg: NodeShardedGraph, device=None) -> List[ShardOps]:
+    """Per-shard operands on ``device`` (default: the partition's). Each
+    group's real edges are packed into one array (its buckets' slices), so
+    only they reach the device: a ``uniform_caps`` partition pads every
+    bucket to the largest one's capacity (1.6M edges at config 3), which
+    the layer never reads. Reads each bucket's real edge count back to the
+    host once."""
+    device = sg.src_local.device if device is None else torch.device(device)
 
     def group(d, src, t_dst, rowptr, t_rowptr, offs):
+        reals = rowptr[d, :, -1].tolist()
+        spans = [(offs[r], offs[r] + c) for r, c in enumerate(reals)]
+        packed = [torch.cat([a[d, s:e] for s, e in spans]).to(device)
+                  for a in (src, t_dst)]
+        rp, t_rp = rowptr[d].to(device), t_rowptr[d].to(device)
         ops: List[Optional[AggOp]] = []
-        for r in range(sg.num_relations):
-            s = offs[r]
-            e = s + int(rowptr[d, r, -1])
-            ops.append(None if e == s else AggOp(
-                src=src[d, s:e], rowptr=rowptr[d, r], scale=None,
-                t_ids=t_dst[d, s:e], t_rowptr=t_rowptr[d, r], t_scale=None))
+        pos = 0
+        for r, c in enumerate(reals):
+            ops.append(None if c == 0 else AggOp(
+                src=packed[0][pos:pos + c], rowptr=rp[r], scale=None,
+                t_ids=packed[1][pos:pos + c], t_rowptr=t_rp[r],
+                t_scale=None))
+            pos += c
         return ops
 
     return [ShardOps(
-        serve=sg.serve[d].long(),
+        serve=sg.serve[d].to(device).long(),
+        serve_sort=_sort_ids(sg.serve[d].to(device)),
+        inv_deg=sg.inv_deg[d].to(device),
         local=group(d, sg.src_local, sg.t_dst_local, sg.rowptr_local,
                     sg.t_rowptr_local, sg.offsets_local),
         halo=group(d, sg.src_halo, sg.t_dst_halo, sg.rowptr_halo,
@@ -324,15 +334,51 @@ def build_shard_ops(sg: NodeShardedGraph) -> List[ShardOps]:
         for d in range(sg.n_devices)]
 
 
-def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _sort_ids(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int32 sorted ids, int64 order) of ``ids`` flattened, by a stable
+    sort, which is deterministic on the card."""
+    srt, order = torch.sort(ids.reshape(-1), stable=True)
+    return srt.to(torch.int32), order
+
+
+class TakeRows(torch.autograd.Function):
     """``table[ids]`` as ``jnp.take``: rows of ``table`` at ``ids`` of any
-    shape. Through ``index_select``, whose backward is ``index_add_``: an
-    id recurs thousands of times in a serve list (the sentinel), a fetch
-    (the sentinel) or a relation lookup, and the backward of advanced
-    indexing accumulates a repeated index serially (51 ms of a 66 ms step
-    of device time on an H100, ``bench.py`` graph, n = 4)."""
-    return table.index_select(0, ids.reshape(-1)).view(
-        *ids.shape, table.shape[1])
+    shape, ``apply(table, ids, sort)``; ``sort`` is ``_sort_ids(ids)`` when
+    the ids are a constant (a serve list), else None.
+
+    The forward is ``index_select``. The backward sorts the cotangent rows
+    by id (each step's ids sorted there, a constant's sort given) and sums
+    them into the table's rows with kernel B2 (``dense_sorted_segment_sum``,
+    its plain version on the CPU), in float32, cast to the table's dtype.
+    An id recurs thousands of times in a serve list (the sentinel), a fetch
+    (the sentinel) or a relation lookup: the backward of advanced indexing
+    adds a repeated index serially (51 ms of a 66 ms step of device time on
+    an H100, ``bench.py`` graph, n = 4), and ``index_select``'s own,
+    ``index_add_``, adds it with float atomics, in an order that changes
+    from run to run. Sorted, the sum is the same bits every time.
+    """
+
+    @staticmethod
+    def forward(ctx, table, ids, sort):
+        flat = ids.reshape(-1)
+        ctx.rows, ctx.dtype, ctx.sort = table.shape[0], table.dtype, sort
+        if sort is None:
+            ctx.save_for_backward(flat)
+        return table.index_select(0, flat).view(*ids.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        srt, order = ctx.sort or _sort_ids(*ctx.saved_tensors)
+        rows = g.reshape(-1, g.shape[-1]).index_select(0, order)
+        return (dense_sorted_segment_sum(rows, srt, ctx.rows).to(ctx.dtype),
+                None, None)
+
+
+def _take(table: torch.Tensor, ids: torch.Tensor,
+          sort: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+          ) -> torch.Tensor:
+    """``TakeRows``: ``table[ids]`` with a sorted, deterministic backward."""
+    return TakeRows.apply(table, ids, sort)
 
 
 def exchange(sends: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -366,6 +412,108 @@ def _accumulate(out, table, ops, inv_deg, w_rel, n_loc, aggregate_first,
     return out
 
 
+def _transposed(op: AggOp) -> AggOp:
+    """The bucket's operands over its transpose CSR: gathering rows of an
+    [n_loc + 1, D] cotangent and summing them into the table's rows."""
+    return AggOp(src=op.t_ids, rowptr=op.t_rowptr, scale=op.t_scale,
+                 t_ids=op.src, t_rowptr=op.rowptr, t_scale=op.scale)
+
+
+class ScanAccumulate(torch.autograd.Function):
+    """``sum_r norm(B1_r(table)) @ W_r`` over one edge group's relations
+    with memory O(1) in R both ways, the counterpart of the JAX package's
+    ``_scan_accumulate`` and its custom VJP
+    (``primekg_rgcn_tpu/parallel/node_shard.py:355-458``).
+
+    ``apply(table, inv, w_all, ops, n_loc, aggregate_first, agg_fn)``:
+    table [rows, Din] (the local or halo table with its zero row), inv
+    [R, n_loc] and w_all [R, Din, Dout], all in the compute dtype; ``ops``
+    the group's R bucket operands (``None`` for a bucket without real
+    edges); ``agg_fn(table, op)`` the bucket's gather + segment-sum
+    (``aggregate``: kernel B1 on the card). Returns the float32 [n_loc,
+    Dout] sum, each relation's term computed as the unrolled loop's
+    ``_one_relation`` computes it.
+
+    The forward keeps one accumulator; only the inputs are saved. The
+    backward walks the relations again: it recomputes each partial with B1
+    over ``rowptr``, forms ``dW_r`` and ``d_inv_r``, and routes the
+    cotangent to the table's rows with B1 over ``t_rowptr`` (the halo
+    group's transpose runs over the halo table's n*P + 1 rows), as
+    ``_scan_acc_bwd`` does. B1's calls inside carry no autograd graph (the
+    Function is their gradient); a bf16 table's cotangent is rounded to
+    bf16 before B1, as ``GatherSegmentSum`` rounds it, and ``d_table`` is
+    summed over the relations in float32 and rounded once.
+    """
+
+    @staticmethod
+    def forward(ctx, table, inv, w_all, ops, n_loc, aggregate_first,
+                agg_fn):
+        ctx.save_for_backward(table, inv, w_all)
+        ctx.ops, ctx.n_loc = ops, n_loc
+        ctx.aggregate_first, ctx.agg_fn = aggregate_first, agg_fn
+        out = torch.zeros(n_loc, w_all.shape[2], dtype=torch.float32,
+                          device=table.device)
+        for r, op in enumerate(ops):
+            if op is not None:
+                out += _one_relation(table, inv[r, :, None], w_all[r], op=op,
+                                     n_loc=n_loc,
+                                     aggregate_first=aggregate_first,
+                                     agg_fn=agg_fn)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        table, inv, w_all = ctx.saved_tensors
+        n_loc, agg_fn = ctx.n_loc, ctx.agg_fn
+        need_table, need_inv, need_w = ctx.needs_input_grad[:3]
+        g = g.float()
+        d_table = (torch.zeros(table.shape, dtype=torch.float32,
+                               device=table.device) if need_table else None)
+        d_inv = torch.zeros_like(inv) if need_inv else None
+        d_w = torch.zeros_like(w_all) if need_w else None
+
+        def to_table(cot, op):
+            # The cotangent of the bucket's [n_loc + 1, D] aggregate (its
+            # dummy row zero) summed into the table's rows, float32.
+            pad = torch.cat([cot, cot.new_zeros(1, cot.shape[1])])
+            return agg_fn(pad.to(table.dtype).contiguous(), _transposed(op))
+
+        for r, op in enumerate(ctx.ops):
+            if op is None:
+                continue
+            w_r, inv_r = w_all[r], inv[r, :, None]
+            wf = w_r.float()
+            if ctx.aggregate_first:
+                part = agg_fn(table, op)[:n_loc] if (need_inv or need_w) \
+                    else None
+                gw = g @ wf.T                              # [n_loc, Din]
+                if need_w:
+                    d_w[r] = ((part * inv_r).T @ g).to(w_all.dtype)
+                if need_inv:
+                    d_inv[r] = (part * gw).sum(1).to(inv.dtype)
+                if need_table:
+                    d_table += to_table(gw * inv_r, op)
+            else:
+                if need_inv:
+                    part = agg_fn((table @ w_r).contiguous(), op)[:n_loc]
+                    d_inv[r] = (part * g).sum(1).to(inv.dtype)
+                if need_table or need_w:
+                    d_tw = to_table(g * inv_r, op).to(table.dtype)
+                    if need_w:
+                        d_w[r] = (table.T @ d_tw).to(w_all.dtype)
+                    if need_table:
+                        d_table += d_tw @ w_r.T
+        if d_table is not None:
+            d_table = d_table.to(table.dtype)
+        return d_table, d_inv, d_w, None, None, None, None
+
+
+def _scan(out, table, ops, inv_deg, w_rel, n_loc, aggregate_first, agg_fn):
+    """Fold one edge group into ``out`` through :class:`ScanAccumulate`."""
+    return out + ScanAccumulate.apply(table, inv_deg[:, :n_loc], w_rel, ops,
+                                      n_loc, aggregate_first, agg_fn)
+
+
 def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
                        sg: NodeShardedGraph, shard_ops: Sequence[ShardOps],
                        *, agg_fn=aggregate, exchange_fn=exchange,
@@ -379,8 +527,10 @@ def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
     The exchange comes first; then each shard aggregates its local-source
     group (which needs no received row), then its halo-source group over
     the received rows. Both groups normalise by the dense ``inv_deg``
-    table. ``agg_fn(table, op)`` is the per-bucket gather + segment-sum
-    (default: ``GatherSegmentSum``, kernel B1 both ways on the card);
+    table; a ``uniform_caps`` partition folds each group through
+    :class:`ScanAccumulate`. ``agg_fn(table, op)`` is the per-bucket
+    gather + segment-sum (default: ``GatherSegmentSum``, kernel B1 both
+    ways on the card);
     ``exchange_fn(sends)`` the exchange (default: ``HaloExchange``, kernel
     B4 both ways on the card). Only a reference passes the plain versions.
     """
@@ -393,21 +543,22 @@ def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
     x_pads = [torch.cat([x, x.new_zeros(1, din)]) for x in xs]
 
     # 1) the exchange: shard d sends rows x_pad[d][serve[d][o]] to peer o.
-    recvs = exchange_fn([_take(x_pads[d], shard_ops[d].serve)
-                         for d in range(n)])
+    recvs = exchange_fn([_take(x_pads[d], shard_ops[d].serve,
+                               shard_ops[d].serve_sort) for d in range(n)])
 
     aggregate_first = din <= dout
+    fold = _scan if sg.uniform_caps else _accumulate
     outs = []
     for d in range(n):
         out = xs[d] @ w_root + bias[None, :]
-        inv_deg = sg.inv_deg[d].to(compute_dtype)
+        inv_deg = shard_ops[d].inv_deg.to(compute_dtype)
         # 2) local-source group, 3) halo-source group.
-        out = _accumulate(out, x_pads[d], shard_ops[d].local, inv_deg,
-                          w_rel, n_loc, aggregate_first, agg_fn)
+        out = fold(out, x_pads[d], shard_ops[d].local, inv_deg, w_rel,
+                   n_loc, aggregate_first, agg_fn)
         halo_table = torch.cat([recvs[d].reshape(-1, din),
                                 recvs[d].new_zeros(1, din)])
-        out = _accumulate(out, halo_table, shard_ops[d].halo, inv_deg,
-                          w_rel, n_loc, aggregate_first, agg_fn)
+        out = fold(out, halo_table, shard_ops[d].halo, inv_deg, w_rel,
+                   n_loc, aggregate_first, agg_fn)
         outs.append(out.float())
     return outs
 
@@ -443,12 +594,11 @@ def sharded_encoder(params: Params, sg: NodeShardedGraph,
                               exchange_fn=exchange_fn, compute_dtype=cdt)
 
 
-def _on_mesh(mesh: Mesh, sg: NodeShardedGraph):
+def _on_mesh(mesh: Mesh, sg: NodeShardedGraph) -> List[ShardOps]:
     if sg.n_devices != mesh.n_shards:
         raise ValueError(f"partition has {sg.n_devices} shards, mesh "
                          f"{mesh.n_shards}")
-    sg = sg.to(mesh.device)
-    return sg, build_shard_ops(sg)
+    return build_shard_ops(sg, mesh.device)
 
 
 def build_node_sharded_forward(mesh: Mesh, sg: NodeShardedGraph,
@@ -460,7 +610,7 @@ def build_node_sharded_forward(mesh: Mesh, sg: NodeShardedGraph,
     shard-major [n, n_loc, hidden] tensor, the input of
     ``evaluate/sharded_ranking.build_sharded_topk``.
     """
-    sg, ops = _on_mesh(mesh, sg)
+    ops = _on_mesh(mesh, sg)
 
     def encode(params: Params) -> torch.Tensor:
         xs = sharded_encoder(params, sg, ops, model_cfg)
@@ -504,7 +654,7 @@ def build_node_sharded_train_step(mesh: Mesh, sg: NodeShardedGraph,
     return [loss_sum, correct, count] summed over the shards, on the
     device (the step's mean loss is ``loss_sum / count``).
     """
-    sg, ops = _on_mesh(mesh, sg)
+    ops = _on_mesh(mesh, sg)
     n, n_loc = mesh.n_shards, sg.n_loc
 
     def draw(batch: torch.Tensor,

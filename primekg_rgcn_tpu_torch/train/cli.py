@@ -3,7 +3,7 @@
     python -m primekg_rgcn_tpu_torch.train.cli --epochs 100 --lr 0.001 \
         --batch_size 1024 --data_dir data/processed --output_dir output \
         [--sample_fanouts 15 10 --sample_mode block] \
-        [--shard node --n_devices 4] [--device cuda|cpu]
+        [--shard edge|node --n_devices 4] [--device cuda|cpu]
 
 The reference's flags, plus --resume, --synthetic (train on a
 PrimeKG-statistics synthetic graph and write its splits under
@@ -11,10 +11,13 @@ PrimeKG-statistics synthetic graph and write its splits under
 of the run) and --device (default ``cuda``; without a card it raises unless
 ``--device cpu`` is given). --sample_fanouts trains with neighbor
 sampling (``train/sampled.SampledTrainer``; --sample_mode, --sparse_emb and
---val_sampled as in the JAX CLI). --shard node trains the node-partitioned
-layout (``train/multichip.ShardedTrainer``) over --n_devices shards, all on
-the one --device; its halo exchange is kernel B4 on the card (the JAX
-CLI's --halo_impl has no counterpart). --compute_dtype bfloat16 runs the
+--val_sampled as in the JAX CLI). --shard edge trains the edge-partitioned
+layout and --shard node the node-partitioned one
+(``train/multichip.ShardedTrainer``) over --n_devices shards, all on the
+one --device; the edge layout accumulates --gradient_accumulation_steps
+batches per update, the node layout ignores it; the node layout's halo
+exchange is kernel B4 on the card (the JAX CLI's --halo_impl has no
+counterpart). --compute_dtype bfloat16 runs the
 layers in bf16 on every one of these paths (float32 by default, or with
 --resume the checkpoint's); the checkpoints record it, and serving and
 evaluation follow it. Checkpoints are reference-layout
@@ -84,15 +87,18 @@ def parse_args(argv=None):
     p.add_argument("--val_sampled", action="store_true",
                    help="with --sample_fanouts: validate through the sampled "
                         "encoder instead of a full-graph encode")
-    p.add_argument("--shard", choices=["none", "node"], default="none",
-                   help="node: node-partitioned layout with a halo exchange "
-                        "(every shard on the one --device); none: one device")
+    p.add_argument("--shard", choices=["none", "edge", "node"],
+                   default="none",
+                   help="edge: edge-partitioned layout (replicated features, "
+                        "the shards' partials summed); node: node-partitioned "
+                        "layout with a halo exchange; every shard on the one "
+                        "--device; none: one device")
     p.add_argument("--n_devices", type=int, default=0,
                    help="shards for --shard (0 = the visible devices)")
     args = p.parse_args(argv)
     if args.shard != "none" and args.sample_fanouts:
         p.error("--shard with --sample_fanouts (the sampled data-parallel "
-                "steps) is not ported yet; see ROADMAP.md A10")
+                "steps) is not ported yet; see ROADMAP.md A10.2")
     if not re.fullmatch(r"uniform|truncate|block([1-9]\d*)?",
                         args.sample_mode):
         p.error(f"invalid --sample_mode {args.sample_mode!r} "
@@ -224,7 +230,7 @@ def main(argv=None):
                 fanouts=tuple(args.sample_fanouts), mode=args.sample_mode,
                 sparse_emb=args.sparse_emb, val_sampled=args.val_sampled,
                 device=device, args=args)
-        elif args.shard == "node":
+        elif args.shard != "none":
             trainer = ShardedTrainer(
                 model_cfg, train_cfg, train_graph, full_graph, train_edges,
                 val_edges, args.output_dir, shard=args.shard,

@@ -64,6 +64,17 @@ def test_the_import_walk_covers_the_final_layer_and_the_native_builder():
     assert "primekg_rgcn_tpu/" not in binding
 
 
+def test_the_import_walk_covers_the_sharded_layouts():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("parallel.edge_shard", "parallel.node_shard",
+                 "parallel.mesh", "train.multichip"):
+        assert f"primekg_rgcn_tpu_torch.{name}" in seen["names"]
+    assert seen["bad"] == []
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert (REPO / "chip_smoke.py").exists()

@@ -210,13 +210,18 @@ def test_sharded_topk_matches_jax():
                torch.from_numpy(rel), num_nodes, n_loc + 1)
 
 
-def test_refusals():
-    _, pg, jcfg, _ = _setup()
+def test_refusals(tmp_path):
+    _, pg, jcfg, jparams = _setup()
     cfg = ModelConfig.from_dict(jcfg.to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pns.build_node_sharded_forward(
-            p_mesh(2, "cpu"), pns.partition_nodes(pg, 2, uniform_caps=True),
-            cfg)
+    # A uniform-caps partition, refused before the scan was ported, now
+    # encodes through it, as the unrolled loop does.
+    params = _port_params(jparams)
+    with torch.no_grad():
+        scanned, unrolled = (pns.build_node_sharded_forward(
+            p_mesh(2, "cpu"), pns.partition_nodes(pg, 2, uniform_caps=u),
+            cfg)(params) for u in (True, False))
+    np.testing.assert_allclose(scanned.numpy(), unrolled.numpy(), rtol=1e-5,
+                               atol=1e-6)
     with pytest.raises(ValueError, match="shards"):
         pns.build_node_sharded_forward(p_mesh(2, "cpu"),
                                        pns.partition_nodes(pg, 4), cfg)
@@ -225,9 +230,14 @@ def test_refusals():
     with pytest.raises(ValueError, match="divide"):
         step.draw(torch.zeros(6, 4, dtype=torch.long), None)
     edges = np.zeros((10, 3), np.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedTrainer(cfg, TrainConfig(), pg, pg, edges, edges, "unused",
-                       shard="edge", n_devices=2, device="cpu")
+    # The edge layout, refused before it was ported, now builds its step.
+    trainer = ShardedTrainer(cfg, TrainConfig(), pg, pg, edges, edges,
+                             tmp_path, shard="edge", n_devices=2,
+                             device="cpu")
+    assert callable(trainer.step_fn.update) and trainer.accum == 1
+    with pytest.raises(ValueError, match="layout"):
+        ShardedTrainer(cfg, TrainConfig(), pg, pg, edges, edges, tmp_path,
+                       shard="replicated", n_devices=2, device="cpu")
     with pytest.raises(SystemExit):
         p_cli.parse_args(["--shard", "node", "--sample_fanouts", "4", "3"])
 

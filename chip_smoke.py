@@ -109,6 +109,25 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    ``train.cli.main --shard edge --n_devices 4
    --gradient_accumulation_steps 2`` at scale 0.1 for 2 epochs, then
    ``evaluate.cli.main`` on its best model.
+18b. the data-parallel sampled steps (``train/sampled.py``), 4 shards on
+   the card, batch 1024 (1,024 seeds a shard), fanouts 15/10, block over
+   the slim pairs CSR, adam lr 1e-3, clip 1.0: sampled_dp_grad: one step
+   each of dp, zero1 and zero3 on given per-shard candidates, draws and
+   dropout masks, through B2 and B3 against their plain versions (the
+   grad criterion), launches asserted (dp and zero1 12 B2 and 8 B3, zero3
+   24 B2: its fetch backward's 16 chunk sums), then zero1's parameters
+   after the step against dp's and zero3's against zero1's. kernel_b2
+   gains one stream: an (owner, requester) chunk of zero3's fetch
+   backward, recorded from that step, with all 16 chunks' device time
+   beside it. sampled_dp_train: dp, zero1, zero3, zero3 with
+   ``table_opt="adafactor"`` (clip 0), zero3 on a (2, 2) mesh and the
+   one-device ``--sparse_emb --table_opt adafactor`` step: 3 warm-up and
+   20 timed steps each, launches asserted, peak memory, a 10-step profile
+   and ``step_twice_equal``, asserted. sampled_dp_cli: ``train.cli.main
+   --sample_fanouts 15 10 --shard edge --n_devices 4`` at scale 0.1 with
+   ``--zero1`` (2 epochs) and with ``--zero3 --table_opt adafactor
+   --grad_clip 0 --val_sampled`` (2 epochs, then resumed for a third),
+   each final model evaluated by ``evaluate.cli.main``.
 19. eval: ``evaluate.cli.main --filtered --rank_direction both`` at full
    width on the full-size graph with the train CLI's drug-gene hold-out
    (14,658 directed test edges): 6 B1 launches, every results.json key
@@ -173,7 +192,9 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    save (full_kg_node_memory); full_kg_node_serve: the sharded encode
    against the dense one within rtol 2e-4 and its top-10 ids against the
    dense ones; full_kg_edge_grad and full_kg_edge_train (10 timed steps)
-   as edge_grad and edge_train.
+   as edge_grad and edge_train. full_kg_zero3: zero3 at 4 shards on
+   config 4's graph, one step against the plain versions and 10 timed
+   steps.
 28. the kernel summary line, then the card line, then the result line.
 
 bf16 compute (``compute_dtype="bfloat16"``, full width) adds, each beside
@@ -1786,8 +1807,9 @@ def take_index_add():
 def step_twice_equal(step, params, opt, batch, dev, seed=1):
     """Runs ``step(params, opt, batch, generator)`` twice from the same
     parameters, optimizer state and generator seed; True when both runs
-    leave the same bits in every parameter, gradient and the stats. The
-    parameters and optimizer state are put back after."""
+    leave the same bits in every parameter, gradient (where the step leaves
+    one) and the stats (a tensor, or a tuple of them). The parameters and
+    optimizer state are put back after."""
     import copy
 
     import torch
@@ -1804,9 +1826,11 @@ def step_twice_equal(step, params, opt, batch, dev, seed=1):
         stats = step(params, opt, batch, torch.Generator(dev).manual_seed(
             seed))
         torch.cuda.synchronize()
+        if isinstance(stats, tuple):
+            stats = torch.stack(stats)
         runs.append([stats.clone()]
                     + [t.detach().clone() for _, p in leaves
-                       for t in (p, p.grad)])
+                       for t in (p, p.grad) if t is not None])
     with torch.no_grad():
         for (_, p), v in zip(leaves, snap):
             p.copy_(v)
@@ -2635,6 +2659,369 @@ def phase_edge_cli(tmp):
     emit("edge_cli", seconds=seconds, launches=counts, history=hist,
          epoch_time_s=result["epoch_times_s"])
     return counts, eval_cli_after(out, "edge_cli", model="best_model.pt")
+
+
+DP_STEPS = ("dp", "zero1", "zero3", "zero3_adafactor", "zero3_2x2")
+
+
+def dp_launches(name, n_shards=N_SHARDS):
+    """Launches of one data-parallel sampled step in block mode over a slim
+    CSR (no identity block): B3 twice a shard (one window fetch a layer);
+    B2 once a shard for each layer's dedup backward, plus, once a shard,
+    dp's and zero1's table-gather backward, or zero3's fetch backward, n_tp
+    sorted sums an owner in each tp group (n_tp^2 a group: 16 flat, 8 on
+    the (2, 2) mesh). ``"sparse_adafactor"`` is the one-device step: 2 B2
+    (identity and dedup backward) and 2 B3."""
+    if name == "sparse_adafactor":
+        return {"B1": 0, "B2": 2, "B3": 2, "B4": 0}
+    n_tp = 2 if name == "zero3_2x2" else n_shards
+    fetch = n_shards * n_tp if name.startswith("zero3") else n_shards
+    return {"B1": 0, "B2": 2 * n_shards + fetch, "B3": 2 * n_shards,
+            "B4": 0}
+
+
+def dp_step(name, csr, cfg, dev):
+    """One data-parallel sampled step of ``DP_STEPS`` on 4 shards of the
+    card (``zero3_2x2``: a (2, 2) mesh), or ``"sparse_adafactor"``, the
+    one-device ``--sparse_emb --table_opt adafactor`` step: batch 1024,
+    fanouts 15/10, block mode, adam lr 1e-3, clip 1.0 (the factored
+    rule: clip 0). Returns (step, train config)."""
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from primekg_rgcn_tpu_torch.train import sampled
+
+    factored = name.endswith("adafactor")
+    tcfg = TrainConfig(batch_size=1024, grad_clip=0.0 if factored else 1.0)
+    kw = dict(fanouts=(15, 10), mode="block")
+    if name == "sparse_adafactor":
+        return sampled.build_sampled_train_step(
+            csr, cfg, tcfg, sparse_emb=True, table_opt="adafactor",
+            device=dev, **kw), tcfg
+    mesh = (make_mesh_2d(2, 2, dev) if name == "zero3_2x2"
+            else make_mesh(N_SHARDS, dev))
+    if name == "dp":
+        step = sampled.build_sampled_train_step_dp(csr, cfg, tcfg, mesh, **kw)
+    elif name == "zero1":
+        step = sampled.build_sampled_train_step_zero1(csr, cfg, tcfg, mesh,
+                                                      **kw)
+    else:
+        step = sampled.build_sampled_train_step_zero3(
+            csr, cfg, tcfg, mesh, table_opt="adafactor" if factored
+            else "sgd", **kw)
+    return step, tcfg
+
+
+def dp_state(step, params0):
+    """Fresh parameters (the table sharded for zero3) and optimizer."""
+    params = fresh_params(params0)
+    if hasattr(step, "shard_params"):
+        params = step.shard_params(params)
+    return params, step.init_optimizer(params)
+
+
+class ReplayDraws:
+    """A sampler ``draw`` that takes its uniforms from a generator on the
+    first pass and gives the same ones again after ``rewind()``: the given
+    draws of a step that runs more than once."""
+
+    def __init__(self, gen, dev):
+        self.gen, self.dev, self.seq, self.i = gen, dev, [], 0
+
+    def __call__(self, shape):
+        import torch
+
+        if self.i == len(self.seq):
+            self.seq.append(torch.rand(shape, generator=self.gen,
+                                       device=self.dev))
+        self.i += 1
+        return self.seq[self.i - 1]
+
+    def rewind(self):
+        self.i = 0
+
+
+def dp_given(step, cfg, pos, dev, seed=0):
+    """Each shard's candidates, sampler draws and dropout mask, drawn once
+    from a generator seeded ``seed`` in the step's order: the given inputs
+    of every run that ``dp_run`` compares."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.train.neg_sampling import candidate_batch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    given = {"cands": [], "draw": [], "enc_mask": []}
+    for p in pos.view(step.mesh.n_shards, -1, 3):
+        cands = candidate_batch(p[:, 0], p[:, 1], p[:, 2], cfg.num_nodes, 1,
+                                generator=gen)
+        draw = ReplayDraws(gen, dev)
+        batch = step.sample(torch.cat(cands[:2]).to(torch.int32), draw)
+        given["enc_mask"].append(torch.rand(
+            (batch.blocks[0].m_out, cfg.hidden_dim), generator=gen,
+            device=dev) < 1.0 - cfg.dropout)
+        given["cands"].append(cands)
+        given["draw"].append(draw)
+    return given
+
+
+def dp_run(step, params0, pos, given, dev, plain=False, calls=None):
+    """One step from ``params0`` on the given inputs, through the kernels
+    (their inputs recorded in ``calls`` when given) or, ``plain``, through
+    their plain versions. Returns (loss, {leaf: gradient}, {leaf: full
+    parameter after the step}, launches)."""
+    import torch
+
+    params, opt = dp_state(step, params0)
+    for draw in given["draw"]:
+        draw.rewind()
+    reset_counts()
+    mode = "plain" if plain else ("record", calls) if calls is not None \
+        else None
+    with (sampler_kernels(mode) if mode else contextlib.nullcontext()):
+        loss, _ = step(params, opt, pos, torch.Generator(dev), **given)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    grads = {k: p.grad.clone() for k, p in named_leaves(params)}
+    full = (step.full_params(params) if hasattr(step, "full_params")
+            else params)
+    return (loss.item(), grads,
+            {k: p.detach().clone() for k, p in named_leaves(full)}, counts)
+
+
+def dp_kernel_vs_plain(label, name, step, params0, cfg, pos, dev,
+                       calls=None):
+    """One step of ``name`` through the kernels and through their plain
+    versions on the same given inputs: the launches asserted
+    (``dp_launches``, none plain), the losses within 1e-5 and every
+    gradient at the grad criterion. Returns (largest error, parameters
+    after the kernel step, the kernel run's line)."""
+    import numpy as np
+
+    given = dp_given(step, cfg, pos, dev)
+    kern = dp_run(step, params0, pos, given, dev, calls=calls)
+    ref = dp_run(step, params0, pos, given, dev, plain=True)
+    want = dp_launches(name)
+    if kern[3] != want or any(ref[3].values()):
+        raise AssertionError(f"{label}/{name}: launches kernel {kern[3]}, "
+                             f"plain {ref[3]}; expected {want} and none")
+    if not np.isfinite(kern[0]):
+        raise AssertionError(f"{label}/{name}: non-finite loss")
+    np.testing.assert_allclose(kern[0], ref[0], rtol=1e-5)
+    err = max(close_scaled(kern[1][k], ref[1][k], f"{label}/{name}/{k}")
+              for k in ref[1])
+    return err, kern[2], dict(loss_kernel=kern[0], loss_plain=ref[0],
+                              launches=kern[3], max_abs_err=err)
+
+
+def phase_sampled_dp_grad(graph, cfg, edges, dev):
+    """One step each of dp, zero1 and zero3 at 4 shards (block over the
+    slim pairs CSR, batch 1024: 1,024 seeds a shard) on given per-shard
+    candidates, draws and dropout masks, through B2 and B3 and through
+    their plain versions (``dp_kernel_vs_plain``); then the parameters
+    after the step, zero1 against dp and zero3 against zero1, at the grad
+    criterion. Returns the largest error and the B2 calls of the zero3
+    step (recorded)."""
+    params0, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
+    after, out, max_err, calls = {}, {}, 0.0, {}
+    for name in ("dp", "zero1", "zero3"):
+        step, _ = dp_step(name, csrs["slim"], cfg, dev)
+        err, after[name], out[name] = dp_kernel_vs_plain(
+            "sampled_dp_grad", name, step, params0, cfg, pos, dev,
+            calls=calls if name == "zero3" else None)
+        max_err = max(max_err, err)
+    for a, b in (("zero1", "dp"), ("zero3", "zero1")):
+        errs = [close_scaled(after[a][k], after[b][k],
+                             f"sampled_dp_grad/{a}_vs_{b}/{k}")
+                for k in after[b]]
+        out[f"{a}_vs_{b}_max_abs_err"] = max(errs)
+    emit("sampled_dp_grad", shards=N_SHARDS, **out)
+    return max_err, calls["b2"]
+
+
+def phase_kernel_b2_fetch(calls, n_loc):
+    """B2 on one (owner, requester) chunk of zero3's fetch backward,
+    recorded from a step (owner 0, requester 1: the requester's frontier
+    rows, those of other owners zero, into the owner's n_loc-row slice):
+    against its plain version, two launches ``torch.equal``, kernel, plain
+    and ``index_add_`` times beside the bound (``b2_stream_row``); and the
+    device time of all n_tp^2 chunk sums of one step. Returns the row."""
+    fetch = [c for c in calls if c[2] == n_loc]
+    if len(fetch) != N_SHARDS * N_SHARDS:
+        raise AssertionError(f"kernel_b2: {len(fetch)} fetch-backward "
+                             f"calls, expected {N_SHARDS * N_SHARDS}")
+    msg, srt, n = fetch[1]
+    row = b2_stream_row("kernel_b2", "zero3_fetch_backward_chunk", msg, srt,
+                        n)
+    from primekg_rgcn_tpu_torch.ops.cuda import dense_segment_sum as pds
+
+    t = time_calls({"fetch_backward_all": lambda: [
+        pds.launch(*c) for c in fetch]})
+    row.update(chunks_per_step=len(fetch), **t)
+    emit("kernel_b2_fetch_backward_all", chunks=len(fetch), **t)
+    return row
+
+
+def dp_timed(label, name, step, params, opt, tcfg, edges_dev, dev, tmp,
+             steps, edges_n):
+    """``steps`` timed steps after 3 warm-up (a fresh host batch each, the
+    pinned copy), launches asserted (``dp_launches``), peak memory, a
+    10-step profile, and ``step_twice_equal``, which must hold. Returns the
+    figures."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
+                                                        trace_breakdown)
+
+    gen = torch.Generator(dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def one():
+        idx = torch.from_numpy(rng.integers(0, edges_n, tcfg.batch_size))
+        idx = idx.pin_memory().to(dev, non_blocking=True)
+        return step(params, opt, edges_dev[idx], gen)
+
+    first = one()
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        last = one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    want = {k: v * steps for k, v in dp_launches(name).items()}
+    if counts != want:
+        raise AssertionError(f"{label}/{name}: launches {counts}, expected "
+                             f"{want}")
+    losses = [float(first[0]), float(last[0])]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}/{name}: non-finite loss {losses}")
+    batch = edges_dev[torch.from_numpy(rng.integers(
+        0, edges_n, tcfg.batch_size)).to(dev)]
+    twice = step_twice_equal(step, params, opt, batch, dev)
+    if not twice:
+        raise AssertionError(f"{label}/{name}: two runs of one step from one "
+                             f"state differ")
+    result = dict(config=name, steps=steps, batch_size=tcfg.batch_size,
+                  step_ms=step_ms,
+                  train_edges_per_s=tcfg.batch_size / step_ms * 1e3,
+                  launches=counts,
+                  launches_per_step={k: v / steps for k, v in counts.items()},
+                  peak_memory_mb=peak_mb, first_loss=losses[0],
+                  last_loss=losses[1], step_twice_equal=twice)
+    prof_steps = 10
+    torch.cuda.synchronize()
+    with profile_trace(tmp / f"{label}_{name}_profile"):
+        t0 = time.perf_counter()
+        for _ in range(prof_steps):
+            one()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
+    bd = trace_breakdown(tmp / f"{label}_{name}_profile" / "trace.json")
+    if bd is None:
+        result["idle_share"] = "not measured"
+    else:
+        busy_ms = bd["busy_us"] / prof_steps / 1e3
+        result.update(step_ms_under_profiler=prof_ms,
+                      device_busy_ms_per_step=busy_ms,
+                      idle_share=bd["idle_share"],
+                      idle_share_two_windows=1.0 - busy_ms / step_ms,
+                      us_by_kind=bd["us_by_kind"])
+    emit(label, **result)
+    return result
+
+
+def phase_sampled_dp_train(graph, cfg, edges, dev, tmp, steps=20):
+    """dp, zero1, zero3, zero3 with the factored table rule (clip 0) and
+    zero3 on a (2, 2) mesh, each at 4 shards, and the one-device
+    ``--sparse_emb --table_opt adafactor`` step: ``dp_timed`` each. Returns
+    {config: figures}."""
+    params0, edges_dev, _, csrs = sampled_setup(graph, cfg, edges, dev)
+    results = {}
+    for name in (*DP_STEPS, "sparse_adafactor"):
+        step, tcfg = dp_step(name, csrs["slim"], cfg, dev)
+        params, opt = dp_state(step, params0)
+        results[name] = dp_timed("sampled_dp_train", name, step, params, opt,
+                                 tcfg, edges_dev, dev, tmp, steps,
+                                 edges.shape[0])
+        del step, params, opt
+    return results
+
+
+def phase_full_kg_zero3(graph, cfg, edges, dev, tmp):
+    """Config 4's graph (129,375 nodes, 30 relations), zero3 at 4 shards,
+    block over the slim CSR: one step through the kernels against their
+    plain versions (``dp_kernel_vs_plain``), then 10 timed steps
+    (``dp_timed``). Returns (largest error, figures)."""
+    params0, edges_dev, pos, csrs = sampled_setup(graph, cfg, edges, dev)
+    step, tcfg = dp_step("zero3", csrs["slim"], cfg, dev)
+    err, _, grad_line = dp_kernel_vs_plain("full_kg_zero3_grad", "zero3",
+                                           step, params0, cfg, pos, dev)
+    emit("full_kg_zero3_grad", **grad_line)
+    params, opt = dp_state(step, params0)
+    return err, dp_timed("full_kg_zero3", "zero3", step, params, opt, tcfg,
+                         edges_dev, dev, tmp, 10, edges.shape[0])
+
+
+def phase_sampled_dp_cli(tmp):
+    """``train.cli.main --sample_fanouts 15 10 --sample_mode block --shard
+    edge --n_devices 4`` at synthetic scale 0.1 for 2 epochs with
+    ``--zero1``, and with ``--zero3 --table_opt adafactor --grad_clip 0
+    --val_sampled``, then that one resumed for a third epoch;
+    ``evaluate.cli.main`` on each final model (AUC-ROC and MRR finite).
+    Returns {run: launches}, the evaluations' included."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.train import checkpoint
+    from primekg_rgcn_tpu_torch.train import cli as train_cli
+
+    base = ["--synthetic", "--synthetic_scale", "0.1", "--seed", "0",
+            "--device", "cuda", "--sample_fanouts", "15", "10",
+            "--sample_mode", "block", "--shard", "edge", "--n_devices",
+            str(N_SHARDS)]
+    zero3 = ["--zero3", "--table_opt", "adafactor", "--grad_clip", "0",
+             "--val_sampled"]
+    z3_out = tmp / "sampled_dp_cli_zero3"
+    runs = {"zero1": ["--zero1", "--epochs", "2"],
+            "zero3": [*zero3, "--epochs", "2"],
+            "zero3_resumed": [*zero3, "--epochs", "3", "--resume",
+                              str(z3_out / "models" / "final_model.pt")]}
+    launches = {}
+    for name, extra in runs.items():
+        out = tmp / f"sampled_dp_cli_{name}"
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train_cli.main([*base, *extra, "--output_dir", str(out)])
+        seconds = time.perf_counter() - t0
+        launches[name] = read_counts()
+        hist = result["history"]
+        problems = []
+        if not np.all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
+            problems.append(f"losses {hist}")
+        if len(hist["train_losses"]) != (3 if name.endswith("resumed")
+                                         else 2):
+            problems.append(f"history {hist}")
+        payload = checkpoint.load(out / "models" / "final_model.pt")
+        cfg_n = payload["model_config"]["num_nodes"]
+        if payload["params"]["encoder"]["node_emb"].shape[0] != cfg_n:
+            problems.append("the checkpoint's table is not the full one")
+        if launches[name]["B2"] == 0:
+            problems.append(f"launches {launches[name]}")
+        if problems:
+            raise AssertionError(f"sampled_dp_cli/{name}: "
+                                 + "; ".join(problems))
+        emit("sampled_dp_cli", run=name, seconds=seconds,
+             launches=launches[name], history=hist,
+             epoch_time_s=result["epoch_times_s"],
+             optimizer_state=sorted(payload["optimizer_state_dict"]))
+        if name != "zero3":
+            launches[f"eval_after_{name}"] = eval_cli_after(
+                out, f"sampled_dp_cli_{name}")
+    return launches
 
 
 def phase_full_kg_node_serve(graph, psg, dev):
@@ -4246,6 +4633,13 @@ def main():
         edge_counts, _ = phase_edge_train(graph, cfg, edges, dev, Path(tmp))
         edge_cli_counts, cli_eval["edge_cli"] = phase_edge_cli(Path(tmp))
 
+        # -- the data-parallel sampled steps, 4 shards ----------------------
+        dp_err, dp_b2_calls = phase_sampled_dp_grad(graph, cfg, edges, dev)
+        b2_fetch_row = phase_kernel_b2_fetch(dp_b2_calls, -(-n // N_SHARDS))
+        del dp_b2_calls
+        sampled_dp = phase_sampled_dp_train(graph, cfg, edges, dev, Path(tmp))
+        dp_cli_counts = phase_sampled_dp_cli(Path(tmp))
+
         # -- 19-20. evaluation --------------------------------------------
         eval_ctx = phase_eval(Path(tmp), node_data, raw, params, cfg, graph,
                               dev, plain_layer)
@@ -4303,6 +4697,8 @@ def main():
         kg_edge_counts, _ = phase_edge_train(g3, cfg3, edges3, dev, Path(tmp),
                                              steps=10,
                                              label="full_kg_edge_train")
+        kg_zero3_err, kg_zero3 = phase_full_kg_zero3(g3, cfg3, edges3, dev,
+                                                     Path(tmp))
 
     # -- 23. summary --------------------------------------------------------
     def total(rows, key):
@@ -4416,11 +4812,19 @@ def main():
             "node_train": node_counts["B2"],
             "node_bf16": node16_counts["B2"],
             "full_kg_node_train": {k: v[0]["B2"]
-                                   for k, v in kg_node.items()}},
+                                   for k, v in kg_node.items()},
+            "sampled_dp_train": {k: v["launches"]["B2"]
+                                 for k, v in sampled_dp.items()},
+            "sampled_dp_cli": {k: v["B2"] for k, v in dp_cli_counts.items()},
+            "full_kg_zero3": kg_zero3["launches"]["B2"]},
         "launches_per_step": {"sampled_block": 2, "restricted_step": 1,
-                              "node_step": 5 * N_SHARDS},
+                              "node_step": 5 * N_SHARDS,
+                              "sampled_dp": {
+                                  k: v["launches_per_step"]["B2"]
+                                  for k, v in sampled_dp.items()}},
         "max_abs_err": max(b2_err, sgrad_err, kg_sgrad_err,
-                           kg_b2["max_abs_err"],
+                           kg_b2["max_abs_err"], dp_err, kg_zero3_err,
+                           b2_fetch_row["max_abs_err"],
                            *(r["max_abs_err"] for r in kg_b2_streams)),
         "ms": b2_rows[0]["kernel_ms"],
         "call_ms": b2_rows[0]["kernel_call_ms"],
@@ -4434,7 +4838,9 @@ def main():
                 "kernel_ms", "kernel_call_ms", "plain_ms", "library_ms",
                 "bound_us", "bound_by", "bound_share", "over_library",
                 "max_abs_err")}
-            for r in (*b2_rows, *b2_16_rows, kg_b2, *kg_b2_streams)},
+            for r in (*b2_rows, *b2_16_rows, kg_b2, *kg_b2_streams,
+                      b2_fetch_row)},
+        "zero3_fetch_backward_all_ms": b2_fetch_row["fetch_backward_all_ms"],
         "bf16": {
             "ms": b2_16_rows[0]["kernel_ms"],
             "call_ms": b2_16_rows[0]["kernel_call_ms"],
@@ -4458,8 +4864,13 @@ def main():
                "at float32 and bf16, the config-3 restricted layer's, "
                "config 4's identity and dedup); a node-sharded step makes "
                "20 (the sorted backward of each shard's serve lists, "
-               "endpoint fetches and relation lookup); library_ms is "
-               "index_add_; "
+               "endpoint fetches and relation lookup); a 4-shard "
+               "data-parallel sampled step 12 (dp, zero1: each shard's two "
+               "dedup and its table-gather backward) or 24 (zero3: 8 dedup "
+               "and the fetch backward's 16 chunk sums; 16 on the (2, 2) "
+               "mesh), whose one chunk is the zero3_fetch_backward_chunk "
+               "stream and all 16 zero3_fetch_backward_all_ms; library_ms "
+               "is index_add_; "
                "launches is the sampled_train block/slim count. "
                % (b2_rows[0]["rows"], b2_rows[0]["d"],
                   b2_rows[0]["segments"]) + TIMES}, {
@@ -4470,8 +4881,12 @@ def main():
         "launches_by_path": {
             "sampled_train": {k: v["launches"]["B3"]
                               for k, v in sampled.items()},
-            "full_kg_sampled": kg_sampled_counts["B3"]},
-        "launches_per_step": 2,
+            "full_kg_sampled": kg_sampled_counts["B3"],
+            "sampled_dp_train": {k: v["launches"]["B3"]
+                                 for k, v in sampled_dp.items()},
+            "full_kg_zero3": kg_zero3["launches"]["B3"]},
+        "launches_per_step": {"sampled_block": 2,
+                              "sampled_dp": 2 * N_SHARDS},
         "max_abs_err": 0,
         "ms": total(b3_rows[:2], "kernel_ms"),
         "call_ms": total(b3_rows[:2], "kernel_call_ms"),

@@ -214,8 +214,9 @@ def _unique_seeds(seeds: torch.Tensor, n: int):
 
 def _sorted_accumulate(gp: torch.Tensor, ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
-    """Sorted segment-sum of the dedup and table-gather backwards; ``ids``
-    are int32, sorted and inside [0, num_segments). Sums in float32 and
+    """Sorted segment-sum of the dedup and table-gather backwards (and of
+    zero3's row fetch, ``train/sampled.ShardedRowFetch``); ``ids`` are
+    int32, sorted and inside [0, num_segments). Sums in float32 and
     returns gp's dtype.
 
     On the card this is :func:`dense_sorted_segment_sum`, kernel B2, at

@@ -20,9 +20,10 @@ compile in parallel. The sum and the output are float32 for either.
 
 Its callers, all deterministic on the card (no float atomics): the identity
 block's backward of the sampled step (``data/sampling.IdentPickGather``),
-the dedup and table-gather backwards (``data/sampling._sorted_accumulate``)
-and, through ``SortedSegmentSum``, the batch-restricted final layer's
-forward segment-sum (``ops/rgcn_final_layer``).
+the dedup and table-gather backwards (``data/sampling._sorted_accumulate``,
+also zero3's row fetch, ``train/sampled.ShardedRowFetch``) and, through
+``SortedSegmentSum``, the batch-restricted final layer's forward
+segment-sum (``ops/rgcn_final_layer``).
 
 ``dense_sorted_segment_sum.launches`` counts one per call that launches,
 whatever the number of kernels inside (the zeros, the row split and its

@@ -4,15 +4,21 @@
         --batch_size 1024 --data_dir data/processed --output_dir output \
         [--sample_fanouts 15 10 --sample_mode block] \
         [--shard edge|node --n_devices 4] [--device cuda|cpu]
+    python -m primekg_rgcn_tpu_torch.train.cli --sample_fanouts 15 10 \
+        --shard edge --n_devices 4 [--zero1 | --zero3 [--dp_pods 2] \
+        [--table_opt adafactor --grad_clip 0]]
 
 The reference's flags, plus --resume, --synthetic (train on a
 PrimeKG-statistics synthetic graph and write its splits under
 ``<output_dir>/synthetic_data``), --profile_dir (a ``torch.profiler`` trace
 of the run) and --device (default ``cuda``; without a card it raises unless
 ``--device cpu`` is given). --sample_fanouts trains with neighbor
-sampling (``train/sampled.SampledTrainer``; --sample_mode, --sparse_emb and
---val_sampled as in the JAX CLI). --shard edge trains the edge-partitioned
-layout and --shard node the node-partitioned one
+sampling (``train/sampled.SampledTrainer``; --sample_mode, --sparse_emb,
+--table_opt and --val_sampled as in the JAX CLI); with --shard (either
+layout) it is data-parallel over --n_devices shards, with --zero1 or
+--zero3 (--dp_pods) as in the JAX CLI. Without --sample_fanouts, --shard
+edge trains the edge-partitioned layout and --shard node the
+node-partitioned one
 (``train/multichip.ShardedTrainer``) over --n_devices shards, all on the
 one --device; the edge layout accumulates --gradient_accumulation_steps
 batches per update, the node layout ignores it; the node layout's halo
@@ -82,11 +88,44 @@ def parse_args(argv=None):
                         "records) or truncate (the first F neighbors)")
     p.add_argument("--sparse_emb", action="store_true",
                    help="with --sample_fanouts and --optimizer sgd "
-                        "(grad_clip and weight_decay 0): update only the "
+                        "(grad_clip and weight_decay 0), or with --table_opt "
+                        "adafactor (grad_clip 0): update only the "
                         "frontier's embedding rows each step")
+    p.add_argument("--zero1", action="store_true",
+                   help="with --sample_fanouts and --shard: shard the "
+                        "embedding-table optimizer state (ZeRO-1) over the "
+                        "mesh — dense Adam at the 10M-node config exceeds "
+                        "one chip without it")
+    p.add_argument("--zero3", action="store_true",
+                   help="with --sample_fanouts and --shard: shard the "
+                        "embedding TABLE itself (params + moments + "
+                        "update all stay slice-local; frontier rows are "
+                        "fetched via psum_scatter) — per-device memory "
+                        "O(N/n + frontier), dense adam at any N that "
+                        "fits the POD")
+    p.add_argument("--dp_pods", type=int, default=0,
+                   help="with --zero3: hierarchical 2-D mesh — the table "
+                        "shards over n_devices/dp_pods chips (lay on ICI) "
+                        "and dp_pods data-parallel replicas span pods "
+                        "(DCN); only the [N/tp, D] slice-gradient psum "
+                        "crosses pods")
     p.add_argument("--val_sampled", action="store_true",
-                   help="with --sample_fanouts: validate through the sampled "
-                        "encoder instead of a full-graph encode")
+                   help="with --sample_fanouts: validate with the sampled "
+                        "encoder (O(frontier) per batch) instead of a "
+                        "full-graph encode — required at scales where the "
+                        "full encode cannot materialize; with --zero3 the "
+                        "table stays sharded through validation too")
+    p.add_argument("--table_opt", choices=["sgd", "adafactor"],
+                   default="sgd",
+                   help="with --sparse_emb (single chip) or --zero3 (any "
+                        "mesh): the embedding-TABLE update rule. adafactor "
+                        "= factored-second-moment adaptive updates "
+                        "([N]+[D] state, ~40 MB at 10M nodes vs dense "
+                        "adam's 7.7 GB; per-slice [N/n]+[D] under --zero3 "
+                        "with mesh-size-invariant cross-slice stats) — "
+                        "adaptive training at scales where adam cannot "
+                        "fit; the rest params are then free to use "
+                        "--optimizer adam")
     p.add_argument("--shard", choices=["none", "edge", "node"],
                    default="none",
                    help="edge: edge-partitioned layout (replicated features, "
@@ -96,15 +135,18 @@ def parse_args(argv=None):
     p.add_argument("--n_devices", type=int, default=0,
                    help="shards for --shard (0 = the visible devices)")
     args = p.parse_args(argv)
-    if args.shard != "none" and args.sample_fanouts:
-        p.error("--shard with --sample_fanouts (the sampled data-parallel "
-                "steps) is not ported yet; see ROADMAP.md A10.2")
     if not re.fullmatch(r"uniform|truncate|block([1-9]\d*)?",
                         args.sample_mode):
         p.error(f"invalid --sample_mode {args.sample_mode!r} "
                 f"(uniform | block | blockN | truncate)")
     if (args.sparse_emb or args.val_sampled) and not args.sample_fanouts:
         p.error("--sparse_emb and --val_sampled need --sample_fanouts")
+    if (args.zero1 or args.zero3 or args.dp_pods
+            or args.table_opt != "sgd") and not args.sample_fanouts:
+        p.error("--zero1, --zero3, --dp_pods and --table_opt need "
+                "--sample_fanouts")
+    if args.zero1 and args.zero3:
+        p.error("--zero1 and --zero3 are exclusive")
     return args
 
 
@@ -196,6 +238,8 @@ def main(argv=None):
     root = logging.getLogger()
     root.addHandler(file_log)
     try:
+        import torch
+
         from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
         from primekg_rgcn_tpu_torch.train.loop import Trainer
         from primekg_rgcn_tpu_torch.train.multichip import ShardedTrainer
@@ -224,11 +268,21 @@ def main(argv=None):
             save_every=args.save_every, early_stopping=args.early_stopping,
             seed=args.seed)
         if args.sample_fanouts:
+            # Sampled training on a mesh is data-parallel: either --shard
+            # layout splits the seed batch, and its frontier, over the
+            # shards.
+            sample_ndev = None
+            if args.shard != "none":
+                sample_ndev = args.n_devices or (
+                    torch.cuda.device_count() if device.type == "cuda"
+                    else 1)
             trainer = SampledTrainer(
                 model_cfg, train_cfg, train_graph, full_graph, train_edges,
                 val_edges, args.output_dir,
                 fanouts=tuple(args.sample_fanouts), mode=args.sample_mode,
-                sparse_emb=args.sparse_emb, val_sampled=args.val_sampled,
+                n_devices=sample_ndev, zero1=args.zero1, zero3=args.zero3,
+                dp_pods=args.dp_pods, sparse_emb=args.sparse_emb,
+                val_sampled=args.val_sampled, table_opt=args.table_opt,
                 device=device, args=args)
         elif args.shard != "none":
             trainer = ShardedTrainer(

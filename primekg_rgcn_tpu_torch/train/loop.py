@@ -40,7 +40,7 @@ import argparse
 import logging
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,11 +69,20 @@ Candidates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                    torch.Tensor]
 
 
-def make_optimizer(cfg: TrainConfig, params: Params) -> torch.optim.Optimizer:
-    """The optimizer over the parameter leaves, matching the JAX package's
-    optax chain (the clip is :func:`clip_by_global_norm_`, applied by
-    :func:`apply_update` before the step)."""
-    leaves = list(param_leaves(params))
+def make_optimizer(cfg: TrainConfig,
+                   params: Union[Params, Sequence[torch.Tensor]]
+                   ) -> torch.optim.Optimizer:
+    """The optimizer over the parameter leaves (a parameter dict, or the
+    tensors themselves), matching the JAX package's optax chain without its
+    clip: ``make_optimizer(cfg, include_clip=False)``. The clip is
+    :func:`clip_by_global_norm_`, which :func:`apply_update` runs before
+    the step; the sharded sampled steps clip the full gradient themselves
+    and then step the table's row slices with an optimizer of their own
+    (``train/sampled.py``). Every rule here is elementwise but for the step
+    count, so one optimizer over a stacked [n, n_loc, D] tensor of row
+    slices keeps exactly each slice's state and update."""
+    leaves = (list(param_leaves(params)) if isinstance(params, dict)
+              else list(params))
     adam = dict(lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                 weight_decay=cfg.weight_decay)
     if cfg.optimizer == "adam":
@@ -349,7 +358,7 @@ class Trainer:
     # -- checkpoint plumbing -------------------------------------------------
     def _checkpoint_payload(self) -> Dict[str, Any]:
         return {
-            "model_state_dict": state_dict_from_params(self.params),
+            "model_state_dict": state_dict_from_params(self._saved_params()),
             "optimizer_state_dict": self.optimizer.state_dict(),
             "epoch": self.epoch,
             "best_val_loss": self.best_val_loss,
@@ -383,8 +392,7 @@ class Trainer:
             raise ValueError(
                 f"{path} was trained with compute_dtype {stored!r}, this "
                 f"trainer runs {self.model_cfg.compute_dtype!r}")
-        with torch.no_grad():
-            _copy_params_(self.params, payload["params"])
+        self._restore_params(payload["params"])
         self.optimizer.load_state_dict(payload["optimizer_state_dict"])
         self.epoch = payload["epoch"]
         self.best_val_loss = payload["best_val_loss"]
@@ -393,6 +401,15 @@ class Trainer:
         if "rng_state" in payload:
             self.host_gen.set_state(payload["rng_state"])
             self.device_gen.set_state(payload["device_rng_state"])
+
+    def _saved_params(self) -> Params:
+        """The parameters a checkpoint holds (the live ones)."""
+        return self.params
+
+    def _restore_params(self, params: Params) -> None:
+        """Copy a checkpoint's parameters into the live ones."""
+        with torch.no_grad():
+            _copy_params_(self.params, params)
 
     # -- main loop -----------------------------------------------------------
     def train(self) -> Dict[str, Any]:

@@ -1,40 +1,63 @@
-"""Mini-batch (neighbor-sampled) training on one device.
+"""Mini-batch (neighbor-sampled) training: one device, and data-parallel
+over the shards of a mesh.
 
-The counterpart of the single-device parts of
-``primekg_rgcn_tpu/train/sampled.py``: each step samples the L-hop
-neighbourhoods of the batch's candidate endpoints on the device and
-differentiates through the sampled encoder, O(B * fanout^L) work instead of
-O(E). ``resolve_sampler`` picks the pick layout, ``build_sampled_train_step``
-builds the step (dense adam or the sparse-embedding SGD update),
+The counterpart of ``primekg_rgcn_tpu/train/sampled.py``: each step samples
+the L-hop neighbourhoods of the batch's candidate endpoints on the device
+and differentiates through the sampled encoder, O(B * fanout^L) work instead
+of O(E). ``resolve_sampler`` picks the pick layout,
+``build_sampled_train_step`` builds the one-device step (dense adam, or the
+sparse-embedding update: SGD, or adafactor with ``table_opt``),
 ``build_sampled_eval_epoch`` the sampled validation, and ``SampledTrainer``
 runs epochs, validation, checkpoints, early stopping and resume.
 
+The data-parallel steps split the batch over the n shards of a mesh
+(``parallel/mesh.py``; every shard on the one device): each shard samples
+the frontier of its B/n seeds and scores its candidates, and the shards'
+loss sums are added and backpropagated once, the psum of the gradients.
+``build_sampled_train_step_dp`` keeps one optimizer over replicated
+parameters; ``build_sampled_train_step_zero1`` updates the embedding table
+in n row slices, each with its own optimizer state (ZeRO-1);
+``build_sampled_train_step_zero3`` shards the table itself, fetching each
+shard's frontier rows from their owners (``ShardedRowFetch``), optionally
+on an (n_dp, n_tp) mesh and with the factored adafactor table rule.
+
 Each step draws its random numbers from one ``torch.Generator`` in the JAX
-step's stream order: negatives, then sampling, then dropout. There is no
-``lax.scan`` chunking: PyTorch runs eagerly, and the host reads the losses
-once per epoch.
+step's stream order: negatives, then sampling, then dropout, shard after
+shard in the data-parallel steps (JAX derives each device's streams with
+``fold_in(key, device)`` instead). A test may hand a step its candidates,
+sampler draws and dropout masks, per shard in the data-parallel steps.
+There is no ``lax.scan`` chunking: PyTorch runs eagerly, and the host reads
+the losses once per epoch.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
+from primekg_rgcn_tpu_torch.data import sampling
 from primekg_rgcn_tpu_torch.data.sampling import (
     CombinedCsr, CsrCache, SampledBatch, build_combined_csr, build_csr_cache,
     csr_to_pairs_form, parse_sample_mode, sample_batch,
     sample_batch_combined, uniform_draw)
 from primekg_rgcn_tpu_torch.device import resolve_device
-from primekg_rgcn_tpu_torch.models.rgcn import Params, encoder_apply_sampled
+from primekg_rgcn_tpu_torch.models.rgcn import (Params, encoder_apply_sampled,
+                                                param_leaves)
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
+from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather,
+                                                  make_mesh, make_mesh_2d,
+                                                  psum, psum_scatter,
+                                                  shard_groups)
 from primekg_rgcn_tpu_torch.train.loop import (Candidates, Trainer,
                                                apply_update,
                                                build_eval_epoch,
+                                               clip_by_global_norm_,
                                                edges_with_sentinel,
                                                make_optimizer,
                                                sample_candidates)
@@ -83,6 +106,43 @@ def resolve_sampler(graph_or_csr, fanouts, mode: str = "uniform"):
     return ccsr, budgets, True
 
 
+def _sampler(csr, fanouts, mode: str, device, allow_ident: bool):
+    """``sample(seeds, draw) -> SampledBatch`` over ``csr`` (resolved by
+    :func:`resolve_sampler` and kept on ``device``), with ``.csr``,
+    ``.budgets`` and ``.use_combined``. ``allow_ident`` lets the innermost
+    block go identity: the one-device steps allow it, the data-parallel
+    ones do not (the JAX package's multi-device default)."""
+    csr, budgets, use_combined = resolve_sampler(csr, fanouts, mode)
+    csr = csr.to(device)
+
+    def sample(seeds: torch.Tensor, draw) -> SampledBatch:
+        if use_combined:
+            return sample_batch_combined(draw, csr, seeds, budgets, mode=mode,
+                                         allow_ident=allow_ident)
+        return sample_batch(draw, csr, seeds, budgets, mode=mode)
+
+    sample.csr, sample.budgets, sample.use_combined = (csr, budgets,
+                                                       use_combined)
+    return sample
+
+
+def sampled_stats(params: Params, batch: SampledBatch, cands: Candidates,
+                  model_cfg: ModelConfig, *, train: bool,
+                  generator: Optional[torch.Generator] = None,
+                  enc_mask: Optional[torch.Tensor] = None,
+                  x0: Optional[torch.Tensor] = None):
+    """(loss_sum, correct, count) of one candidate batch through the sampled
+    encoder, 0-d tensors (``bce_stats``; no decoder dropout, as in the JAX
+    steps)."""
+    heads, tails, rels, labels, weights = cands
+    emb = encoder_apply_sampled(params, batch, model_cfg, train=train,
+                                generator=generator, mask=enc_mask, x0=x0)
+    m = heads.shape[0]
+    scores = distmult_score(emb[:m], emb[m:],
+                            params["decoder"]["rel_emb"][rels])
+    return bce_stats(scores, labels, weights)
+
+
 def sampled_loss(params: Params, batch: SampledBatch, cands: Candidates,
                  model_cfg: ModelConfig, *, train: bool,
                  generator: Optional[torch.Generator] = None,
@@ -90,29 +150,166 @@ def sampled_loss(params: Params, batch: SampledBatch, cands: Candidates,
                  x0: Optional[torch.Tensor] = None):
     """Mean BCE loss and accuracy of one candidate batch through the
     sampled encoder, 0-d tensors (the JAX step's ``loss_fn`` body after
-    sampling; no decoder dropout, as there)."""
-    heads, tails, rels, labels, weights = cands
-    emb = encoder_apply_sampled(params, batch, model_cfg, train=train,
-                                generator=generator, mask=enc_mask, x0=x0)
-    m = heads.shape[0]
-    scores = distmult_score(emb[:m], emb[m:],
-                            params["decoder"]["rel_emb"][rels])
-    loss_sum, correct, count = bce_stats(scores, labels, weights)
+    sampling)."""
+    loss_sum, correct, count = sampled_stats(
+        params, batch, cands, model_cfg, train=train, generator=generator,
+        enc_mask=enc_mask, x0=x0)
     return loss_sum / count, correct / count
 
 
-def _rest_params(params: Params) -> Params:
-    """Every parameter but the embedding table (the sparse update's
-    optimizer leaves)."""
+def _split_emb(params: Params):
+    """(the embedding table, every other parameter as a dict without it)."""
     enc = {k: v for k, v in params["encoder"].items() if k != "node_emb"}
-    return {"encoder": enc, "decoder": params["decoder"]}
+    return params["encoder"]["node_emb"], {"encoder": enc,
+                                           "decoder": params["decoder"]}
+
+
+def _merge_emb(rest: Params, emb: torch.Tensor) -> Params:
+    """``rest`` with ``emb`` as its embedding table (a new dict)."""
+    return {"encoder": {"node_emb": emb, **rest["encoder"]},
+            "decoder": rest["decoder"]}
+
+
+# -- the factored (adafactor) table rule --------------------------------------
+
+
+def factored_slice_init(n_loc: int, d: int, *, device="cpu",
+                        n_slices: Optional[int] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Zero state for :func:`factored_slice_update` (step 0): float32
+    ``v_row`` [D], ``v_col`` [n_loc] and int32 ``count``; with ``n_slices``
+    each stacked over a leading slice axis, device-major as the JAX zero3
+    state."""
+    lead = () if n_slices is None else (n_slices,)
+    return {"v_row": torch.zeros(*lead, d, device=device),
+            "v_col": torch.zeros(*lead, n_loc, device=device),
+            "count": torch.zeros(lead, dtype=torch.int32, device=device)}
+
+
+def factored_slice_update(g: torch.Tensor, state: Dict[str, torch.Tensor],
+                          *, axis_name: Optional[str],
+                          row_valid: torch.Tensor, n_valid: int, lr: float,
+                          decay_rate: float = 0.8, eps: float = 1e-30,
+                          clip_threshold: float = 1.0):
+    """Adafactor update of a row-sliced [N, D] table: ``(update, new_state)``
+    (``factored_slice_update`` in the JAX package).
+
+    ``axis_name=None`` is the one-device form: ``g`` [n_loc, D] is the
+    whole table. Otherwise ``g`` is [n, n_loc, D], the slices of that mesh
+    axis stacked, and the two statistics that couple rows across slices,
+    the [D] column second moment (``v_row``, the mean of ``g**2 + eps``
+    over the N rows) and the block-RMS update clip, are summed over the
+    slices (the JAX psums), so the rule equals ``optax.adafactor(lr,
+    min_dim_size_to_factor=2, multiply_by_parameter_scale=False)`` on the
+    unpadded dense table for any slicing. ``row_valid`` (float32, g's shape
+    without D) masks the padded tail rows out of every cross-row statistic
+    and out of the update; ``n_valid`` is the true row count N. The
+    statistics are float32.
+    """
+    g = g.float()
+    sliced = axis_name is not None
+
+    def across(x):
+        # One total, read by every slice.
+        return psum(x).expand_as(x) if sliced else x
+
+    t = (state["count"] + 1).float()            # optax: count + 1
+    decay = (1.0 - t ** (-decay_rate))[..., None]
+    gsq = g * g + eps
+    col_stat = across((gsq * row_valid[..., None]).sum(-2))
+    new_v_row = decay * state["v_row"] + (1.0 - decay) * (col_stat / n_valid)
+    new_v_col = decay * state["v_col"] + (1.0 - decay) * gsq.mean(-1)
+    row_factor = (new_v_row / new_v_row.mean(-1, keepdim=True)) ** -0.5
+    col_factor = new_v_col ** -0.5
+    u = (g * row_factor[..., None, :] * col_factor[..., :, None]
+         * row_valid[..., None])
+    ms = across((u * u).sum((-2, -1))) / (n_valid * g.shape[-1])
+    u = u / (ms.sqrt() / clip_threshold).clamp(min=1.0)[..., None, None]
+    return -lr * u, {"v_row": new_v_row, "v_col": new_v_col,
+                     "count": state["count"] + 1}
+
+
+def factored_rows_update(g_rows: torch.Tensor, frontier: torch.Tensor,
+                         table: torch.Tensor, state: Dict[str, torch.Tensor],
+                         *, lr: float, decay_rate: float = 0.8,
+                         eps: float = 1e-30, clip_threshold: float = 1.0
+                         ) -> Dict[str, torch.Tensor]:
+    """Adafactor update of ``table`` [N, D] from a sparse row gradient, in
+    place; returns the new state (``factored_rows_update``).
+
+    ``g_rows`` [cap, D] is the gradient of the gathered frontier rows,
+    ``frontier`` int32 [cap] their sorted-unique ids, filled with N (the
+    fill slots' gradients drop). Every untouched row's squared gradient is
+    exactly ``eps``, so the [D] column statistic, the [N] row statistic (an
+    affine map everywhere plus the touched rows' term) and the block-RMS
+    clip follow from the touched rows alone: the rule equals dense
+    adafactor (``factored_slice_update`` with ``axis_name=None``) on the
+    scattered [N, D] gradient, with no [N, D] gradient, update or
+    statistic.
+    """
+    n, d = table.shape
+    valid = (frontier < n)[:, None]
+    g = torch.where(valid, g_rows.float(), 0.0)
+    t = (state["count"] + 1).float()
+    decay = 1.0 - t ** (-decay_rate)
+    gsq = g * g
+    new_v_row = decay * state["v_row"] + (1.0 - decay) * (
+        (gsq.sum(0) + n * eps) / n)
+    # Frontier ids are sorted-unique (fill value n), so each real row's
+    # statistic receives one value; the fill slots add zeros to row n - 1.
+    rows = frontier.clamp(max=n - 1).long()
+    new_v_col = decay * state["v_col"] + (1.0 - decay) * eps
+    new_v_col.index_add_(0, rows, (1.0 - decay) * gsq.mean(1))
+    row_factor = (new_v_row / new_v_row.mean()) ** -0.5
+    u = g * row_factor[None, :] * (new_v_col[rows] ** -0.5)[:, None]
+    u = torch.where(valid, u, 0.0)
+    ms = (u * u).sum() / (n * d)
+    u = u / (ms.sqrt() / clip_threshold).clamp(min=1.0)
+    # The same unique rows: each receives its update once.
+    table.index_add_(0, rows, (-lr * u).to(table.dtype))
+    return {"v_row": new_v_row, "v_col": new_v_col,
+            "count": state["count"] + 1}
+
+
+class SplitOptimizer:
+    """The optimizer state of a step that updates the embedding table apart
+    from the other parameters (JAX: ``opt_state = (rest_state,
+    table_state)``): ``rest``, a torch optimizer over every other leaf, and
+    ``table``, either a torch optimizer over the table's stacked row slices
+    [n, n_loc, D] (zero1, and zero3 with ``table_opt="sgd"``) or the
+    factored adafactor statistics, a dict of tensors
+    (:func:`factored_slice_init`). ``state_dict`` holds both, so checkpoints
+    and resume keep the per-slice state."""
+
+    def __init__(self, rest: torch.optim.Optimizer, table):
+        self.rest = rest
+        self.table = table
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.rest.zero_grad(set_to_none=set_to_none)
+        if isinstance(self.table, torch.optim.Optimizer):
+            self.table.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self):
+        table = (self.table.state_dict()
+                 if isinstance(self.table, torch.optim.Optimizer)
+                 else dict(self.table))
+        return {"rest": self.rest.state_dict(), "table": table}
+
+    def load_state_dict(self, state) -> None:
+        self.rest.load_state_dict(state["rest"])
+        if isinstance(self.table, torch.optim.Optimizer):
+            self.table.load_state_dict(state["table"])
+        else:
+            for k, v in state["table"].items():
+                self.table[k] = v.to(self.table[k].device)
 
 
 def build_sampled_train_step(csr, model_cfg: ModelConfig,
                              train_cfg: TrainConfig, *,
                              fanouts: Sequence[int] = (15, 10),
                              mode: str = "uniform", sparse_emb: bool = False,
-                             device="cuda"):
+                             table_opt: str = "sgd", device="cuda"):
     """Returns ``step(params, optimizer, pos_edges, generator) -> (loss,
     acc)``, 0-d tensors on the device, nothing read back to the host.
 
@@ -125,27 +322,31 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
 
     Dense (default): ``optimizer`` covers every parameter, and the update
     is ``apply_update`` (clip, then the optimizer step). ``sparse_emb``: the
-    embedding table is updated by plain SGD (``train_cfg.lr``) from its
-    gathered rows' gradient, as a row scatter with the frontier's sentinel
-    rows dropped, or, when the innermost block is identity, as the dense
-    ``table - lr * grad``; ``optimizer`` covers the other parameters. Build
-    it with ``step.init_optimizer(params)``. ``step.sample(seeds, draw)``
-    samples a batch over the step's CSR.
+    embedding table is updated apart from the other parameters, from its
+    gathered rows' gradient, or, when the innermost block is identity, from
+    the dense table gradient; ``optimizer`` covers the other parameters.
+    ``table_opt="sgd"``: plain SGD (``train_cfg.lr``), a row scatter with
+    the frontier's sentinel rows dropped, or ``table - lr * grad``.
+    ``table_opt="adafactor"`` (needs ``sparse_emb``): the factored rule,
+    :func:`factored_rows_update`, or :func:`factored_slice_update` on the
+    identity block's dense gradient; the optimizer is then a
+    :class:`SplitOptimizer` whose ``table`` holds the [N] + [D] statistics.
+    Build it with ``step.init_optimizer(params)``. ``step.sample(seeds,
+    draw)`` samples a batch over the step's CSR.
     """
+    if table_opt == "adafactor":
+        if not sparse_emb:
+            raise ValueError("table_opt='adafactor' requires sparse_emb")
+    elif table_opt != "sgd":
+        raise ValueError(f"unknown table_opt {table_opt!r}")
+    factored = table_opt == "adafactor"
     device = resolve_device(device)
-    csr, budgets, use_combined = resolve_sampler(csr, fanouts, mode)
-    csr = csr.to(device)
+    sample = _sampler(csr, fanouts, mode, device, allow_ident=True)
     n = model_cfg.num_nodes
     lr = train_cfg.lr
 
-    def sample(seeds: torch.Tensor, draw) -> SampledBatch:
-        if use_combined:
-            return sample_batch_combined(draw, csr, seeds, budgets, mode=mode,
-                                         allow_ident=True)
-        return sample_batch(draw, csr, seeds, budgets, mode=mode)
-
-    def step(params: Params, optimizer: torch.optim.Optimizer,
-             pos_edges: torch.Tensor, generator: torch.Generator, *,
+    def step(params: Params, optimizer, pos_edges: torch.Tensor,
+             generator: torch.Generator, *,
              cands: Optional[Candidates] = None, draw=None,
              enc_mask: Optional[torch.Tensor] = None):
         if cands is None:
@@ -173,8 +374,19 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
         loss.backward()
         if sparse_emb:
             with torch.no_grad():
-                if x0 is None:
-                    # Identity block: the gradient is the dense table's.
+                if factored and x0 is None:
+                    # Identity block: the dense table gradient.
+                    upd, state = factored_slice_update(
+                        emb.grad, optimizer.table, axis_name=None,
+                        row_valid=torch.ones(n, device=emb.device),
+                        n_valid=n, lr=lr)
+                    emb.add_(upd.to(emb.dtype))
+                    optimizer.table.update(state)
+                elif factored:
+                    optimizer.table.update(factored_rows_update(
+                        x0.grad, batch.frontier, emb, optimizer.table,
+                        lr=lr))
+                elif x0 is None:
                     emb.sub_(lr * emb.grad)
                 else:
                     # Frontier ids are sorted-unique, filled with n: each
@@ -183,18 +395,23 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
                     emb.index_add_(0, rows_idx, (-lr * x0.grad).masked_fill(
                         sentinel, 0.0))
             emb.grad = None
-        apply_update(optimizer, train_cfg)
+        apply_update(optimizer.rest if factored else optimizer, train_cfg)
         return loss.detach(), acc.detach()
 
-    def init_optimizer(params: Params) -> torch.optim.Optimizer:
-        return make_optimizer(train_cfg,
-                              _rest_params(params) if sparse_emb else params)
+    def init_optimizer(params: Params):
+        if not sparse_emb:
+            return make_optimizer(train_cfg, params)
+        emb, rest = _split_emb(params)
+        if not factored:
+            return make_optimizer(train_cfg, rest)
+        return SplitOptimizer(make_optimizer(train_cfg, rest),
+                              factored_slice_init(n, emb.shape[1],
+                                                  device=emb.device))
 
     step.sample = sample
     step.init_optimizer = init_optimizer
-    step.csr = csr
-    step.budgets = budgets
-    step.use_combined = use_combined
+    step.csr, step.budgets, step.use_combined = (sample.csr, sample.budgets,
+                                                 sample.use_combined)
     return step
 
 
@@ -212,8 +429,7 @@ def build_sampled_eval_epoch(csr, val_edges: np.ndarray,
     the device, the contract of ``train/loop.build_eval_epoch``.
     """
     device = resolve_device(device)
-    csr, budgets, use_combined = resolve_sampler(csr, fanouts, mode)
-    csr = csr.to(device)
+    sample = _sampler(csr, fanouts, mode, device, allow_ident=True)
     num_edges = int(val_edges.shape[0])
     b = train_cfg.batch_size
     n_steps = max(-(-num_edges // b), 1)
@@ -232,33 +448,381 @@ def build_sampled_eval_epoch(csr, val_edges: np.ndarray,
                                           train_cfg.num_neg_samples,
                                           generator=generator)
                 seeds = torch.cat([cands[0], cands[1]]).to(torch.int32)
-                if use_combined:
-                    sb = sample_batch_combined(draw, csr, seeds, budgets,
-                                               mode=mode, allow_ident=True)
-                else:
-                    sb = sample_batch(draw, csr, seeds, budgets, mode=mode)
-                emb = encoder_apply_sampled(params, sb, model_cfg)
-                m = cands[0].shape[0]
-                scores = distmult_score(emb[:m], emb[m:],
-                                        params["decoder"]["rel_emb"][cands[2]])
-                stats += torch.stack(bce_stats(scores, cands[3], cands[4]))
+                stats += torch.stack(sampled_stats(
+                    params, sample(seeds, draw), cands, model_cfg,
+                    train=False))
         denom = stats[2].clamp(min=1.0)
         return stats[0] / denom, stats[1] / denom
 
     return eval_fn
 
 
+# -- data-parallel steps over a mesh ------------------------------------------
+
+
+def _draw_shards(pos_edges: torch.Tensor, n: int, model_cfg: ModelConfig,
+                 train_cfg: TrainConfig, generator, sample, *, cands=None,
+                 draw=None, enc_mask=None, train: bool = True):
+    """Each shard's (candidates, sampled batch, dropout mask): shard i
+    takes rows [i B/n, (i + 1) B/n) of ``pos_edges`` ([B, 3], or [B, 4]
+    whose last column marks the real rows) and draws its negatives, its
+    sampler uniforms and its dropout mask, shard after shard. ``cands``,
+    ``draw`` and ``enc_mask`` are per-shard lists that replace the draws.
+    """
+    b = pos_edges.shape[0]
+    if b % n:
+        raise ValueError(f"batch size {b} must divide by the {n}-device mesh")
+    device = pos_edges.device
+    out = []
+    for i, pos in enumerate(pos_edges.reshape(n, b // n, -1)):
+        c = cands[i] if cands is not None else candidate_batch(
+            pos[:, 0], pos[:, 1], pos[:, 2], model_cfg.num_nodes,
+            train_cfg.num_neg_samples,
+            mask=pos[:, 3] > 0 if pos.shape[1] > 3 else None,
+            generator=generator)
+        batch = sample(torch.cat([c[0], c[1]]).to(torch.int32),
+                       draw[i] if draw is not None
+                       else uniform_draw(generator, device))
+        mask = None
+        if train and model_cfg.dropout > 0.0:
+            # The encoder's keep mask over layer 1's rows, drawn as
+            # models/rgcn.dropout draws it.
+            mask = enc_mask[i] if enc_mask is not None else torch.rand(
+                (batch.blocks[0].m_out, model_cfg.hidden_dim),
+                generator=generator, device=device) < 1.0 - model_cfg.dropout
+        out.append((c, batch, mask))
+    return out
+
+
+def _shard_stats(params: Params, shards, model_cfg: ModelConfig, *,
+                 train: bool, x0s=None) -> torch.Tensor:
+    """[3] (loss_sum, correct, count) summed over the shards (their psum),
+    the loss sum differentiable."""
+    return psum([torch.stack(sampled_stats(
+        params, batch, cands, model_cfg, train=train, enc_mask=mask,
+        x0=None if x0s is None else x0s[i]))
+        for i, (cands, batch, mask) in enumerate(shards)])
+
+
+def _backward_stats(params: Params, shards, model_cfg: ModelConfig, *,
+                    x0s=None) -> torch.Tensor:
+    """Every shard's loss sum, added and backpropagated once (the psum of
+    the gradients). Returns the stats [3], detached."""
+    trio = _shard_stats(params, shards, model_cfg, train=True, x0s=x0s)
+    trio[0].backward()
+    return trio.detach()
+
+
+def build_sampled_train_step_dp(csr, model_cfg: ModelConfig,
+                                train_cfg: TrainConfig, mesh: Mesh, *,
+                                fanouts: Sequence[int] = (15, 10),
+                                mode: str = "uniform"):
+    """Data-parallel sampled step over ``mesh``
+    (``build_sampled_train_step_dp``): ``step(params, optimizer, pos_edges,
+    generator, *, cands=None, draw=None, enc_mask=None) -> (loss, acc)``.
+
+    Each of the n shards takes B/n seeds, samples its own frontier (no
+    identity block), encodes it and scores its candidates; the shards' loss
+    sums are backpropagated once, the gradients divided by the total
+    candidate count, then ``apply_update`` (clip, then the optimizer step,
+    ``step.init_optimizer(params)``: every parameter). The CSR and the
+    parameters are replicated. ``B % n`` raises.
+    """
+    sample = _sampler(csr, fanouts, mode, mesh.device, allow_ident=False)
+
+    def step(params: Params, optimizer, pos_edges: torch.Tensor,
+             generator: torch.Generator, *, cands=None, draw=None,
+             enc_mask=None):
+        shards = _draw_shards(pos_edges, mesh.n_shards, model_cfg, train_cfg,
+                              generator, sample, cands=cands, draw=draw,
+                              enc_mask=enc_mask)
+        optimizer.zero_grad(set_to_none=True)
+        trio = _backward_stats(params, shards, model_cfg)
+        total = trio[2].clamp(min=1.0)
+        for p in param_leaves(params):
+            if p.grad is not None:
+                p.grad.div_(total)
+        apply_update(optimizer, train_cfg)
+        return trio[0] / total, trio[1] / total
+
+    step.sample, step.mesh = sample, mesh
+    step.init_optimizer = lambda params: make_optimizer(train_cfg, params)
+    return step
+
+
+def build_sampled_train_step_zero1(csr, model_cfg: ModelConfig,
+                                   train_cfg: TrainConfig, mesh: Mesh, *,
+                                   fanouts: Sequence[int] = (15, 10),
+                                   mode: str = "uniform"):
+    """The data-parallel step with ZeRO-1 sharding of the embedding table's
+    optimizer state (``build_sampled_train_step_zero1``).
+
+    The table stays replicated. After the shards' backward (as
+    :func:`build_sampled_train_step_dp`), the whole gradient is clipped by
+    its global norm; then each shard's row slice of n_loc = ceil(N/n) rows
+    (the last padded with zero rows) is updated with its own optimizer
+    state, and the table is rebuilt from the slices (their ``all_gather``,
+    ``[:N]``). The other parameters are updated once. The optimizer
+    (``step.init_optimizer(params)``) is a :class:`SplitOptimizer` whose
+    ``table`` steps the slices stacked [n, n_loc, D], so its moments are
+    the per-slice ones, [n, n_loc, D].
+    """
+    sample = _sampler(csr, fanouts, mode, mesh.device, allow_ident=False)
+    n = mesh.n_shards
+    n_nodes = model_cfg.num_nodes
+    n_loc = -(-n_nodes // n)
+
+    def init_optimizer(params: Params) -> SplitOptimizer:
+        emb, rest = _split_emb(params)
+        slices = torch.zeros(n, n_loc, emb.shape[1], dtype=emb.dtype,
+                             device=emb.device)
+        return SplitOptimizer(make_optimizer(train_cfg, rest),
+                              make_optimizer(train_cfg, [slices]))
+
+    def step(params: Params, optimizer: SplitOptimizer,
+             pos_edges: torch.Tensor, generator: torch.Generator, *,
+             cands=None, draw=None, enc_mask=None):
+        shards = _draw_shards(pos_edges, n, model_cfg, train_cfg, generator,
+                              sample, cands=cands, draw=draw,
+                              enc_mask=enc_mask)
+        emb = params["encoder"]["node_emb"]
+        optimizer.zero_grad(set_to_none=True)
+        emb.grad = None
+        trio = _backward_stats(params, shards, model_cfg)
+        total = trio[2].clamp(min=1.0)
+        grads = [p.grad for p in param_leaves(params) if p.grad is not None]
+        for g in grads:
+            g.div_(total)
+        if train_cfg.grad_clip and train_cfg.grad_clip > 0:
+            # The full gradient's global norm, before the slices.
+            clip_by_global_norm_(grads, train_cfg.grad_clip)
+        slices = optimizer.table.param_groups[0]["params"][0]
+        with torch.no_grad():
+            # Each shard's row slice of the replicated table and of its
+            # gradient; the pad rows stay zero.
+            all_gather(slices, tiled=True)[:n_nodes].copy_(emb)
+            slices.grad = torch.zeros_like(slices)
+            all_gather(slices.grad, tiled=True)[:n_nodes].copy_(emb.grad)
+            optimizer.table.step()
+            emb.copy_(all_gather(slices, tiled=True)[:n_nodes])
+        optimizer.rest.step()
+        return trio[0] / total, trio[1] / total
+
+    step.sample, step.mesh = sample, mesh
+    step.init_optimizer = init_optimizer
+    return step
+
+
+class ShardedRowFetch(torch.autograd.Function):
+    """The rows a tp group's requesters ask of a row-sharded table
+    (``_make_sharded_row_fetch``).
+
+    ``apply(emb_dm, owned, loc_ids)``: ``emb_dm`` [n, n_loc, D] is the
+    table's n slices; ``owned`` bool and ``loc_ids`` int32 [n, n * cap] say,
+    for each owner and each requested id (the requesters' frontiers
+    concatenated, their ``all_gather``), whether the owner holds that row
+    and at which local row (clipped into the slice). Forward: each owner's
+    masked take from its slice, and one ``psum_scatter`` routes requester r
+    its [cap, D] rows: [n, cap, D]. Backward: the ``all_gather`` of the
+    requesters' row cotangents, masked by the owner, then for each owner n
+    sorted segment-sums into its slice, one per requester's chunk, through
+    ``data/sampling._sorted_accumulate`` (kernel B2 on the card). Each
+    chunk is a frontier, sorted-unique, so its clipped local ids stay
+    sorted, and the rows an owner does not hold add zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, emb_dm, owned, loc_ids):
+        ctx.save_for_backward(owned, loc_ids)
+        ctx.n_loc, ctx.dtype = emb_dm.shape[1], emb_dm.dtype
+        owner = torch.arange(emb_dm.shape[0], device=emb_dm.device)[:, None]
+        contrib = torch.where(owned[..., None], emb_dm[owner, loc_ids.long()],
+                              torch.zeros((), dtype=emb_dm.dtype,
+                                          device=emb_dm.device))
+        return psum_scatter(contrib)
+
+    @staticmethod
+    def backward(ctx, g_rows):
+        owned, loc_ids = ctx.saved_tensors
+        n, cap = g_rows.shape[0], g_rows.shape[1]
+        # psum_scatter's transpose: every owner sees every requester's rows.
+        g_all = all_gather(g_rows, tiled=True)
+        zero = torch.zeros((), dtype=g_all.dtype, device=g_all.device)
+        slices = []
+        for o in range(n):
+            g_o = torch.where(owned[o][:, None], g_all, zero)
+            parts = [sampling._sorted_accumulate(
+                g_o[r * cap:(r + 1) * cap], loc_ids[o, r * cap:(r + 1) * cap],
+                ctx.n_loc) for r in range(n)]
+            slices.append(psum(parts))
+        return torch.stack(slices).to(ctx.dtype), None, None
+
+
+def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
+                                   train_cfg: TrainConfig, mesh: Mesh, *,
+                                   fanouts: Sequence[int] = (15, 10),
+                                   mode: str = "uniform",
+                                   table_opt: str = "sgd"):
+    """The data-parallel step with the embedding table itself sharded
+    (``build_sampled_train_step_zero3``).
+
+    The table is a [n_tp, n_loc, D] leaf (``step.to_sharded`` /
+    ``step.to_full`` convert it, ``step.shard_params`` /
+    ``step.full_params`` a parameter dict), row slice t owned by tp index
+    t. Each
+    shard samples its frontier; each tp group gathers its shards' frontier
+    ids and fetches their rows from the owners (:class:`ShardedRowFetch`),
+    which feed ``encoder_apply_sampled(x0=rows)``. The gradient of each
+    slice is local: the owners' sorted sums of their rows' cotangents. On
+    an (n_dp, n_tp) mesh each dp row fetches from its own replica of the
+    slices and serves only its own requesters; the replicas' slice
+    gradients are then summed over dp. Clip: the global norm over the
+    slices and the other leaves. ``table_opt="sgd"`` steps the slices with
+    the clip-free optimizer (adam by default), ``"adafactor"`` with
+    :func:`factored_slice_update` over the tp slices (no clip allowed);
+    ``step.init_optimizer(params)`` builds the :class:`SplitOptimizer`.
+    ``step.eval_batch(params, pos_mask, generator)`` is the sharded sampled
+    validation of one [B, 4] batch, (loss_sum, correct, count). The flat
+    n_dp * n_tp mesh gives the same parameters as the (n_dp, n_tp) one, up
+    to summation order.
+    """
+    if table_opt not in ("sgd", "adafactor"):
+        raise ValueError(f"unknown table_opt {table_opt!r}")
+    factored = table_opt == "adafactor"
+    if factored and train_cfg.grad_clip:
+        # The factored rule clips its own update (block RMS), as on one
+        # device; a global-norm clip on top would train another rule.
+        raise ValueError(
+            "--table_opt adafactor cannot honor global-norm grad_clip; "
+            "disable --grad_clip")
+    dev = mesh.device
+    sample = _sampler(csr, fanouts, mode, dev, allow_ident=False)
+    n_tp = mesh.n_tp
+    n_nodes = model_cfg.num_nodes
+    n_loc = -(-n_nodes // n_tp)
+    pad_rows = n_tp * n_loc - n_nodes
+    row_valid = (torch.arange(n_tp * n_loc, device=dev)
+                 < n_nodes).float().view(n_tp, n_loc)
+    offsets = torch.arange(n_tp, device=dev)[:, None] * n_loc
+    ends = (offsets + n_loc).clamp(max=n_nodes)
+
+    def to_sharded(emb_full: torch.Tensor) -> torch.Tensor:
+        return F.pad(emb_full, (0, 0, 0, pad_rows)).view(n_tp, n_loc, -1)
+
+    def to_full(emb_dm: torch.Tensor) -> torch.Tensor:
+        return emb_dm.reshape(n_tp * n_loc, -1)[:n_nodes]
+
+    def shard_params(params: Params) -> Params:
+        """A new parameter dict whose table is a sharded copy of
+        ``params``'s, a leaf that requires grad (the step's layout)."""
+        emb, rest = _split_emb(params)
+        return _merge_emb(rest, to_sharded(emb.detach()).clone()
+                          .requires_grad_(True))
+
+    def full_params(params: Params) -> Params:
+        """``params`` with the table gathered whole, [N, D] (a view)."""
+        emb, rest = _split_emb(params)
+        return _merge_emb(rest, to_full(emb))
+
+    def fetch(emb_dm: torch.Tensor, batches) -> torch.Tensor:
+        """One tp group's frontier rows, [n_tp, cap, D]. Sentinel ids and
+        pad rows are owned by nobody: their rows are zero."""
+        all_ids = all_gather([b.frontier for b in batches], tiled=True)
+        owned = (all_ids >= offsets) & (all_ids < ends)
+        loc_ids = (all_ids - offsets).clamp(0, n_loc - 1).to(torch.int32)
+        return ShardedRowFetch.apply(emb_dm, owned, loc_ids)
+
+    def fetch_all(replicas, shards) -> List[torch.Tensor]:
+        rows = []
+        for emb_dm, group in zip(replicas, shard_groups(mesh)):
+            rows.extend(fetch(emb_dm, [shards[s][1] for s in group]))
+        return rows
+
+    def init_optimizer(params: Params) -> SplitOptimizer:
+        emb_dm, rest = _split_emb(params)
+        table = (factored_slice_init(n_loc, emb_dm.shape[-1], device=dev,
+                                     n_slices=n_tp) if factored
+                 else make_optimizer(train_cfg, [emb_dm]))
+        return SplitOptimizer(make_optimizer(train_cfg, rest), table)
+
+    def step(params: Params, optimizer: SplitOptimizer,
+             pos_edges: torch.Tensor, generator: torch.Generator, *,
+             cands=None, draw=None, enc_mask=None):
+        shards = _draw_shards(pos_edges, mesh.n_shards, model_cfg, train_cfg,
+                              generator, sample, cands=cands, draw=draw,
+                              enc_mask=enc_mask)
+        emb_dm, rest = _split_emb(params)
+        optimizer.zero_grad(set_to_none=True)
+        # Each dp row's replica of the slices: a view of the one table with
+        # a gradient of its own, that row's partial gradient.
+        replicas = [emb_dm.detach().requires_grad_(True)
+                    for _ in range(mesh.n_dp)]
+        trio = _backward_stats(params, shards, model_cfg,
+                               x0s=fetch_all(replicas, shards))
+        total = trio[2].clamp(min=1.0)
+        g_emb = psum([r.grad / total for r in replicas])
+        rest_grads = [p.grad for p in param_leaves(rest) if p.grad is not None]
+        for g in rest_grads:
+            g.div_(total)
+        if train_cfg.grad_clip and train_cfg.grad_clip > 0:
+            # The slices partition the rows: their squared norms add up to
+            # the dense table's.
+            clip_by_global_norm_([g_emb, *rest_grads], train_cfg.grad_clip)
+        emb_dm.grad = g_emb
+        with torch.no_grad():
+            if factored:
+                upd, state = factored_slice_update(
+                    g_emb, optimizer.table, axis_name="tp",
+                    row_valid=row_valid, n_valid=n_nodes, lr=train_cfg.lr)
+                emb_dm.add_(upd.to(emb_dm.dtype))
+                optimizer.table.update(state)
+            else:
+                optimizer.table.step()
+        optimizer.rest.step()
+        return trio[0] / total, trio[1] / total
+
+    def eval_batch(params: Params, pos_mask: torch.Tensor,
+                   generator: torch.Generator, *, cands=None, draw=None):
+        """[3] (loss_sum, correct, count) of one [B, 4] (head, tail, rel,
+        valid) batch, with the same sharded fetch and no dropout; add them
+        over the batches for exact epoch means."""
+        shards = _draw_shards(pos_mask, mesh.n_shards, model_cfg, train_cfg,
+                              generator, sample, cands=cands, draw=draw,
+                              train=False)
+        emb_dm = params["encoder"]["node_emb"]
+        with torch.no_grad():
+            return _shard_stats(
+                params, shards, model_cfg, train=False,
+                x0s=fetch_all([emb_dm] * mesh.n_dp, shards))
+
+    step.sample, step.mesh = sample, mesh
+    step.init_optimizer = init_optimizer
+    step.to_full, step.to_sharded = to_full, to_sharded
+    step.shard_params, step.full_params = shard_params, full_params
+    step.eval_batch = eval_batch
+    return step
+
+
 class SampledTrainer(Trainer):
-    """Host-driven mini-batch trainer over sampled neighbourhoods, one
-    device.
+    """Host-driven mini-batch trainer over sampled neighbourhoods, on one
+    device or data-parallel over the shards of a mesh on it.
 
     The epoch order is the JAX trainer's: ``np.random.default_rng(seed +
     start_epoch)`` permutes the training edges each epoch and the last
-    batch wraps around to the permutation's start. Validation encodes the
-    full graph once per epoch (``train/loop.build_eval_epoch``), or, with
-    ``val_sampled``, scores each batch through its sampled encode.
-    ``models/best_model.pt`` is written on each new best validation loss and
-    ``models/final_model.pt`` after every epoch (the resume point); the
+    batch wraps around to the permutation's start. ``n_devices`` > 1 runs
+    the data-parallel step over that many shards: the dp step, or with
+    ``zero1`` / ``zero3`` the sharded-optimizer / sharded-table one;
+    ``zero3`` with ``dp_pods`` > 1 on a (dp_pods, n_devices / dp_pods)
+    mesh, and with ``table_opt="adafactor"`` the factored table rule (as
+    ``sparse_emb`` with it on one device). Every combination the JAX
+    trainer refuses raises ``ValueError`` with its message. Validation
+    encodes the full graph once per epoch (``train/loop.build_eval_epoch``;
+    with zero3 from the gathered table), or, with ``val_sampled``, scores
+    each batch through its sampled encode, through the sharded fetch with
+    zero3. ``models/best_model.pt`` is written on each new best validation
+    loss and ``models/final_model.pt`` after every epoch (the resume point);
+    a zero3 checkpoint holds the full [N, D] table, so evaluation and
+    serving load it unchanged, and its per-slice optimizer state. The
     checkpoint layout, ``metrics.jsonl`` and ``resume`` are the
     :class:`~primekg_rgcn_tpu_torch.train.loop.Trainer`'s.
     """
@@ -267,35 +831,131 @@ class SampledTrainer(Trainer):
                  graph, full_graph, train_edges: np.ndarray,
                  val_edges: np.ndarray, output_dir, *,
                  fanouts: Sequence[int] = (15, 10), mode: str = "uniform",
+                 n_devices: Optional[int] = None, zero1: bool = False,
+                 zero3: bool = False, dp_pods: int = 0,
                  sparse_emb: bool = False, val_sampled: bool = False,
-                 device="cuda", args=None):
-        if sparse_emb and (train_cfg.optimizer != "sgd" or train_cfg.grad_clip
-                           or train_cfg.weight_decay):
+                 table_opt: str = "sgd", device="cuda", args=None):
+        multi = bool(n_devices and n_devices > 1)
+        # Sharding flags must not degrade silently (the JAX trainer's
+        # refusals, in its order and words).
+        if (zero1 or zero3 or dp_pods) and not multi:
             raise ValueError(
-                "sparse_emb requires --optimizer sgd with grad_clip and "
-                "weight_decay disabled: the embedding update is a -lr*g "
-                "scatter, so any rule coupling the table with other leaves "
-                "(adam moments, global-norm clip) would diverge from the "
-                "dense step")
+                "--zero1/--zero3/--dp_pods need a multi-device mesh: pass "
+                "--shard (and --n_devices > 1) to enable one")
+        if sparse_emb and multi:
+            raise ValueError(
+                "--sparse_emb is the single-chip memory mode; the "
+                "multi-device analogue is --zero3 (sharded table)")
+        if table_opt != "sgd" and multi and not zero3:
+            raise ValueError(
+                "--table_opt with a multi-device mesh requires --zero3 "
+                "(per-slice factored stats); --zero1/--dp layouts train "
+                "the dense optimizer and would ignore it")
+        if dp_pods and dp_pods > 1 and not zero3:
+            raise ValueError("--dp_pods requires --zero3")
+        if multi and zero1 and zero3:
+            raise ValueError("--zero1 and --zero3 are exclusive")
+        if multi and zero3 and dp_pods and dp_pods > 1 and \
+                n_devices % dp_pods:
+            raise ValueError(f"--dp_pods {dp_pods} must divide the "
+                             f"{n_devices}-device mesh")
+        if not multi:
+            if table_opt != "sgd" and not sparse_emb:
+                raise ValueError("--table_opt needs --sparse_emb")
+            if sparse_emb and table_opt == "sgd" and (
+                    train_cfg.optimizer != "sgd" or train_cfg.grad_clip
+                    or train_cfg.weight_decay):
+                raise ValueError(
+                    "sparse_emb requires --optimizer sgd with grad_clip "
+                    "disabled: the embedding update is a -lr*g scatter, so "
+                    "any rule coupling the table with other leaves (adam "
+                    "moments, global-norm clip) would diverge from the "
+                    "dense step — or pass --table_opt adafactor, whose "
+                    "factored adaptive rule lifts the restriction on the "
+                    "rest params")
+            if sparse_emb and table_opt != "sgd" and train_cfg.grad_clip:
+                raise ValueError(
+                    "--table_opt adafactor cannot honor global-norm "
+                    "grad_clip (the table gradient is updated separately "
+                    "from the rest); disable --grad_clip")
         self._setup(model_cfg, train_cfg, output_dir, device, args,
                     train_edges)
         # Resolve the pick layout once; the step and the sampled validation
         # share the CSR.
         csr_like = resolve_sampler(graph, fanouts, mode=mode)[0]
-        self.step_fn = build_sampled_train_step(
-            csr_like, model_cfg, train_cfg, fanouts=fanouts, mode=mode,
-            sparse_emb=sparse_emb, device=self.device)
+        kw = dict(fanouts=fanouts, mode=mode)
+        self._zero3 = bool(multi and zero3)
+        if multi:
+            mesh = (make_mesh_2d(dp_pods, n_devices // dp_pods, self.device)
+                    if zero3 and dp_pods and dp_pods > 1
+                    else make_mesh(n_devices, self.device))
+            if zero3:
+                self.step_fn = build_sampled_train_step_zero3(
+                    csr_like, model_cfg, train_cfg, mesh,
+                    table_opt=table_opt, **kw)
+                self.params = self.step_fn.shard_params(self.params)
+            elif zero1:
+                self.step_fn = build_sampled_train_step_zero1(
+                    csr_like, model_cfg, train_cfg, mesh, **kw)
+            else:
+                self.step_fn = build_sampled_train_step_dp(
+                    csr_like, model_cfg, train_cfg, mesh, **kw)
+            logger.info("SampledTrainer: %s over a %d x %d mesh on %s",
+                        "zero3" if zero3 else "zero1" if zero1 else "dp",
+                        mesh.n_dp, mesh.n_tp, self.device)
+        else:
+            self.step_fn = build_sampled_train_step(
+                csr_like, model_cfg, train_cfg, sparse_emb=sparse_emb,
+                table_opt=table_opt, device=self.device, **kw)
         self.optimizer = self.step_fn.init_optimizer(self.params)
         self.train_edges = torch.from_numpy(
             np.asarray(train_edges, np.int64)).to(self.device)
-        if val_sampled:
+        if val_sampled and self._zero3:
+            self.eval_epoch_fn = self._sharded_eval(np.asarray(val_edges))
+        elif val_sampled:
             self.eval_epoch_fn = build_sampled_eval_epoch(
                 csr_like, np.asarray(val_edges), model_cfg, train_cfg,
-                fanouts=fanouts, mode=mode, device=self.device)
+                device=self.device, **kw)
         else:
-            self.eval_epoch_fn = build_eval_epoch(
+            full_eval = build_eval_epoch(
                 full_graph.to(self.device), np.asarray(val_edges), model_cfg,
                 train_cfg)
+            self.eval_epoch_fn = lambda params, gen: full_eval(
+                self._full_params(params), gen)
+
+    def _full_params(self, params: Params) -> Params:
+        """``params`` with the table whole, [N, D] (zero3 gathers its
+        slices)."""
+        return self.step_fn.full_params(params) if self._zero3 else params
+
+    def _saved_params(self) -> Params:
+        return self._full_params(self.params)
+
+    def _restore_params(self, params: Params) -> None:
+        if self._zero3:
+            emb, rest = _split_emb(params)
+            params = _merge_emb(rest, self.step_fn.to_sharded(emb))
+        super()._restore_params(params)
+
+    def _sharded_eval(self, val_edges: np.ndarray):
+        """zero3's sampled validation: each batch of ``val_edges`` (padded
+        with weight-0 rows) through ``step.eval_batch``; the table never
+        gathers."""
+        b = self.train_cfg.batch_size
+        n_steps = max(-(-len(val_edges) // b), 1)
+        padded = np.zeros((n_steps * b, 4), np.int64)
+        padded[:len(val_edges), :3] = val_edges
+        padded[:len(val_edges), 3] = 1
+        batches = torch.from_numpy(padded).to(self.device).view(n_steps, b, 4)
+        eval_batch = self.step_fn.eval_batch
+
+        def eval_fn(params: Params, generator: torch.Generator):
+            tot = psum([eval_batch(params, batch, generator)
+                        for batch in batches])
+            denom = tot[2].clamp(min=1.0)
+            return tot[0] / denom, tot[1] / denom
+
+        return eval_fn
 
     def train(self) -> Dict:
         cfg = self.train_cfg

@@ -238,8 +238,13 @@ def test_refusals(tmp_path):
     with pytest.raises(ValueError, match="layout"):
         ShardedTrainer(cfg, TrainConfig(), pg, pg, edges, edges, tmp_path,
                        shard="replicated", n_devices=2, device="cpu")
+    # --shard with --sample_fanouts is the data-parallel sampled step;
+    # --zero1 and --zero3 together are refused.
+    args = p_cli.parse_args(["--shard", "node", "--sample_fanouts", "4", "3"])
+    assert args.shard == "node" and args.sample_fanouts == [4, 3]
     with pytest.raises(SystemExit):
-        p_cli.parse_args(["--shard", "node", "--sample_fanouts", "4", "3"])
+        p_cli.parse_args(["--shard", "node", "--sample_fanouts", "4", "3",
+                          "--zero1", "--zero3"])
 
 
 ARGS = ["--synthetic", "--synthetic_scale", "0.02", "--epochs", "2",

@@ -379,3 +379,123 @@ def test_cli_validates_sampled_flags(tmp_path):
     args = pcli.parse_args(["--sample_fanouts", "15", "10",
                             "--sample_mode", "block12"])
     assert args.sample_fanouts == [15, 10] and args.sample_mode == "block12"
+
+
+# -- the data-parallel layouts through the trainer and the CLI ----------------
+
+_SGD0 = dict(optimizer="sgd", grad_clip=0.0)
+REFUSALS = [
+    # (trainer keywords, train config keywords, message)
+    (dict(zero3=True), {}, "multi-device"),
+    (dict(zero1=True, n_devices=1), {}, "multi-device"),
+    (dict(dp_pods=2), {}, "multi-device"),
+    (dict(dp_pods=2, n_devices=4), {}, "requires --zero3"),
+    (dict(sparse_emb=True, n_devices=4), _SGD0, "single-chip"),
+    (dict(zero1=True, table_opt="adafactor", n_devices=4),
+     dict(grad_clip=0.0), "table_opt"),
+    (dict(table_opt="adafactor", n_devices=4), dict(grad_clip=0.0),
+     "table_opt"),
+    (dict(zero1=True, zero3=True, n_devices=4), {}, "exclusive"),
+    (dict(zero3=True, dp_pods=3, n_devices=4), {}, "must divide"),
+    (dict(zero3=True, table_opt="adafactor", n_devices=4), {}, "grad_clip"),
+    (dict(table_opt="adafactor"), {}, "needs --sparse_emb"),
+    (dict(sparse_emb=True), dict(grad_clip=0.0), "sparse_emb requires"),
+    (dict(sparse_emb=True, table_opt="adafactor"), {}, "grad_clip"),
+]
+
+
+@pytest.mark.parametrize("kw,tkw,match", REFUSALS)
+def test_trainer_refuses_what_the_jax_trainer_refuses(kw, tkw, match,
+                                                      tmp_path):
+    edges, _, pg, jcfg, _ = _setup()
+    cfg = ModelConfig.from_dict(jcfg.to_dict())
+    with pytest.raises(ValueError, match=match):
+        psampled.SampledTrainer(cfg, TrainConfig(batch_size=32, **tkw), pg,
+                                pg, edges, edges[:8], tmp_path,
+                                fanouts=(3, 3), device="cpu", **kw)
+
+
+SHARDED = [*ARGS, "--sample_mode", "block", "--shard", "node",
+           "--n_devices", "4"]
+
+
+@pytest.fixture(scope="module")
+def zero3_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("sampled_zero3")
+    extra = ["--zero3", "--dp_pods", "2", "--table_opt", "adafactor",
+             "--grad_clip", "0", "--val_sampled", "--output_dir", str(out)]
+    return out, extra, pcli.main([*SHARDED, *extra, "--epochs", "1"])
+
+
+def test_cli_zero3_checkpoint_holds_the_full_table(zero3_run, tmp_path):
+    """A zero3 run on a (2, 2) mesh with the factored table rule: the .pt
+    holds the whole [N, D] table and the per-slice statistics, and
+    evaluate.cli reads it as it stands."""
+    from primekg_rgcn_tpu_torch.evaluate import cli as p_eval
+
+    out, _, result = zero3_run
+    assert np.all(np.isfinite(result["history"]["train_losses"]
+                              + result["history"]["val_losses"]))
+    payload = pckpt.load(out / "models" / "final_model.pt")
+    cfg = ModelConfig.from_dict(payload["model_config"])
+    assert payload["params"]["encoder"]["node_emb"].shape == (cfg.num_nodes,
+                                                              8)
+    table = payload["optimizer_state_dict"]["table"]
+    n_loc = -(-cfg.num_nodes // 2)
+    assert table["v_row"].shape == (2, 8)
+    assert table["v_col"].shape == (2, n_loc)
+    metrics = p_eval.main(["--model_path", str(out / "models" /
+                                               "final_model.pt"),
+                           "--data_dir", str(out / "synthetic_data"),
+                           "--output_dir", str(tmp_path), "--device", "cpu"])
+    assert np.isfinite(metrics["classification"]["auc_roc"])
+    assert np.isfinite(metrics["ranking"]["mrr"])
+
+
+def test_cli_zero3_resume_continues_the_history_and_the_slices(zero3_run,
+                                                               tmp_path):
+    out, extra, first = zero3_run
+    saved = pckpt.load(out / "models" / "final_model.pt")
+    extra = [*extra[:-1], str(tmp_path)]
+    resumed = pcli.main([*SHARDED, *extra, "--epochs", "2", "--resume",
+                         str(out / "models" / "final_model.pt")])
+    hist = resumed["history"]
+    assert hist["train_losses"][0] == first["history"]["train_losses"][0]
+    assert len(hist["train_losses"]) == 2 and np.isfinite(hist["val_losses"]
+                                                          [1])
+    steps = int(saved["optimizer_state_dict"]["table"]["count"][0])
+    table = pckpt.load(tmp_path / "models" / "final_model.pt")[
+        "optimizer_state_dict"]["table"]
+    assert table["count"].tolist() == [2 * steps] * 2
+
+
+@pytest.mark.parametrize("layout", ["zero1", "dp"])
+def test_cli_shard_edge_with_sample_fanouts_trains_data_parallel(layout,
+                                                                 tmp_path):
+    flags = ["--zero1"] if layout == "zero1" else []
+    result = pcli.main([*ARGS, "--sample_mode", "block", "--shard", "edge",
+                        "--n_devices", "2", *flags, "--epochs", "1",
+                        "--output_dir", str(tmp_path)])
+    assert np.all(np.isfinite(result["history"]["train_losses"]
+                              + result["history"]["val_losses"]))
+    payload = pckpt.load(tmp_path / "models" / "final_model.pt")
+    opt_state = payload["optimizer_state_dict"]
+    if layout == "zero1":
+        cfg = ModelConfig.from_dict(payload["model_config"])
+        slices = opt_state["table"]["state"][0]["exp_avg"]
+        assert slices.shape == (2, -(-cfg.num_nodes // 2), 8)
+    else:
+        assert "param_groups" in opt_state
+
+
+def test_cli_sharded_sampled_flags():
+    args = pcli.parse_args(["--sample_fanouts", "4", "3", "--shard", "edge",
+                            "--n_devices", "4", "--zero3", "--dp_pods", "2",
+                            "--table_opt", "adafactor"])
+    assert (args.zero3, args.dp_pods, args.table_opt) == (True, 2,
+                                                          "adafactor")
+    for bad in (["--zero1"], ["--zero3", "--shard", "edge"],
+                ["--table_opt", "adafactor"], ["--dp_pods", "2"],
+                ["--sample_fanouts", "4", "--zero1", "--zero3"]):
+        with pytest.raises(SystemExit):
+            pcli.parse_args(bad)

@@ -195,6 +195,32 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    as edge_grad and edge_train. full_kg_zero3: zero3 at 4 shards on
    config 4's graph, one step against the plain versions and 10 timed
    steps.
+27a. combined_agg: config 4 at uniform 15/10 under each per-(node,
+   relation) reduction (``PRIMEKG_COMBINED_AGG``: einsum, rowwise,
+   chunked): the rowwise and chunked step's loss within 1e-5 and
+   gradients at the grad criterion of the einsum's on the same draws,
+   then 10 timed steps each (2 B2 a step, peak memory, a profile,
+   ``step_twice_equal``). Config 3's tensors are then dropped.
+27b. sampled_cache: the layer-1 cache on the ``bench.py`` graph:
+   ``SampledTrainer(cache_layer1=True)``'s warm start (one conv1 pass, 3
+   B1) against B1's plain version; one cached step's loss, gradients and
+   pushed cache (2 B2) against the plain versions; ``train.cli
+   --sample_fanouts 15 10 --sparse_emb --cache_layer1`` at scale 0.1 for
+   2 epochs, then ``evaluate.cli`` on its model.
+27c. BASELINE config 5 (``bench/suite.py:175-272``): rmat10m_graph:
+   ``native.rmat_native(10M, 100M, 50, seed=0)``, ``build_rel_graph``
+   and ``build_combined_csr`` (slim packed), each timed with the host's
+   peak RSS, the layout, the budgets and the bytes moved to the card
+   (only the CSR). rmat10m_grad: one uniform bf16 step (batch 1024,
+   fanouts 15/10, SGD, no clip), identity inner block asserted, through
+   B2 against its plain version under the bf16 criterion; kernel_b2 on
+   the step's identity (~8.2M rows into 10M segments) and dedup streams;
+   kernel_b3 on the windows one block and one block4 batch fetch from
+   the 100M-record table, exactly equal to its plain version.
+   rmat10m_sampled: the sparse step in uniform, block and block4 mode,
+   3 warm-up and 15 timed steps each (2 B2 a step, 2 B3 in block modes),
+   peak memory, a profile, ``step_twice_equal``; rmat10m_cache: the
+   cached step from a cold cache, the same figures and the cache's MB.
 28. the kernel summary line, then the card line, then the result line.
 
 bf16 compute (``compute_dtype="bfloat16"``, full width) adds, each beside
@@ -237,6 +263,7 @@ It needs one CUDA card and exits non-zero without one.
 
 import concurrent.futures
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -2621,7 +2648,8 @@ def phase_edge_train(graph, cfg, edges, dev, tmp, steps=30,
                       device_busy_ms_per_step=busy_ms,
                       idle_share=bd["idle_share"],
                       idle_share_two_windows=1.0 - busy_ms / step_ms,
-                      us_by_kind=bd["us_by_kind"])
+                      us_by_kind=bd["us_by_kind"],
+                      top_kernels_us=bd["top_kernels_us"])
     emit(label, **result)
     return counts, result
 
@@ -2861,10 +2889,13 @@ def phase_kernel_b2_fetch(calls, n_loc):
 
 
 def dp_timed(label, name, step, params, opt, tcfg, edges_dev, dev, tmp,
-             steps, edges_n):
+             steps, edges_n, want=None, extra=None):
     """``steps`` timed steps after 3 warm-up (a fresh host batch each, the
-    pinned copy), launches asserted (``dp_launches``), peak memory, a
-    10-step profile, and ``step_twice_equal``, which must hold. Returns the
+    pinned copy), launches asserted (``want`` per step, by default
+    ``dp_launches(name)``), peak memory, a 10-step profile, and
+    ``step_twice_equal``, which must hold. ``edges_dev`` is the [E, 3]
+    positives on the card, or on the host (a numpy array: each batch is
+    gathered there and copied over). ``extra`` joins the line. Returns the
     figures."""
     import numpy as np
     import torch
@@ -2875,10 +2906,16 @@ def dp_timed(label, name, step, params, opt, tcfg, edges_dev, dev, tmp,
     gen = torch.Generator(dev).manual_seed(0)
     rng = np.random.default_rng(0)
 
+    def batch():
+        idx = rng.integers(0, edges_n, tcfg.batch_size)
+        if isinstance(edges_dev, np.ndarray):
+            return torch.from_numpy(edges_dev[idx].astype(
+                np.int64)).pin_memory().to(dev, non_blocking=True)
+        return edges_dev[torch.from_numpy(idx).pin_memory().to(
+            dev, non_blocking=True)]
+
     def one():
-        idx = torch.from_numpy(rng.integers(0, edges_n, tcfg.batch_size))
-        idx = idx.pin_memory().to(dev, non_blocking=True)
-        return step(params, opt, edges_dev[idx], gen)
+        return step(params, opt, batch(), gen)
 
     first = one()
     for _ in range(2):
@@ -2893,16 +2930,15 @@ def dp_timed(label, name, step, params, opt, tcfg, edges_dev, dev, tmp,
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     counts = read_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    want = {k: v * steps for k, v in dp_launches(name).items()}
+    want = {k: v * steps
+            for k, v in (want or dp_launches(name)).items()}
     if counts != want:
         raise AssertionError(f"{label}/{name}: launches {counts}, expected "
                              f"{want}")
     losses = [float(first[0]), float(last[0])]
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{label}/{name}: non-finite loss {losses}")
-    batch = edges_dev[torch.from_numpy(rng.integers(
-        0, edges_n, tcfg.batch_size)).to(dev)]
-    twice = step_twice_equal(step, params, opt, batch, dev)
+    twice = step_twice_equal(step, params, opt, batch(), dev)
     if not twice:
         raise AssertionError(f"{label}/{name}: two runs of one step from one "
                              f"state differ")
@@ -2912,7 +2948,8 @@ def dp_timed(label, name, step, params, opt, tcfg, edges_dev, dev, tmp,
                   launches=counts,
                   launches_per_step={k: v / steps for k, v in counts.items()},
                   peak_memory_mb=peak_mb, first_loss=losses[0],
-                  last_loss=losses[1], step_twice_equal=twice)
+                  last_loss=losses[1], step_twice_equal=twice,
+                  **(extra or {}))
     prof_steps = 10
     torch.cuda.synchronize()
     with profile_trace(tmp / f"{label}_{name}_profile"):
@@ -2930,7 +2967,8 @@ def dp_timed(label, name, step, params, opt, tcfg, edges_dev, dev, tmp,
                       device_busy_ms_per_step=busy_ms,
                       idle_share=bd["idle_share"],
                       idle_share_two_windows=1.0 - busy_ms / step_ms,
-                      us_by_kind=bd["us_by_kind"])
+                      us_by_kind=bd["us_by_kind"],
+                      top_kernels_us=bd["top_kernels_us"])
     emit(label, **result)
     return result
 
@@ -4169,6 +4207,449 @@ def phase_full_kg_trainer(graph, edges, dev, tmp):
     return counts
 
 
+# -- the combined reductions, the layer-1 cache and BASELINE config 5 ---------
+
+COMBINED_AGGS = ("einsum", "rowwise", "chunked")
+
+
+@contextlib.contextmanager
+def combined_agg(impl):
+    """``PRIMEKG_COMBINED_AGG`` set to ``impl`` (the sampler and the
+    aggregation read it), restored after."""
+    import os
+
+    saved = os.environ.get("PRIMEKG_COMBINED_AGG")
+    os.environ["PRIMEKG_COMBINED_AGG"] = impl
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PRIMEKG_COMBINED_AGG")
+        else:
+            os.environ["PRIMEKG_COMBINED_AGG"] = saved
+
+
+def phase_combined_agg(graph, cfg, edges, dev, tmp):
+    """Config 4 (the full-PrimeKG graph, uniform at fanouts 15/10, adam lr
+    1e-3, clip 1.0) under each per-(node, relation) reduction: one step's
+    loss and gradients (``sampled_forward_backward``, the same draws) of
+    the rowwise and the chunked reduction against the einsum's, within
+    1e-5 and at the grad criterion; then 10 timed steps each
+    (``dp_timed``: 2 B2 a step, the identity and the dedup backward;
+    step_ms, busy, peak memory). Returns ({impl: figures}, largest
+    error)."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
+
+    from primekg_rgcn_tpu_torch.data.sampling import build_combined_csr
+
+    params0, edges_dev, pos, _ = sampled_setup(graph, cfg, edges, dev)
+    ccsr = build_combined_csr(graph)
+    tcfg = TrainConfig(batch_size=1024)
+    runs, results, max_err = {}, {}, 0.0
+    for impl in COMBINED_AGGS:
+        with combined_agg(impl):
+            step = build_sampled_train_step(ccsr, cfg, tcfg,
+                                            fanouts=(15, 10),
+                                            mode="uniform", device=dev)
+            reset_counts()
+            loss, grads, batch = sampled_forward_backward(step, params0, cfg,
+                                                          pos, dev)
+            counts = read_counts()
+            if not batch.blocks[0].ident or counts["B2"] != 2:
+                raise AssertionError(f"combined_agg/{impl}: identity inner "
+                                     f"block {batch.blocks[0].ident}, "
+                                     f"launches {counts}")
+            if batch.blocks[1].tags_sorted != (impl != "einsum"):
+                raise AssertionError(f"combined_agg/{impl}: tags_sorted "
+                                     f"{batch.blocks[1].tags_sorted}")
+            runs[impl] = (loss, grads)
+            line = {"loss": loss, "budgets": list(step.budgets)}
+            if impl != "einsum":
+                ref_loss, ref = runs["einsum"]
+                np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+                errs = {k: close_scaled(grads[k], ref[k],
+                                        f"combined_agg/{impl}/{k}")
+                        for k in ref}
+                max_err = max(max_err, *errs.values())
+                line.update(loss_einsum=ref_loss,
+                            max_abs_err_vs_einsum=max(errs.values()))
+            del grads, batch
+            params = fresh_params(params0)
+            opt = step.init_optimizer(params)
+            results[impl] = dp_timed(
+                "combined_agg", impl, step, params, opt, tcfg, edges_dev, dev,
+                tmp, 10, edges.shape[0],
+                want={"B1": 0, "B2": 2, "B3": 0, "B4": 0}, extra=line)
+            del step, params, opt
+    return results, max_err
+
+
+def cached_forward_backward(step, params, cfg, pos, dev, cache, seed=0):
+    """One cached step's loss and gradients (no update) on a copy of
+    ``cache``: the frontier rows as a leaf (``x0``, as the sparse step
+    gathers them), every draw from one generator seeded ``seed``. Returns
+    (loss, {leaf or "x0": grad}, updated cache copy)."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.data.sampling import uniform_draw
+    from primekg_rgcn_tpu_torch.train.neg_sampling import candidate_batch
+    from primekg_rgcn_tpu_torch.train.sampled import sampled_loss
+
+    n = cfg.num_nodes
+    gen = torch.Generator(dev).manual_seed(seed)
+    cands = candidate_batch(pos[:, 0], pos[:, 1], pos[:, 2], n, 1,
+                            generator=gen)
+    batch = step.sample(torch.cat([cands[0], cands[1]]).to(torch.int32),
+                        uniform_draw(gen, dev))
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.grad = None
+    with torch.no_grad():
+        x0 = params["encoder"]["node_emb"][
+            batch.frontier.clamp(max=n - 1).long()].masked_fill(
+            (batch.frontier == n)[:, None], 0.0)
+    x0.requires_grad_(True)
+    cache = cache.clone()
+    loss, _ = sampled_loss(params, batch, cands, cfg, train=True,
+                           generator=gen, x0=x0, cache=cache)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {k: p.grad.clone() for k, p in leaves if p.grad is not None}
+    grads["x0"] = x0.grad.clone()
+    return loss.item(), grads, cache
+
+
+def phase_sampled_cache(graph, cfg, edges, dev, tmp):
+    """The layer-1 cache on the ``bench.py`` graph: ``SampledTrainer(
+    cache_layer1=True)``'s warm start (one conv1 pass through B1, a launch
+    per relation) against the same pass through B1's plain version; one
+    cached step (uniform, fanouts 15/10, one hop) from that cache, its loss,
+    gradients and pushed cache through B2 against the plain versions (2 B2:
+    conv1's and conv2's dedup backward); then ``train.cli --sample_fanouts
+    15 10 --sparse_emb --cache_layer1`` at scale 0.1 for 2 epochs and
+    ``evaluate.cli`` on its model. Returns ({"warm_start", "cached_step",
+    "cli", "eval_after_cli": launches}, largest error)."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.ops.rgcn_segment import (aggregate_plain,
+                                                         rgcn_layer_segment)
+    from primekg_rgcn_tpu_torch.train import cli as train_cli
+    from primekg_rgcn_tpu_torch.train.sampled import SampledTrainer
+
+    tcfg = TrainConfig(batch_size=1024, optimizer="sgd", grad_clip=0.0,
+                       epochs=1)
+    reset_counts()
+    trainer = SampledTrainer(cfg, tcfg, graph, graph, edges, edges[:2048],
+                             tmp / "sampled_cache_trainer", fanouts=(15, 10),
+                             sparse_emb=True, cache_layer1=True, device=dev)
+    warm = read_counts()
+    enc = trainer.params["encoder"]
+    with torch.no_grad():
+        want = rgcn_layer_segment(enc["conv1"], enc["node_emb"], graph,
+                                  agg_fn=aggregate_plain)
+    buckets = sum(e > s for s, e in map(graph.bucket_slice,
+                                        range(graph.num_relations)))
+    if warm != {"B1": buckets, "B2": 0, "B3": 0, "B4": 0}:
+        raise AssertionError(f"sampled_cache: warm-start launches {warm}, "
+                             f"expected {buckets} B1")
+    warm_err = close_scaled(trainer.optimizer.cache, want,
+                            "sampled_cache/warm_start")
+    step = trainer.step_fn
+    params0, _, pos, _ = sampled_setup(graph, cfg, edges, dev)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        reset_counts()
+        with (sampler_kernels("plain") if impl == "plain"
+              else contextlib.nullcontext()):
+            runs[impl] = (*cached_forward_backward(
+                step, params0, cfg, pos, dev, trainer.optimizer.cache),
+                read_counts())
+    if runs["kernel"][3] != {"B1": 0, "B2": 2, "B3": 0, "B4": 0} or \
+            any(runs["plain"][3].values()):
+        raise AssertionError(f"sampled_cache: launches kernel "
+                             f"{runs['kernel'][3]}, plain {runs['plain'][3]}")
+    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0], rtol=1e-5)
+    errs = {k: close_scaled(runs["kernel"][1][k], v, f"sampled_cache/{k}")
+            for k, v in runs["plain"][1].items()}
+    errs["cache"] = close_scaled(runs["kernel"][2], runs["plain"][2],
+                                 "sampled_cache/cache")
+    max_err = max(warm_err, *errs.values())
+    emit("sampled_cache", warm_start_launches=warm,
+         warm_start_max_abs_err=warm_err, budgets=list(step.budgets),
+         step_launches=runs["kernel"][3], loss_kernel=runs["kernel"][0],
+         loss_plain=runs["plain"][0], max_abs_err=errs,
+         cache_mb=trainer.optimizer.cache.numel()
+         * trainer.optimizer.cache.element_size() / 2 ** 20)
+    launches = {"warm_start": warm, "cached_step": runs["kernel"][3]}
+    del trainer, step, runs
+
+    out = tmp / "sampled_cache_cli"
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_cli.main([
+        "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2", "--seed",
+        "0", "--device", "cuda", "--sample_fanouts", "15", "10",
+        "--sparse_emb", "--optimizer", "sgd", "--grad_clip", "0", "--lr",
+        "0.5", "--cache_layer1", "--output_dir", str(out)])
+    seconds = time.perf_counter() - t0
+    launches["cli"] = read_counts()
+    hist = result["history"]
+    if not np.all(np.isfinite(hist["train_losses"] + hist["val_losses"])) \
+            or launches["cli"]["B1"] == 0 or launches["cli"]["B2"] == 0:
+        raise AssertionError(f"sampled_cache/cli: history {hist}, launches "
+                             f"{launches['cli']}")
+    emit("sampled_cache_cli", seconds=seconds, launches=launches["cli"],
+         history=hist, epoch_time_s=result["epoch_times_s"])
+    launches["eval_after_cli"] = eval_cli_after(out, "sampled_cache_cli")
+    return launches, max_err
+
+
+RMAT10M = (10_000_000, 100_000_000, 50)
+
+
+def host_peak_rss_mb():
+    """The process's peak resident set on the host, in MB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def phase_rmat10m_graph(dev, size=RMAT10M):
+    """BASELINE config 5's graph, as the JAX suite builds it
+    (``bench/suite.py:175-195``): ``native.rmat_native(10M, 100M, 50,
+    seed=0)`` (numpy ``rmat`` without the library), not bidirected, then
+    ``build_rel_graph`` (the C++ builder) and ``build_combined_csr`` (slim
+    packed: the fat degree table would be 1 GB), each timed, the host's
+    peak RSS after each, and the budgets at fanouts 15/10. Only the
+    combined CSR moves to the card; the graph is dropped. ``size`` is
+    (nodes, edges, relations). Returns (CSR on the card, positives [E, 3]
+    int32 on the host)."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch import native
+    from primekg_rgcn_tpu_torch.data import synthetic
+    from primekg_rgcn_tpu_torch.data.graph import build_rel_graph
+    from primekg_rgcn_tpu_torch.data.sampling import build_combined_csr
+    from primekg_rgcn_tpu_torch.train.sampled import resolve_sampler
+
+    n, e, r = size
+    line, t0 = {}, time.perf_counter()
+    g = native.rmat_native(n, e, r, seed=0)
+    line["generator"] = "rmat_native" if g is not None else "numpy rmat"
+    if g is None:
+        g = synthetic.rmat(n, e, r, seed=0)
+    line.update(rmat_s=time.perf_counter() - t0,
+                rss_mb_after_rmat=host_peak_rss_mb())
+    src, dst, rel = g["src"], g["dst"], g["rel"]
+    edges = np.stack([src, dst, rel], 1).astype(np.int32)
+    t0 = time.perf_counter()
+    graph = build_rel_graph(src, dst, rel, n, int(rel.max()) + 1)
+    line.update(build_rel_graph_s=time.perf_counter() - t0,
+                rss_mb_after_build_rel_graph=host_peak_rss_mb(),
+                relations=graph.num_relations, edges=graph.num_edges,
+                padded_edges=graph.padded_num_edges,
+                norm_mode=graph.norm_mode)
+    del g, src, dst, rel
+    t0 = time.perf_counter()
+    ccsr = build_combined_csr(graph)
+    line.update(build_combined_csr_s=time.perf_counter() - t0,
+                rss_mb_after_build_combined_csr=host_peak_rss_mb())
+    del graph
+    if not ccsr.packed.shape[0]:
+        raise AssertionError("rmat10m_graph: the CSR is not slim packed")
+    line["budgets"] = list(resolve_sampler(ccsr, (15, 10))[1])
+    names = ("row_start", "col", "rel", "edge_deg", "deg_total",
+             "deg_rel_flat", "packed")
+    t0 = time.perf_counter()
+    ccsr = ccsr.to(dev)
+    torch.cuda.synchronize()
+    deg = ccsr.deg_total.max().item()
+    emit("rmat10m_graph", nodes=n, **line, layout="slim packed",
+         packed_records=ccsr.packed.shape[0],
+         avg_present_relations=ccsr.avg_present_relations,
+         max_in_degree=deg, to_card_s=time.perf_counter() - t0,
+         bytes_to_card=sum(getattr(ccsr, k).numel()
+                           * getattr(ccsr, k).element_size() for k in names),
+         host_peak_rss_mb=host_peak_rss_mb())
+    return ccsr, edges
+
+
+def rmat10m_setup(ccsr, cfg, edges, dev, seed=0):
+    """Config 5's parameters (``rgcn.init_params`` from ``seed``) and one
+    batch of 1,024 positives on the card."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.models import rgcn
+
+    params = rgcn.init_params(torch.Generator().manual_seed(seed), cfg,
+                              device=dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    pos = torch.from_numpy(edges[np.random.default_rng(seed).integers(
+        0, edges.shape[0], 1024)].astype(np.int64)).to(dev)
+    return params, pos
+
+
+def rmat10m_step(ccsr, cfg, dev, mode="uniform", cache=False):
+    """Config 5's sampled step as the JAX suite builds it: batch 1024,
+    fanouts 15/10, ``sparse_emb``, plain SGD for every leaf (lr 1e-3) and
+    no clip; ``cache``: the cached step (cold start)."""
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
+
+    tcfg = TrainConfig(batch_size=1024, optimizer="sgd", grad_clip=0.0)
+    return build_sampled_train_step(ccsr, cfg, tcfg, fanouts=(15, 10),
+                                    mode=mode, sparse_emb=True,
+                                    cache_layer1=cache, device=dev), tcfg
+
+
+def phase_rmat10m_grad(ccsr, cfg, edges, dev):
+    """One uniform config-5 step's loss and gradients through B2 and
+    through its plain version on the same draws (``sampled_forward_
+    backward``: the dense table gradient, as the sparse step takes it from
+    the identity block), under PERF §2's bf16 criterion: every gradient
+    within 1e-2 of its largest magnitude, the losses within 1e-3; 2 B2
+    launches, both bf16 ones; the innermost block identity, the outer one
+    not. Then B2 on the step's two streams, recorded from it
+    (``b2_stream_row``: against its plain version, twice ``torch.equal``,
+    timed beside ``index_add_`` and the bound). Returns (largest error,
+    the B2 rows)."""
+    import numpy as np
+
+    step, _ = rmat10m_step(ccsr, cfg, dev)
+    params, pos = rmat10m_setup(ccsr, cfg, edges, dev)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        reset_counts()
+        with (sampler_kernels("plain") if impl == "plain"
+              else contextlib.nullcontext()):
+            loss, grads, batch = sampled_forward_backward(step, params, cfg,
+                                                          pos, dev)
+        runs[impl] = (loss, grads, read_counts(), read_bf16_counts())
+    if not batch.blocks[0].ident or batch.blocks[1].ident:
+        raise AssertionError("rmat10m_grad: expected an identity inner block "
+                             "and a dedup outer block")
+    want = {"B1": 0, "B2": 2, "B3": 0, "B4": 0}
+    if runs["kernel"][2] != want or any(runs["plain"][2].values()):
+        raise AssertionError(f"rmat10m_grad: launches kernel "
+                             f"{runs['kernel'][2]}, plain {runs['plain'][2]}")
+    only_bf16("rmat10m_grad", *runs["kernel"][2:])
+    if not np.isfinite(runs["kernel"][0]):
+        raise AssertionError("rmat10m_grad: non-finite loss")
+    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0], rtol=1e-3)
+    per_leaf, max_err = {}, 0.0
+    for name, want_g in runs["plain"][1].items():
+        rel = close_rel(runs["kernel"][1][name], want_g, 1e-2,
+                        f"rmat10m_grad/{name}")
+        top = float(want_g.abs().max())
+        per_leaf[name] = {"max_rel_err": rel, "max_abs": top}
+        max_err = max(max_err, rel * top)
+    emit("rmat10m_grad", budgets=list(step.budgets),
+         loss_kernel=runs["kernel"][0], loss_plain=runs["plain"][0],
+         launches=runs["kernel"][2], leaves=per_leaf,
+         ident_rows=batch.blocks[0].sort_uid.numel(),
+         outer_frontier=batch.blocks[1].m_in,
+         ident_fraction=batch.blocks[0].sort_uid.numel() / (cfg.num_nodes + 1))
+    del runs, grads, batch
+    streams = sampled_b2_streams("rmat10m_b2", step, params, cfg, pos, dev)
+    rows = [b2_stream_row("kernel_b2", name, *streams[key])
+            for name, key in (("config5_ident_backward", "ident"),
+                              ("config5_dedup_backward", "dedup"))]
+    return max_err, rows
+
+
+def phase_rmat10m_b3(ccsr, cfg, edges, dev):
+    """B3 at config 5's shapes: the windows that one block and one block4
+    batch (1,024 positives and their negatives) fetch from the 100M-record
+    table in granule-pairs form, recorded from the sampler, each against
+    B3's plain version (exactly equal), with kernel, plain and row-gather
+    times beside the bound. Returns the rows."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.data.sampling import uniform_draw
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+    from primekg_rgcn_tpu_torch.train.neg_sampling import candidate_batch
+
+    gen = torch.Generator(dev).manual_seed(0)
+    pos = torch.from_numpy(edges[np.random.default_rng(0).integers(
+        0, edges.shape[0], 1024)].astype(np.int64)).to(dev)
+    rows = []
+    for mode in ("block", "block4"):
+        step, _ = rmat10m_step(ccsr, cfg, dev, mode)
+        cands = candidate_batch(pos[:, 0], pos[:, 1], pos[:, 2],
+                                cfg.num_nodes, 1, generator=gen)
+        calls = {}
+        with sampler_kernels(("record", calls)):
+            step.sample(torch.cat(cands[:2]).to(torch.int32),
+                        uniform_draw(gen, dev))
+        for layer, (packed, starts, width) in zip(("outer", "inner"),
+                                                  calls["b3"]):
+            got = pwf.window_rows_fetch(packed, starts, width)
+            want = pwf.window_rows_fetch_plain(packed, starts, width)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"rmat10m_b3/{mode}/{layer}: kernel and "
+                                     f"plain differ")
+            rec = packed.view(-1, 2)
+            idx = starts.long()[:, None] + torch.arange(width, device=dev)
+            t = time_calls({
+                "kernel": lambda: pwf.launch(rec, starts, width),
+                "plain": lambda: pwf.window_rows_fetch_plain(packed, starts,
+                                                             width),
+                "library": lambda: rec[idx]})
+            row = dict(shape=f"config5_{mode}/{layer}",
+                       records=rec.shape[0], windows=starts.numel(),
+                       width=width, **t, max_abs_err=0,
+                       **bound_fields(b3_bound(starts, width)))
+            rows.append(row)
+            emit("kernel_b3_shape", **row)
+    return rows
+
+
+def phase_rmat10m_sampled(ccsr, cfg, edges, dev, tmp, steps=15):
+    """Config 5's step in uniform, block and block4 mode: 3 warm-up and
+    ``steps`` timed steps each, a fresh batch of 1,024 positives from the
+    host each step (``dp_timed``: launches asserted, 2 B2 a step, and 2 B3
+    in the block modes; peak memory; a 10-step profile;
+    ``step_twice_equal``, which must hold). Then the cached step
+    (``rmat10m_cache``, uniform, cold cache: 2 B2 a step, conv1's and
+    conv2's dedup backward), with the cache's MB. Returns {config:
+    figures}."""
+    results = {}
+    for mode in ("uniform", "block", "block4"):
+        step, tcfg = rmat10m_step(ccsr, cfg, dev, mode)
+        params, _ = rmat10m_setup(ccsr, cfg, edges, dev)
+        opt = step.init_optimizer(params)
+        results[mode] = dp_timed(
+            "rmat10m_sampled", mode, step, params, opt, tcfg, edges, dev, tmp,
+            steps, edges.shape[0],
+            want={"B1": 0, "B2": 2, "B3": 0 if mode == "uniform" else 2,
+                  "B4": 0}, extra={"budgets": list(step.budgets)})
+        del step, params, opt
+    step, tcfg = rmat10m_step(ccsr, cfg, dev, cache=True)
+    params, _ = rmat10m_setup(ccsr, cfg, edges, dev)
+    opt = step.init_optimizer(params)
+    cache_mb = opt.cache.numel() * opt.cache.element_size() / 2 ** 20
+    results["cache"] = dp_timed(
+        "rmat10m_cache", "uniform", step, params, opt, tcfg, edges, dev, tmp,
+        steps, edges.shape[0], want={"B1": 0, "B2": 2, "B3": 0, "B4": 0},
+        extra={"budgets": list(step.budgets), "cache_mb": cache_mb,
+               "cache_dtype": str(opt.cache.dtype).replace("torch.", "")})
+    # The cold cache's rows that the run's seeds have filled.
+    results["cache"]["cache_rows_written"] = int((opt.cache != 0).any(1).sum())
+    emit("rmat10m_cache_rows", rows_written=results["cache"][
+        "cache_rows_written"], nodes=cfg.num_nodes)
+    return results
+
+
 def main():
     import torch
 
@@ -4700,6 +5181,28 @@ def main():
         kg_zero3_err, kg_zero3 = phase_full_kg_zero3(g3, cfg3, edges3, dev,
                                                      Path(tmp))
 
+        # -- the per-(node, relation) reductions on config 4 ----------------
+        agg_runs, agg_err = phase_combined_agg(g3, cfg3, edges3, dev,
+                                               Path(tmp))
+        # Config 5 needs the room: config 3's graphs and partition go.
+        del g3, g3_cpu, psg3, edges3
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the layer-1 cache on the bench.py graph ------------------------
+        cache_counts, cache_err = phase_sampled_cache(graph, cfg, edges, dev,
+                                                      Path(tmp))
+
+        # -- BASELINE config 5: R-MAT, 10M nodes, 100M edges, 50 relations --
+        ccsr5, edges5 = phase_rmat10m_graph(dev)
+        cfg5 = ModelConfig(num_nodes=RMAT10M[0],
+                           num_relations=ccsr5.num_relations,
+                           compute_dtype="bfloat16")
+        r5_err, r5_b2_rows = phase_rmat10m_grad(ccsr5, cfg5, edges5, dev)
+        r5_b3_rows = phase_rmat10m_b3(ccsr5, cfg5, edges5, dev)
+        rmat10m = phase_rmat10m_sampled(ccsr5, cfg5, edges5, dev, Path(tmp))
+        del ccsr5, edges5
+
     # -- 23. summary --------------------------------------------------------
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -4736,7 +5239,9 @@ def main():
                              "full_kg_node_train": {
                                  k: v[0]["B1"] for k, v in kg_node.items()},
                              "full_kg_node_serve": kg_nserve["B1"],
-                             "full_kg_edge_train": kg_edge_counts["B1"]},
+                             "full_kg_edge_train": kg_edge_counts["B1"],
+                             "sampled_cache": {k: v["B1"] for k, v in
+                                               cache_counts.items()}},
         "launches_per_step": {"forward": 6, "backward": 6},
         "launches_per_step_sharded": {
             "node_train": node_counts["B1"] / 30,
@@ -4748,7 +5253,7 @@ def main():
             k: v["launches_per_step"] for k, v in kg_train.items()},
         "max_abs_err": max(max_err, bwd_err, grad_err, ngrad_err,
                            kg_grad_err, edge_err, kg_ngrad_err,
-                           kg_egrad_err),
+                           kg_egrad_err, cache_err),
         "ms": total(main_rows, "kernel_ms"),
         "call_ms": total(main_rows, "kernel_call_ms"),
         "wrapper_call_ms": total(main_rows, "wrapper_call_ms"),
@@ -4816,16 +5321,26 @@ def main():
             "sampled_dp_train": {k: v["launches"]["B2"]
                                  for k, v in sampled_dp.items()},
             "sampled_dp_cli": {k: v["B2"] for k, v in dp_cli_counts.items()},
-            "full_kg_zero3": kg_zero3["launches"]["B2"]},
+            "full_kg_zero3": kg_zero3["launches"]["B2"],
+            "combined_agg": {k: v["launches"]["B2"]
+                             for k, v in agg_runs.items()},
+            "sampled_cache": {k: v["B2"] for k, v in cache_counts.items()},
+            "rmat10m_sampled": {k: v["launches"]["B2"]
+                                for k, v in rmat10m.items()}},
         "launches_per_step": {"sampled_block": 2, "restricted_step": 1,
                               "node_step": 5 * N_SHARDS,
                               "sampled_dp": {
                                   k: v["launches_per_step"]["B2"]
-                                  for k, v in sampled_dp.items()}},
+                                  for k, v in sampled_dp.items()},
+                              "rmat10m": {
+                                  k: v["launches_per_step"]["B2"]
+                                  for k, v in rmat10m.items()}},
         "max_abs_err": max(b2_err, sgrad_err, kg_sgrad_err,
                            kg_b2["max_abs_err"], dp_err, kg_zero3_err,
-                           b2_fetch_row["max_abs_err"],
-                           *(r["max_abs_err"] for r in kg_b2_streams)),
+                           b2_fetch_row["max_abs_err"], agg_err, cache_err,
+                           *(r["max_abs_err"] for r in kg_b2_streams),
+                           *(r["max_abs_err"] for r in r5_b2_rows)),
+        "rmat10m_grad_max_abs_err": r5_err,
         "ms": b2_rows[0]["kernel_ms"],
         "call_ms": b2_rows[0]["kernel_call_ms"],
         "plain_ms": b2_rows[0]["plain_ms"],
@@ -4839,7 +5354,7 @@ def main():
                 "bound_us", "bound_by", "bound_share", "over_library",
                 "max_abs_err")}
             for r in (*b2_rows, *b2_16_rows, kg_b2, *kg_b2_streams,
-                      b2_fetch_row)},
+                      b2_fetch_row, *r5_b2_rows)},
         "zero3_fetch_backward_all_ms": b2_fetch_row["fetch_backward_all_ms"],
         "bf16": {
             "ms": b2_16_rows[0]["kernel_ms"],
@@ -4862,7 +5377,8 @@ def main():
                "backward), a config-3 restricted step 1; streams gives "
                "every timed stream (the step's identity and dedup streams "
                "at float32 and bf16, the config-3 restricted layer's, "
-               "config 4's identity and dedup); a node-sharded step makes "
+               "config 4's identity and dedup, config 5's (10M nodes) "
+               "identity and dedup); a node-sharded step makes "
                "20 (the sorted backward of each shard's serve lists, "
                "endpoint fetches and relation lookup); a 4-shard "
                "data-parallel sampled step 12 (dp, zero1: each shard's two "
@@ -4884,9 +5400,12 @@ def main():
             "full_kg_sampled": kg_sampled_counts["B3"],
             "sampled_dp_train": {k: v["launches"]["B3"]
                                  for k, v in sampled_dp.items()},
-            "full_kg_zero3": kg_zero3["launches"]["B3"]},
+            "full_kg_zero3": kg_zero3["launches"]["B3"],
+            "rmat10m_sampled": {k: v["launches"]["B3"]
+                                for k, v in rmat10m.items()}},
         "launches_per_step": {"sampled_block": 2,
-                              "sampled_dp": 2 * N_SHARDS},
+                              "sampled_dp": 2 * N_SHARDS,
+                              "rmat10m_block": 2},
         "max_abs_err": 0,
         "ms": total(b3_rows[:2], "kernel_ms"),
         "call_ms": total(b3_rows[:2], "kernel_call_ms"),
@@ -4896,6 +5415,9 @@ def main():
         "library_ms": total(b3_rows[:2], "library_ms"),
         "block4_ms": total(b3_rows[2:4], "kernel_ms"),
         "block4_bound_ms": total(b3_rows[2:4], "bound_us") / 1e3,
+        "config5_shapes": {r["shape"]: {k: r[k] for k in (
+            "windows", "width", "kernel_ms", "kernel_call_ms", "plain_ms",
+            "library_ms", "bound_us", "bound_by")} for r in r5_b3_rows},
         "per": "one block-mode step over the slim CSR: ms, plain_ms, "
                "bound_ms and library_ms sum its two launches (outer and "
                "inner layer); library_ms is packed[starts[:, None] + "

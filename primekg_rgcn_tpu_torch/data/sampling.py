@@ -23,6 +23,14 @@ gives the reasoning, which holds here unchanged:
 - Block mode over a slim packed CSR fetches each node's window of records
   with kernel B3 (``ops/cuda/window_fetch``) on the card and with its plain
   version on the CPU.
+- The combined layer's per-(node, relation) reduction, picked by
+  ``PRIMEKG_COMBINED_AGG`` as in the JAX package: the one-hot einsum
+  (default), ``rowwise`` (``RowwiseRelSum``: cumsum, a row gather at each
+  relation's end, difference) or anything else, ``chunked``
+  (``ChunkedRelApply``: the same sums and the relation transforms over node
+  chunks, with a manual backward that keeps no full-size residual). The two
+  need each row's slots in ascending tag order, so the sampler sorts uniform
+  and blockN rows for them.
 
 Randomness comes from one injectable source: every function that samples
 takes ``draw(shape) -> float32 uniforms in [0, 1)``, called in the JAX
@@ -526,14 +534,117 @@ def build_combined_csr(graph: RelGraph, *, slim: Optional[bool] = None,
 
 def _combined_agg_impl() -> str:
     """The per-(node, relation) reduction (``PRIMEKG_COMBINED_AGG``, as in
-    the JAX package). Only the default one-hot einsum is ported."""
-    impl = os.environ.get("PRIMEKG_COMBINED_AGG", "einsum")
-    if impl != "einsum":
-        raise NotImplementedError(
-            f"PRIMEKG_COMBINED_AGG={impl!r}: the rowwise and chunked "
-            f"reductions (rowwise_rel_sum, chunked_rel_apply) are not "
-            f"ported yet (ROADMAP.md, A8); unset it for the einsum one")
-    return impl
+    the JAX package): "einsum" (the default), "rowwise", and any other
+    value the chunked one. Read by the sampler (whether rows need their
+    tags sorted) and by the aggregation."""
+    return os.environ.get("PRIMEKG_COMBINED_AGG", "einsum")
+
+
+def _rowwise_sums(msg: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """[M, R, D] per-(node, relation) sums of ``msg`` [M, F, D] whose rows
+    hold their slots in ascending tag order: ``ends[m, r]`` is the number
+    of row m's slots with tag <= r. A cumsum along the slots (a zero
+    prepended), one flat row gather at the ends, then the difference of
+    neighbouring relations."""
+    m, f, d = msg.shape
+    s = torch.cat([msg.new_zeros(m, 1, d), torch.cumsum(msg, dim=1)], dim=1)
+    flat = (torch.arange(m, device=msg.device)[:, None] * (f + 1)
+            + ends).reshape(-1)
+    csum = s.reshape(m * (f + 1), d)[flat].reshape(m, -1, d)
+    return torch.diff(csum, dim=1, prepend=csum.new_zeros(m, 1, d))
+
+
+def _slot_cotangents(g_rel: torch.Tensor, rtag: torch.Tensor) -> torch.Tensor:
+    """[M, F, D]: each slot's cotangent is its relation's row of ``g_rel``
+    [M, R, D] (one flat row gather)."""
+    m, r, d = g_rel.shape
+    flat = (torch.arange(m, device=g_rel.device)[:, None] * r
+            + rtag).reshape(-1)
+    return g_rel.reshape(m * r, d)[flat].reshape(m, -1, d)
+
+
+class RowwiseRelSum(torch.autograd.Function):
+    """``apply(msg, rtag, ends)``: per-(node, relation) slot sums, [M, F,
+    D] -> [M, R, D] (``rowwise_rel_sum``). ``rtag`` int32 [M, F] ascending
+    in every row, ``ends`` int32 [M, R] each relation's end slot. The
+    forward streams O(M F D) (:func:`_rowwise_sums`), without the einsum's
+    [M, F, R] one-hot; the backward is one gather, each slot's cotangent
+    its relation's row."""
+
+    @staticmethod
+    def forward(ctx, msg, rtag, ends):
+        ctx.save_for_backward(rtag)
+        return _rowwise_sums(msg, ends.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        (rtag,) = ctx.saved_tensors
+        return _slot_cotangents(g, rtag.long()), None, None
+
+
+def _pick_chunks(m: int, target: int = 8192) -> int:
+    """Largest divisor of m up to 64 that leaves chunks of at least
+    ``target`` rows (1 when none does)."""
+    best = 1
+    for nc in range(1, 65):
+        if m % nc == 0 and m // nc >= target:
+            best = nc
+    return best
+
+
+class ChunkedRelApply(torch.autograd.Function):
+    """``apply(n_chunks, rows3, rtag, slot_w, ends, w_all)``: [M, H], the
+    per-(node, relation) sums of the weighted slots ``rows3 * slot_w``
+    times their relation's weights, summed over relations
+    (``chunked_rel_apply``). rows3 [M, F, D] unweighted gathered rows,
+    rtag int32 [M, F] ascending per row, slot_w [M, F], ends int32 [M, R],
+    w_all [R, D, H]; M divisible by ``n_chunks``.
+
+    Forward and backward walk the rows in ``n_chunks`` chunks (a Python
+    loop where JAX has a ``lax.scan``), so the weighted messages, their
+    cumsum and the [C, R, D] sums exist one chunk at a time. The backward
+    is the JAX package's manual one: per chunk it recomputes the sums for
+    dW, takes d_sums = g @ W^T and routes each slot's cotangent from its
+    relation's row; it saves only the inputs. dW accumulates in g's dtype
+    across chunks, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, n_chunks, rows3, rtag, slot_w, ends, w_all):
+        m = rows3.shape[0]
+        r, d, h = w_all.shape
+        w_flat = w_all.reshape(r * d, h)
+        c = m // n_chunks
+        ends_l = ends.long()
+        out = [_rowwise_sums(rows3[i:i + c] * slot_w[i:i + c, :, None],
+                             ends_l[i:i + c]).reshape(c, r * d) @ w_flat
+               for i in range(0, m, c)]
+        ctx.n_chunks = n_chunks
+        ctx.save_for_backward(rows3, rtag, slot_w, ends, w_all)
+        return torch.cat(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows3, rtag, slot_w, ends, w_all = ctx.saved_tensors
+        m, f, d = rows3.shape
+        r, _, h = w_all.shape
+        c = m // ctx.n_chunks
+        w_flat = w_all.reshape(r * d, h)
+        rtag_l, ends_l = rtag.long(), ends.long()
+        dw = torch.zeros(r * d, h, dtype=g.dtype, device=g.device)
+        d_rows, d_slotw = [], []
+        for i in range(0, m, c):
+            rows_c, w_c, g_c = rows3[i:i + c], slot_w[i:i + c], g[i:i + c]
+            agg = _rowwise_sums(rows_c * w_c[..., None],
+                                ends_l[i:i + c]).reshape(c, r * d)
+            dw = dw + agg.T @ g_c
+            d_msg = _slot_cotangents((g_c @ w_flat.T).reshape(c, r, d),
+                                     rtag_l[i:i + c])
+            d_rows.append(d_msg * w_c[..., None])
+            if ctx.needs_input_grad[3]:
+                d_slotw.append((d_msg * rows_c).sum(2))
+        d_slotw = torch.cat(d_slotw) if ctx.needs_input_grad[3] else None
+        return (None, torch.cat(d_rows), None, d_slotw, None,
+                dw.reshape(r, d, h))
 
 
 def _ident_fraction() -> float:
@@ -646,9 +757,20 @@ def _sample_layer_combined(draw: Draw, ccsr: CombinedCsr,
     else:
         w = 1.0 / deg_r.clamp(min=1.0)
     w = torch.where(valid & (deg_r > 0), w, 0.0)
-    # The einsum reduction is slot-order-independent, so uniform and blockN
-    # rows keep their sample order (their tags are not ascending).
-    tags_sorted = not (mode == "uniform" or (mode == "block" and n_win > 1))
+    # Uniform and blockN rows arrive with their tags out of order (blockN:
+    # ascending within each sub-window). The einsum reduction ignores slot
+    # order, so it keeps them as drawn; the rowwise and chunked ones walk
+    # each row's relations in order, so their rows are sorted by tag,
+    # stably, as in the JAX package. Truncate and block rows are CSR order,
+    # sorted already.
+    tags_sorted = True
+    if mode == "uniform" or (mode == "block" and n_win > 1):
+        if _combined_agg_impl() != "einsum":
+            order = torch.argsort(rtag, dim=1, stable=True)
+            picks, rtag, w = (torch.gather(a, 1, order)
+                              for a in (picks, rtag, w))
+        else:
+            tags_sorted = False
 
     raw = torch.cat([frontier, picks.reshape(-1)])
     raw_len = int(raw.shape[0])
@@ -683,7 +805,6 @@ def sample_batch_combined(draw: Draw, ccsr: CombinedCsr,
     / "blockN", "truncate"."""
     if parse_sample_mode(mode)[0] not in ("uniform", "block", "truncate"):
         raise ValueError(f"unknown sampling mode {mode!r}")
-    _combined_agg_impl()
     frontier, seed_gather = _unique_seeds(seeds, ccsr.num_nodes)
     blocks: List[CombinedBlock] = []
     for li, f in enumerate(budgets):
@@ -699,7 +820,6 @@ def _block_aggregate_combined(layer_params, x_in: torch.Tensor,
                               block: CombinedBlock,
                               compute_dtype: Optional[torch.dtype] = None
                               ) -> torch.Tensor:
-    _combined_agg_impl()
     dt = compute_dtype if compute_dtype is not None else x_in.dtype
     w_rel = materialize_relation_weights(layer_params).to(dt)  # [R, Din, Dout]
     r_count, din, dout = w_rel.shape
@@ -716,11 +836,34 @@ def _block_aggregate_combined(layer_params, x_in: torch.Tensor,
     out = (rows[:m] @ layer_params["w_root"].to(dt)
            + layer_params["bias"].to(dt)[None, :])
     budget = block.src_local.shape[1]
-    # Per-(node, relation) sums by a one-hot einsum, then all R relation
-    # transforms as one [M, R*Din] @ [R*Din, Dout] matmul.
-    msg = rows[m:].reshape(m, budget, din) * block.slot_w.to(dt)[..., None]
-    onehot = (block.rel_tag[..., None] == torch.arange(
-        r_count, dtype=torch.int32, device=msg.device)).to(msg.dtype)
-    agg = torch.einsum("mfr,mfd->mrd", onehot, msg)
-    return out + agg.reshape(m, r_count * din) @ w_rel.reshape(
-        r_count * din, dout)
+    # Per-(node, relation) sums, then all R relation transforms as one
+    # [M, R*Din] @ [R*Din, Dout] matmul; the sums by a one-hot einsum
+    # (default), by RowwiseRelSum, or chunked with the transforms
+    # (ChunkedRelApply), per _combined_agg_impl.
+    impl = _combined_agg_impl()
+    msg3 = rows[m:].reshape(m, budget, din)
+    slot_w = block.slot_w.to(dt)
+    w_flat = w_rel.reshape(r_count * din, dout)
+    if impl == "einsum":
+        msg = msg3 * slot_w[..., None]
+        onehot = (block.rel_tag[..., None] == torch.arange(
+            r_count, dtype=torch.int32, device=msg.device)).to(msg.dtype)
+        agg = torch.einsum("mfr,mfd->mrd", onehot, msg)
+        return out + agg.reshape(m, r_count * din) @ w_flat
+    if not block.tags_sorted:
+        raise ValueError(
+            "PRIMEKG_COMBINED_AGG changed between sampling and aggregation: "
+            f"the '{impl}' reduction needs per-row ascending relation tags, "
+            "but this block was sampled for the order-independent einsum "
+            "path (tag sort skipped). Keep the env var constant per step.")
+    # ends[m, r]: row m's slots with tag <= r (the rows are sorted).
+    rtag = block.rel_tag.contiguous()
+    ends = torch.searchsorted(
+        rtag, torch.arange(r_count, dtype=rtag.dtype,
+                           device=rtag.device).expand(m, r_count).contiguous(),
+        right=True).to(torch.int32)
+    if impl == "rowwise":
+        agg = RowwiseRelSum.apply(msg3 * slot_w[..., None], rtag, ends)
+        return out + agg.reshape(m, r_count * din) @ w_flat
+    return out + ChunkedRelApply.apply(_pick_chunks(m), msg3, rtag, slot_w,
+                                       ends, w_rel)

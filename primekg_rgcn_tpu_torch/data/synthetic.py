@@ -6,7 +6,9 @@ reference's processed PrimeKG: 30,926 nodes (disease < drug < gene in id
 order) and 854,278 undirected rows over three relations, each stored as a
 forward and a reverse directed edge. ``primekg_full_like`` draws the
 unfiltered PrimeKG's shape instead (BASELINE.json config 3): 129,375 nodes
-and 30 relations.
+and 30 relations. ``rmat`` draws the R-MAT power-law graph of BASELINE.json
+config 5 (10M nodes, 100M edges, 50 relations); ``native.rmat_native`` is
+its parallel C++ counterpart.
 """
 
 from __future__ import annotations
@@ -209,6 +211,32 @@ def bidirect(src: np.ndarray, dst: np.ndarray, rel: np.ndarray
         np.concatenate([dst, src]),
         np.concatenate([rel, rel]),
     )
+
+
+def rmat(num_nodes: int, num_edges: int, num_relations: int, seed: int = 0,
+         *, a: float = 0.57, b: float = 0.19, c: float = 0.19
+         ) -> Dict[str, np.ndarray]:
+    """R-MAT power-law graph (Chakrabarti et al. 2004), vectorised: each of
+    ceil(log2 N) rounds draws one uniform per edge and picks a quadrant (a,
+    b, c, or d = 1 - a - b - c), appending one bit to the edge's source and
+    destination ids; ids are then folded into [0, N) and each edge gets a
+    uniform relation. The draws are the JAX package's, in its order, so
+    one seed gives the same arrays."""
+    rng = np.random.default_rng(seed)
+    n_bits = max(int(np.ceil(np.log2(max(num_nodes, 2)))), 1)
+    src = np.zeros(num_edges, dtype=np.int64)
+    dst = np.zeros(num_edges, dtype=np.int64)
+    for _ in range(n_bits):
+        r = rng.random(num_edges)
+        src_bit = (r >= a + b).astype(np.int64)          # quadrants c, d
+        dst_bit = ((r >= a) & (r < a + b) | (r >= a + b + c)).astype(np.int64)
+        src = (src << 1) | src_bit
+        dst = (dst << 1) | dst_bit
+    src %= num_nodes
+    dst %= num_nodes
+    rel = rng.integers(0, num_relations, num_edges, dtype=np.int64)
+    return {"src": src, "dst": dst, "rel": rel, "num_nodes": num_nodes,
+            "num_relations": num_relations}
 
 
 def synthetic_mappings(raw: Dict[str, np.ndarray]) -> Dict:

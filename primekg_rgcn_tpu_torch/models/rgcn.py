@@ -12,7 +12,9 @@ Architecture: node embedding table -> RGCN layer (d_emb -> d_h) -> ReLU ->
 Dropout (training only) -> RGCN layer (d_h -> d_h); DistMult decoder, with
 optional dropout on the relation embeddings in training. The default config
 has 2,078,208 parameters, as the reference model. ``encoder_apply_sampled``
-runs the same encoder over a sampled neighbourhood (``data/sampling``).
+runs the same encoder over a sampled neighbourhood (``data/sampling``);
+``encoder_apply_cached`` runs it over one sampled hop and a table of
+layer-1 histories.
 
 ``cfg.compute_dtype`` ("float32" or "bfloat16") reaches every layer; the
 parameters, the decoder and the loss stay float32, and each encoder returns
@@ -28,7 +30,8 @@ import torch
 
 from primekg_rgcn_tpu_torch.config import ModelConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
-from primekg_rgcn_tpu_torch.data.sampling import (SampledBatch,
+from primekg_rgcn_tpu_torch.data.sampling import (CombinedBlock,
+                                                  SampledBatch,
                                                   TableGatherSorted,
                                                   block_aggregate)
 from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
@@ -210,6 +213,20 @@ def get_embeddings(params: Params, graph: RelGraph, cfg: ModelConfig, *,
     return encoder_apply(params, graph, cfg, layer_fn=layer_fn)
 
 
+def _frontier_rows(table: torch.Tensor, frontier: torch.Tensor,
+                   cdt: torch.dtype, x0: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """The layer-0 input of a dedup block: ``x0`` in ``cdt`` when given,
+    else the frontier's table rows gathered (sorted backward), then
+    converted, the sentinel rows zero."""
+    if x0 is not None:
+        return x0.to(cdt)
+    n = table.shape[0]
+    x = TableGatherSorted.apply(table, frontier.clamp(max=n - 1)).to(cdt)
+    return torch.where((frontier == n)[:, None],
+                       torch.zeros((), device=x.device), x)
+
+
 def encoder_apply_sampled(params: Params, batch: SampledBatch,
                           cfg: ModelConfig, *, train: bool = False,
                           generator: Optional[torch.Generator] = None,
@@ -238,13 +255,8 @@ def encoder_apply_sampled(params: Params, batch: SampledBatch,
     ident0 = bool(getattr(batch.blocks[0], "ident", False))
     if ident0:
         x = x0 if x0 is not None else enc["node_emb"]
-    elif x0 is not None:
-        x = x0.to(cdt)
     else:
-        sentinel = (batch.frontier == n)[:, None]
-        x = TableGatherSorted.apply(enc["node_emb"],
-                                    batch.frontier.clamp(max=n - 1)).to(cdt)
-        x = torch.where(sentinel, torch.zeros((), device=x.device), x)
+        x = _frontier_rows(enc["node_emb"], batch.frontier, cdt, x0)
 
     layers = [enc["conv1"], enc["conv2"]]
     if len(batch.blocks) != len(layers):
@@ -260,3 +272,72 @@ def encoder_apply_sampled(params: Params, batch: SampledBatch,
             if train and cfg.dropout > 0.0:
                 x = dropout(x, cfg.dropout, generator=generator, mask=mask)
     return x[batch.seed_gather.long()].float()
+
+
+def encoder_apply_cached(params: Params, batch: SampledBatch,
+                         cache: torch.Tensor, cfg: ModelConfig, *,
+                         train: bool = False,
+                         generator: Optional[torch.Generator] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         x0: Optional[torch.Tensor] = None):
+    """The historical-embedding encode (GAS / VR-GCN style): one sampled hop
+    serves both convolutions, conv2 reading layer-1 rows from ``cache``
+    [N, hidden_dim], the histories (``encoder_apply_cached`` in the JAX
+    package).
+
+    - conv1 runs fresh at the hop's output rows (the deduplicated seeds)
+      over their sampled neighbours' table rows, pre-activation and without
+      dropout, so gradients reach the table and conv1 as in the two-hop
+      encode;
+    - the fresh rows are pushed into ``cache`` under no grad (histories are
+      constants), the sentinel id N dropped;
+    - conv2's input table is the updated cache's rows at the hop's frontier,
+      the output rows' own positions (``block.self_idx``) overwritten by
+      the fresh rows out of place, so gradients reach conv1 only through
+      them; then ReLU, dropout (``generator`` or the keep ``mask`` over that
+      [M_in, hidden_dim] table) and conv2.
+
+    ``batch`` holds one dedup ``CombinedBlock`` (an identity block has no
+    frontier to address the cache with: ``ValueError``). ``x0`` supplies
+    the frontier's layer-0 rows, as in :func:`encoder_apply_sampled`. The
+    cache is in the compute dtype and is written in place. Returns
+    ``(emb, cache)``: float32 [num_seeds, hidden_dim] embeddings in seed
+    order, and the updated cache.
+    """
+    enc = params["encoder"]
+    n = cfg.num_nodes
+    cdt = compute_dtype(cfg)
+    if len(batch.blocks) != 1:
+        raise ValueError(f"cached encoder needs exactly 1 sampled hop, got "
+                         f"{len(batch.blocks)}")
+    block = batch.blocks[0]
+    if not isinstance(block, CombinedBlock) or block.ident:
+        raise ValueError(
+            "cached encoder needs a dedup-frontier CombinedBlock (the "
+            "frontier's global ids address the history table)")
+    x = _frontier_rows(enc["node_emb"], batch.frontier, cdt, x0)
+    out_sentinel = (block.out_ids == n)[:, None]
+    zero = torch.zeros((), device=x.device)
+    h1 = torch.where(out_sentinel, zero, block_aggregate(enc["conv1"], x,
+                                                         block))
+    with torch.no_grad():
+        # The push, without a host sync: the sentinel rows (the fill at the
+        # end of the sorted-unique out_ids) write row t's own new value,
+        # where t is the first output row's id, so every write to a row
+        # carries one value.
+        ids = block.out_ids.long()
+        t = ids[:1].clamp(max=n - 1)
+        v_t = torch.where(ids[:1, None] < n, h1[:1].to(cache.dtype),
+                          cache[t])
+        cache.index_put_((torch.where(ids < n, ids, t),),
+                         torch.where(out_sentinel, v_t, h1.to(cache.dtype)))
+        hist = cache[batch.frontier.clamp(max=n - 1).long()]
+        hist = torch.where((batch.frontier == n)[:, None],
+                           torch.zeros((), device=hist.device), hist)
+    h_tab = torch.index_put(hist.to(h1.dtype), (block.self_idx.long(),), h1)
+    a = torch.relu(h_tab)
+    if train and cfg.dropout > 0.0:
+        a = dropout(a, cfg.dropout, generator=generator, mask=mask)
+    out = torch.where(out_sentinel, zero, block_aggregate(enc["conv2"], a,
+                                                          block))
+    return out[batch.seed_gather.long()].float(), cache

@@ -6,7 +6,9 @@ The shared library is compiled at first use with the system C++ compiler
 flags, so a fresh checkout builds its own. ``data/graph.build_rel_graph``
 takes it for large graphs; without a compiler it falls back to numpy unless
 the caller asked for the native path (``use_native="always"``). Both paths
-give bit-identical arrays (stable sorts).
+give bit-identical arrays (stable sorts). ``rmat_native`` generates the
+R-MAT graph of ``data/synthetic.rmat`` in parallel, with its own random
+streams (not numpy's draws).
 """
 
 from __future__ import annotations
@@ -87,6 +89,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.gb_build_rel_graph.argtypes = [
             i64p, i64p, i64p, i64, i64, i64, i64p, i32p, i32p, i32p, i32p,
             f32p, ctypes.c_int32, f32p, f32p]
+        lib.gb_rmat.restype = None
+        lib.gb_rmat.argtypes = [i64, i64, i64, ctypes.c_uint64,
+                                ctypes.c_double, ctypes.c_double,
+                                ctypes.c_double, i64p, i64p, i64p]
         _lib = lib
         return _lib
 
@@ -152,3 +158,22 @@ def build_rel_graph_native(lib: ctypes.CDLL, src, dst, rel, num_nodes: int,
         raise ValueError(f"native graph build failed (rc={rc}): a bucket "
                          "capacity is smaller than its bucket")
     return out
+
+
+def rmat_native(num_nodes: int, num_edges: int, num_relations: int,
+                seed: int = 0, a: float = 0.57, b: float = 0.19,
+                c: float = 0.19) -> Optional[Dict[str, np.ndarray]]:
+    """The R-MAT graph of ``data/synthetic.rmat`` (the same keys), drawn by
+    ``gb_rmat`` on every host thread; None when the library is unavailable.
+    Each thread's chunk seeds a Mersenne twister of its own, so one seed
+    gives the same arrays again on the same machine, and the JAX package's
+    ``rmat_native`` the same ones."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = {k: np.empty(num_edges, np.int64) for k in ("src", "dst", "rel")}
+    lib.gb_rmat(num_nodes, num_edges, num_relations, seed, a, b, c,
+                _ptr(out["src"], ctypes.c_int64),
+                _ptr(out["dst"], ctypes.c_int64),
+                _ptr(out["rel"], ctypes.c_int64))
+    return {**out, "num_nodes": num_nodes, "num_relations": num_relations}

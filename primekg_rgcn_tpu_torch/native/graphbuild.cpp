@@ -1,8 +1,7 @@
 // Native graph builder: the host-side runtime for relation-bucketed graph
 // construction, for the static padded-bucket format of data/graph.py. The
-// source is the JAX package's (primekg_rgcn_tpu/native/graphbuild.cpp)
-// without its R-MAT generator; the port keeps its own copy so that it
-// imports nothing of that package.
+// source is the JAX package's (primekg_rgcn_tpu/native/graphbuild.cpp);
+// the port keeps its own copy so that it imports nothing of that package.
 //
 // Exposes a C ABI consumed via ctypes (bindings in native/__init__.py):
 //   - gb_count_buckets: valid edges per relation.
@@ -11,6 +10,12 @@
 //     the key width needs), emit padded src/dst buckets, the src-sorted
 //     transpose buckets, and the per-relation reciprocal in-degree table
 //     (run-length over the sorted keys, no per-relation histograms).
+//   - gb_rmat: parallel R-MAT edge generator (Chakrabarti et al. 2004) for
+//     BASELINE.json config 5. Each chunk of parallel_for seeds its own
+//     mt19937_64 from the chunk's first edge, so the arrays depend on the
+//     thread count (hw_threads) once num_edges >= 2 * 65536: on one machine
+//     they equal the JAX package's library, whose parallel_for and
+//     hw_threads are the same.
 //
 // All buffers are caller-allocated numpy arrays; no ownership crosses the
 // ABI. Sorts are stable, so output matches the numpy lexsort path bit-
@@ -19,6 +24,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -259,6 +265,31 @@ int32_t gb_build_rel_graph(const int64_t* src, const int64_t* dst,
     }
   }
   return 0;
+}
+
+// Parallel R-MAT generator. Fills src/dst/rel (int64[num_edges]).
+void gb_rmat(int64_t num_nodes, int64_t num_edges, int64_t num_relations,
+             uint64_t seed, double a, double b, double c, int64_t* src,
+             int64_t* dst, int64_t* rel) {
+  int n_bits = 1;
+  while ((int64_t(1) << n_bits) < num_nodes) ++n_bits;
+  parallel_for(num_edges, [&](int64_t lo, int64_t hi, int) {
+    std::mt19937_64 rng(seed + 0x9e3779b97f4a7c15ULL * (lo + 1));
+    std::uniform_real_distribution<double> uni(0.0, 1.0);
+    for (int64_t i = lo; i < hi; ++i) {
+      int64_t s = 0, d = 0;
+      for (int bit = 0; bit < n_bits; ++bit) {
+        double r = uni(rng);
+        int64_t sb = (r >= a + b) ? 1 : 0;
+        int64_t db = ((r >= a && r < a + b) || r >= a + b + c) ? 1 : 0;
+        s = (s << 1) | sb;
+        d = (d << 1) | db;
+      }
+      src[i] = s % num_nodes;
+      dst[i] = d % num_nodes;
+      rel[i] = static_cast<int64_t>(rng() % num_relations);
+    }
+  });
 }
 
 }  // extern "C"

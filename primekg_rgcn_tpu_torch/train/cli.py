@@ -14,7 +14,8 @@ PrimeKG-statistics synthetic graph and write its splits under
 of the run) and --device (default ``cuda``; without a card it raises unless
 ``--device cpu`` is given). --sample_fanouts trains with neighbor
 sampling (``train/sampled.SampledTrainer``; --sample_mode, --sparse_emb,
---table_opt and --val_sampled as in the JAX CLI); with --shard (either
+--table_opt, --val_sampled and --cache_layer1 as in the JAX CLI); with
+--shard (either
 layout) it is data-parallel over --n_devices shards, with --zero1 or
 --zero3 (--dp_pods) as in the JAX CLI. Without --sample_fanouts, --shard
 edge trains the edge-partitioned layout and --shard node the
@@ -126,6 +127,13 @@ def parse_args(argv=None):
                         "adaptive training at scales where adam cannot "
                         "fit; the rest params are then free to use "
                         "--optimizer adam")
+    p.add_argument("--cache_layer1", action="store_true",
+                   help="with --sample_fanouts and --sparse_emb: historical "
+                        "layer-1 embeddings (GAS / VR-GCN style): one "
+                        "sampled hop serves both convolutions, conv2 "
+                        "reading out-of-batch neighbours from an [N, "
+                        "hidden] history table that refreshes as nodes "
+                        "appear as seeds (stale by design)")
     p.add_argument("--shard", choices=["none", "edge", "node"],
                    default="none",
                    help="edge: edge-partitioned layout (replicated features, "
@@ -147,6 +155,9 @@ def parse_args(argv=None):
                 "--sample_fanouts")
     if args.zero1 and args.zero3:
         p.error("--zero1 and --zero3 are exclusive")
+    if args.cache_layer1 and not args.sample_fanouts:
+        p.error("--cache_layer1 needs --sample_fanouts (it is a sampled-"
+                "trainer mode)")
     return args
 
 
@@ -283,7 +294,7 @@ def main(argv=None):
                 n_devices=sample_ndev, zero1=args.zero1, zero3=args.zero3,
                 dp_pods=args.dp_pods, sparse_emb=args.sparse_emb,
                 val_sampled=args.val_sampled, table_opt=args.table_opt,
-                device=device, args=args)
+                cache_layer1=args.cache_layer1, device=device, args=args)
         elif args.shard != "none":
             trainer = ShardedTrainer(
                 model_cfg, train_cfg, train_graph, full_graph, train_edges,

@@ -6,7 +6,8 @@ the L-hop neighbourhoods of the batch's candidate endpoints on the device
 and differentiates through the sampled encoder, O(B * fanout^L) work instead
 of O(E). ``resolve_sampler`` picks the pick layout,
 ``build_sampled_train_step`` builds the one-device step (dense adam, or the
-sparse-embedding update: SGD, or adafactor with ``table_opt``),
+sparse-embedding update: SGD, or adafactor with ``table_opt``; with
+``cache_layer1`` one sampled hop and a table of layer-1 histories),
 ``build_sampled_eval_epoch`` the sampled validation, and ``SampledTrainer``
 runs epochs, validation, checkpoints, early stopping and resume.
 
@@ -47,8 +48,11 @@ from primekg_rgcn_tpu_torch.data.sampling import (
     csr_to_pairs_form, parse_sample_mode, sample_batch,
     sample_batch_combined, uniform_draw)
 from primekg_rgcn_tpu_torch.device import resolve_device
-from primekg_rgcn_tpu_torch.models.rgcn import (Params, encoder_apply_sampled,
+from primekg_rgcn_tpu_torch.models.rgcn import (Params, compute_dtype,
+                                                encoder_apply_cached,
+                                                encoder_apply_sampled,
                                                 param_leaves)
+from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
 from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather,
                                                   make_mesh, make_mesh_2d,
@@ -68,7 +72,11 @@ from primekg_rgcn_tpu_torch.utils.telemetry import device_memory_stats
 logger = logging.getLogger(__name__)
 
 
-def resolve_sampler(graph_or_csr, fanouts, mode: str = "uniform"):
+LAYOUTS = ("auto", "combined", "per-relation")
+
+
+def resolve_sampler(graph_or_csr, fanouts, layout: str = "auto",
+                    mode: str = "uniform"):
     """Pick the pick-tensor layout for the graph's relation sparsity:
     (csr_like, budgets, use_combined), on the CPU.
 
@@ -76,13 +84,18 @@ def resolve_sampler(graph_or_csr, fanouts, mode: str = "uniform"):
     (node, relation) pairs have edges; the combined one (one merged budget
     per node with relation tags and importance weights) suits
     relation-sparse ones. A CsrCache takes the per-relation layout and a
-    CombinedCsr the combined one. A graph takes combined when the average
-    number of present relations per node is under half the relation count,
-    and always for block modes, whose windows ride the merged CSR. Block
-    modes get the packed table in granule-pairs form (a view here).
-    Combined budgets are the fanout times the present-relation average,
-    rounded up to a multiple of 8 and capped at 48, as in the JAX package.
+    CombinedCsr the combined one. ``layout="per-relation"`` or
+    ``"combined"`` forces the layout of a graph (a CombinedCsr cannot be
+    made per-relation: ``ValueError``); ``"auto"`` takes combined when the
+    average number of present relations per node is under half the
+    relation count, and always for block modes, whose windows ride the
+    merged CSR. Block modes get the packed table in granule-pairs form (a
+    view here). Combined budgets are the fanout times the present-relation
+    average, rounded up to a multiple of 8 and capped at 48, as in the JAX
+    package.
     """
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r} (one of {LAYOUTS})")
     base_mode = parse_sample_mode(mode)[0]
     want_pairs = base_mode == "block"
     fanouts = tuple(int(f) for f in fanouts)
@@ -91,11 +104,15 @@ def resolve_sampler(graph_or_csr, fanouts, mode: str = "uniform"):
     else:
         csr, graph = None, graph_or_csr
 
-    if isinstance(csr, CsrCache):
-        return csr, fanouts, False
+    if layout == "per-relation" or isinstance(csr, CsrCache):
+        if isinstance(csr, CombinedCsr):
+            raise ValueError("layout='per-relation' needs a graph or a "
+                             "CsrCache, not a CombinedCsr")
+        return (csr if csr is not None else build_csr_cache(graph),
+                fanouts, False)
     if csr is None:
         ccsr = build_combined_csr(graph, window_pairs=want_pairs)
-        if base_mode != "block" and \
+        if layout == "auto" and base_mode != "block" and \
                 ccsr.avg_present_relations >= 0.5 * ccsr.num_relations:
             return build_csr_cache(graph), fanouts, False
     else:
@@ -106,20 +123,23 @@ def resolve_sampler(graph_or_csr, fanouts, mode: str = "uniform"):
     return ccsr, budgets, True
 
 
-def _sampler(csr, fanouts, mode: str, device, allow_ident: bool):
+def _sampler(csr, fanouts, mode: str, device, allow_ident: bool,
+             layout: str = "auto", hops: Optional[int] = None):
     """``sample(seeds, draw) -> SampledBatch`` over ``csr`` (resolved by
     :func:`resolve_sampler` and kept on ``device``), with ``.csr``,
     ``.budgets`` and ``.use_combined``. ``allow_ident`` lets the innermost
     block go identity: the one-device steps allow it, the data-parallel
-    ones do not (the JAX package's multi-device default)."""
-    csr, budgets, use_combined = resolve_sampler(csr, fanouts, mode)
+    ones do not (the JAX package's multi-device default). ``hops`` samples
+    only the outermost ``hops`` layers (the cached step's one)."""
+    csr, budgets, use_combined = resolve_sampler(csr, fanouts, layout, mode)
     csr = csr.to(device)
+    sampled = budgets[:hops]
 
     def sample(seeds: torch.Tensor, draw) -> SampledBatch:
         if use_combined:
-            return sample_batch_combined(draw, csr, seeds, budgets, mode=mode,
+            return sample_batch_combined(draw, csr, seeds, sampled, mode=mode,
                                          allow_ident=allow_ident)
-        return sample_batch(draw, csr, seeds, budgets, mode=mode)
+        return sample_batch(draw, csr, seeds, sampled, mode=mode)
 
     sample.csr, sample.budgets, sample.use_combined = (csr, budgets,
                                                        use_combined)
@@ -130,13 +150,21 @@ def sampled_stats(params: Params, batch: SampledBatch, cands: Candidates,
                   model_cfg: ModelConfig, *, train: bool,
                   generator: Optional[torch.Generator] = None,
                   enc_mask: Optional[torch.Tensor] = None,
-                  x0: Optional[torch.Tensor] = None):
+                  x0: Optional[torch.Tensor] = None,
+                  cache: Optional[torch.Tensor] = None):
     """(loss_sum, correct, count) of one candidate batch through the sampled
-    encoder, 0-d tensors (``bce_stats``; no decoder dropout, as in the JAX
-    steps)."""
+    encoder, or with a layer-1 ``cache`` through ``encoder_apply_cached``
+    (which updates it), 0-d tensors (``bce_stats``; no decoder dropout, as
+    in the JAX steps)."""
     heads, tails, rels, labels, weights = cands
-    emb = encoder_apply_sampled(params, batch, model_cfg, train=train,
-                                generator=generator, mask=enc_mask, x0=x0)
+    if cache is not None:
+        emb, _ = encoder_apply_cached(params, batch, cache, model_cfg,
+                                      train=train, generator=generator,
+                                      mask=enc_mask, x0=x0)
+    else:
+        emb = encoder_apply_sampled(params, batch, model_cfg, train=train,
+                                    generator=generator, mask=enc_mask,
+                                    x0=x0)
     m = heads.shape[0]
     scores = distmult_score(emb[:m], emb[m:],
                             params["decoder"]["rel_emb"][rels])
@@ -147,13 +175,14 @@ def sampled_loss(params: Params, batch: SampledBatch, cands: Candidates,
                  model_cfg: ModelConfig, *, train: bool,
                  generator: Optional[torch.Generator] = None,
                  enc_mask: Optional[torch.Tensor] = None,
-                 x0: Optional[torch.Tensor] = None):
+                 x0: Optional[torch.Tensor] = None,
+                 cache: Optional[torch.Tensor] = None):
     """Mean BCE loss and accuracy of one candidate batch through the
-    sampled encoder, 0-d tensors (the JAX step's ``loss_fn`` body after
-    sampling)."""
+    sampled encoder (or the cached one, see :func:`sampled_stats`), 0-d
+    tensors (the JAX step's ``loss_fn`` body after sampling)."""
     loss_sum, correct, count = sampled_stats(
         params, batch, cands, model_cfg, train=train, generator=generator,
-        enc_mask=enc_mask, x0=x0)
+        enc_mask=enc_mask, x0=x0, cache=cache)
     return loss_sum / count, correct / count
 
 
@@ -305,20 +334,46 @@ class SplitOptimizer:
                 self.table[k] = v.to(self.table[k].device)
 
 
+class CachedOptimizer:
+    """The optimizer state of the cached step (JAX: ``opt_state = (base,
+    cache)``): ``base``, the sparse step's optimizer (a torch optimizer over
+    the other leaves, or a :class:`SplitOptimizer` with the factored
+    table rule), and ``cache``, the [N, hidden_dim] layer-1 histories in
+    the compute dtype, which each step updates in place. ``state_dict``
+    holds both, so checkpoints and resume keep the histories."""
+
+    def __init__(self, base, cache: torch.Tensor):
+        self.base = base
+        self.cache = cache
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.base.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self):
+        return {"base": self.base.state_dict(), "cache": self.cache}
+
+    def load_state_dict(self, state) -> None:
+        self.base.load_state_dict(state["base"])
+        self.cache.copy_(state["cache"])
+
+
 def build_sampled_train_step(csr, model_cfg: ModelConfig,
                              train_cfg: TrainConfig, *,
                              fanouts: Sequence[int] = (15, 10),
-                             mode: str = "uniform", sparse_emb: bool = False,
-                             table_opt: str = "sgd", device="cuda"):
+                             mode: str = "uniform", layout: str = "auto",
+                             sparse_emb: bool = False,
+                             table_opt: str = "sgd",
+                             cache_layer1: bool = False, cache_init=None,
+                             device="cuda"):
     """Returns ``step(params, optimizer, pos_edges, generator) -> (loss,
     acc)``, 0-d tensors on the device, nothing read back to the host.
 
-    ``csr`` is a RelGraph (layout resolved by :func:`resolve_sampler`), a
-    CsrCache or a CombinedCsr, on the CPU; the step keeps it on ``device``.
-    ``pos_edges`` is int64 [B, 3] (head, tail, rel) on the device. A step
-    draws the negatives, then the sampler's uniforms, then the dropout mask
-    from ``generator``; a test may hand it ``cands``, ``draw`` and
-    ``enc_mask`` instead.
+    ``csr`` is a RelGraph (layout resolved by :func:`resolve_sampler` with
+    ``layout``), a CsrCache or a CombinedCsr, on the CPU; the step keeps it
+    on ``device``. ``pos_edges`` is int64 [B, 3] (head, tail, rel) on the
+    device. A step draws the negatives, then the sampler's uniforms, then
+    the dropout mask from ``generator``; a test may hand it ``cands``,
+    ``draw`` and ``enc_mask`` instead.
 
     Dense (default): ``optimizer`` covers every parameter, and the update
     is ``apply_update`` (clip, then the optimizer step). ``sparse_emb``: the
@@ -331,8 +386,16 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
     :func:`factored_rows_update`, or :func:`factored_slice_update` on the
     identity block's dense gradient; the optimizer is then a
     :class:`SplitOptimizer` whose ``table`` holds the [N] + [D] statistics.
-    Build it with ``step.init_optimizer(params)``. ``step.sample(seeds,
-    draw)`` samples a batch over the step's CSR.
+
+    ``cache_layer1`` (needs ``sparse_emb``; forces the combined layout when
+    ``layout`` is "auto"): one sampled hop (the outermost budget, never
+    identity) through ``models/rgcn.encoder_apply_cached``, whose [N,
+    hidden_dim] history table rides with the optimizer, a
+    :class:`CachedOptimizer`: zeros, or ``cache_init``, in the compute
+    dtype. Each step pushes its fresh layer-1 rows into it.
+
+    Build the optimizer with ``step.init_optimizer(params)``.
+    ``step.sample(seeds, draw)`` samples a batch over the step's CSR.
     """
     if table_opt == "adafactor":
         if not sparse_emb:
@@ -340,8 +403,24 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
     elif table_opt != "sgd":
         raise ValueError(f"unknown table_opt {table_opt!r}")
     factored = table_opt == "adafactor"
+    if cache_layer1:
+        if not sparse_emb:
+            raise ValueError("cache_layer1 requires sparse_emb (the "
+                             "single-chip memory mode)")
+        if layout == "auto":
+            # The hop's frontier ids address the history table, so the
+            # cache needs the combined layout even where "auto" would pick
+            # the per-relation one.
+            layout = "combined"
     device = resolve_device(device)
-    sample = _sampler(csr, fanouts, mode, device, allow_ident=True)
+    sample = _sampler(csr, fanouts, mode, device,
+                      allow_ident=not cache_layer1, layout=layout,
+                      hops=1 if cache_layer1 else None)
+    if cache_layer1 and not sample.use_combined:
+        raise ValueError(
+            "cache_layer1 needs the combined pick layout (the hop's "
+            "frontier global ids address the history table); pass "
+            "layout='combined'")
     n = model_cfg.num_nodes
     lr = train_cfg.lr
 
@@ -358,6 +437,7 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
         batch = sample(seeds, draw if draw is not None
                        else uniform_draw(generator, device))
         optimizer.zero_grad(set_to_none=True)
+        base = optimizer.base if cache_layer1 else optimizer
         emb = params["encoder"]["node_emb"]
         x0 = None
         if sparse_emb:
@@ -370,22 +450,22 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
                 x0.requires_grad_(True)
         loss, acc = sampled_loss(params, batch, cands, model_cfg, train=True,
                                  generator=generator, enc_mask=enc_mask,
-                                 x0=x0)
+                                 x0=x0, cache=optimizer.cache
+                                 if cache_layer1 else None)
         loss.backward()
         if sparse_emb:
             with torch.no_grad():
                 if factored and x0 is None:
                     # Identity block: the dense table gradient.
                     upd, state = factored_slice_update(
-                        emb.grad, optimizer.table, axis_name=None,
+                        emb.grad, base.table, axis_name=None,
                         row_valid=torch.ones(n, device=emb.device),
                         n_valid=n, lr=lr)
                     emb.add_(upd.to(emb.dtype))
-                    optimizer.table.update(state)
+                    base.table.update(state)
                 elif factored:
-                    optimizer.table.update(factored_rows_update(
-                        x0.grad, batch.frontier, emb, optimizer.table,
-                        lr=lr))
+                    base.table.update(factored_rows_update(
+                        x0.grad, batch.frontier, emb, base.table, lr=lr))
                 elif x0 is None:
                     emb.sub_(lr * emb.grad)
                 else:
@@ -395,18 +475,31 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
                     emb.index_add_(0, rows_idx, (-lr * x0.grad).masked_fill(
                         sentinel, 0.0))
             emb.grad = None
-        apply_update(optimizer.rest if factored else optimizer, train_cfg)
+        apply_update(base.rest if factored else base, train_cfg)
         return loss.detach(), acc.detach()
 
     def init_optimizer(params: Params):
         if not sparse_emb:
             return make_optimizer(train_cfg, params)
         emb, rest = _split_emb(params)
-        if not factored:
-            return make_optimizer(train_cfg, rest)
-        return SplitOptimizer(make_optimizer(train_cfg, rest),
-                              factored_slice_init(n, emb.shape[1],
-                                                  device=emb.device))
+        base = make_optimizer(train_cfg, rest)
+        if factored:
+            base = SplitOptimizer(base, factored_slice_init(
+                n, emb.shape[1], device=emb.device))
+        if not cache_layer1:
+            return base
+        shape = (n, model_cfg.hidden_dim)
+        cdt = compute_dtype(model_cfg)
+        if cache_init is None:
+            # Cold start: zero histories fill as nodes appear as seeds.
+            cache = torch.zeros(shape, dtype=cdt, device=emb.device)
+        else:
+            cache = torch.as_tensor(cache_init).to(emb.device, cdt,
+                                                   copy=True)
+            if tuple(cache.shape) != shape:
+                raise ValueError(f"cache_init shape {tuple(cache.shape)} != "
+                                 f"{shape}")
+        return CachedOptimizer(base, cache)
 
     step.sample = sample
     step.init_optimizer = init_optimizer
@@ -803,6 +896,12 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     return step
 
 
+# The cached trainer warm-starts its histories with one full-graph conv1
+# pass on graphs of at most this many padded edges; larger ones (config 5's
+# 100M) start cold.
+CACHE_WARM_MAX_EDGES = 20_000_000
+
+
 class SampledTrainer(Trainer):
     """Host-driven mini-batch trainer over sampled neighbourhoods, on one
     device or data-parallel over the shards of a mesh on it.
@@ -814,8 +913,13 @@ class SampledTrainer(Trainer):
     ``zero1`` / ``zero3`` the sharded-optimizer / sharded-table one;
     ``zero3`` with ``dp_pods`` > 1 on a (dp_pods, n_devices / dp_pods)
     mesh, and with ``table_opt="adafactor"`` the factored table rule (as
-    ``sparse_emb`` with it on one device). Every combination the JAX
-    trainer refuses raises ``ValueError`` with its message. Validation
+    ``sparse_emb`` with it on one device). ``cache_layer1`` (one device,
+    with ``sparse_emb``) trains the cached step over the combined layout;
+    its histories start as one full-graph conv1 pass of the initial
+    parameters (kernel B1 on the card) on graphs of at most
+    ``CACHE_WARM_MAX_EDGES`` padded edges, else as zeros, and ride in the
+    checkpoints' optimizer state. Every combination the JAX trainer refuses
+    raises ``ValueError`` with its message. Validation
     encodes the full graph once per epoch (``train/loop.build_eval_epoch``;
     with zero3 from the gathered table), or, with ``val_sampled``, scores
     each batch through its sampled encode, through the sharded fetch with
@@ -834,7 +938,8 @@ class SampledTrainer(Trainer):
                  n_devices: Optional[int] = None, zero1: bool = False,
                  zero3: bool = False, dp_pods: int = 0,
                  sparse_emb: bool = False, val_sampled: bool = False,
-                 table_opt: str = "sgd", device="cuda", args=None):
+                 table_opt: str = "sgd", cache_layer1: bool = False,
+                 device="cuda", args=None):
         multi = bool(n_devices and n_devices > 1)
         # Sharding flags must not degrade silently (the JAX trainer's
         # refusals, in its order and words).
@@ -846,6 +951,14 @@ class SampledTrainer(Trainer):
             raise ValueError(
                 "--sparse_emb is the single-chip memory mode; the "
                 "multi-device analogue is --zero3 (sharded table)")
+        if cache_layer1 and multi:
+            raise ValueError(
+                "--cache_layer1 is the single-chip historical-embedding "
+                "mode; sharded layouts keep exact frontier collectives "
+                "(a sharded history table is future work)")
+        if cache_layer1 and not sparse_emb:
+            raise ValueError("--cache_layer1 requires --sparse_emb (it "
+                             "extends the single-chip sparse-table step)")
         if table_opt != "sgd" and multi and not zero3:
             raise ValueError(
                 "--table_opt with a multi-device mesh requires --zero3 "
@@ -881,8 +994,10 @@ class SampledTrainer(Trainer):
         self._setup(model_cfg, train_cfg, output_dir, device, args,
                     train_edges)
         # Resolve the pick layout once; the step and the sampled validation
-        # share the CSR.
-        csr_like = resolve_sampler(graph, fanouts, mode=mode)[0]
+        # share the CSR. The cache needs the combined layout.
+        csr_like = resolve_sampler(
+            graph, fanouts, "combined" if cache_layer1 else "auto",
+            mode=mode)[0]
         kw = dict(fanouts=fanouts, mode=mode)
         self._zero3 = bool(multi and zero3)
         if multi:
@@ -904,9 +1019,21 @@ class SampledTrainer(Trainer):
                         "zero3" if zero3 else "zero1" if zero1 else "dp",
                         mesh.n_dp, mesh.n_tp, self.device)
         else:
+            cache_init = None
+            if cache_layer1 and \
+                    graph.padded_num_edges <= CACHE_WARM_MAX_EDGES:
+                # Warm start: every history row exact for the initial
+                # parameters, instead of zeros that the first N / |seeds|
+                # steps would aggregate.
+                enc = self.params["encoder"]
+                with torch.no_grad():
+                    cache_init = rgcn_layer_segment(
+                        enc["conv1"], enc["node_emb"], graph.to(self.device),
+                        compute_dtype=compute_dtype(model_cfg))
             self.step_fn = build_sampled_train_step(
                 csr_like, model_cfg, train_cfg, sparse_emb=sparse_emb,
-                table_opt=table_opt, device=self.device, **kw)
+                table_opt=table_opt, cache_layer1=cache_layer1,
+                cache_init=cache_init, device=self.device, **kw)
         self.optimizer = self.step_fn.init_optimizer(self.params)
         self.train_edges = torch.from_numpy(
             np.asarray(train_edges, np.int64)).to(self.device)

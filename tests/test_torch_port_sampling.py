@@ -327,7 +327,25 @@ def test_parse_sample_mode_and_unported_reductions(monkeypatch):
     with pytest.raises(ValueError, match="must divide"):
         ps.sample_batch_combined(JaxDraws(jax.random.PRNGKey(0)), pc,
                                  torch.arange(4), (6, 4), mode="block4")
+    # The rowwise reduction agrees with the einsum one, and refuses a block
+    # sampled for the einsum (its tags unsorted), as the JAX package's
+    # test_rowwise_impl_agrees_and_guards holds.
+    from primekg_rgcn_tpu_torch.config import ModelConfig
+    from primekg_rgcn_tpu_torch.models import rgcn as pmodel
+
+    cfg = ModelConfig(num_nodes=pg.num_nodes, num_relations=pg.num_relations,
+                      embedding_dim=8, hidden_dim=8, dropout=0.0)
+    params = pmodel.init_params(torch.Generator().manual_seed(0), cfg)
+    seeds = torch.arange(20, dtype=torch.int32)
+    b_e = ps.sample_batch_combined(JaxDraws(jax.random.PRNGKey(11)), pc,
+                                   seeds, (6, 5))
+    out_e = pmodel.encoder_apply_sampled(params, b_e, cfg)
     monkeypatch.setenv("PRIMEKG_COMBINED_AGG", "rowwise")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ps.sample_batch_combined(JaxDraws(jax.random.PRNGKey(0)), pc,
-                                 torch.arange(4), (4, 4), mode="uniform")
+    b_r = ps.sample_batch_combined(JaxDraws(jax.random.PRNGKey(11)), pc,
+                                   seeds, (6, 5))
+    assert b_r.blocks[0].tags_sorted and not b_e.blocks[0].tags_sorted
+    out_r = pmodel.encoder_apply_sampled(params, b_r, cfg)
+    np.testing.assert_allclose(out_r.numpy(), out_e.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="PRIMEKG_COMBINED_AGG"):
+        pmodel.encoder_apply_sampled(params, b_e, cfg)

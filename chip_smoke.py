@@ -63,8 +63,13 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    device-side assert.
 10. kernel_b3: kernel B3 (``csrc/window_fetch.cu``) against its plain
    version at the window shapes of a block and a block4 step over the slim
-   CSR (their real starts) and at width 64, exactly equal; kernel, plain and
-   row-gather times beside the bound.
+   CSR (their real starts) and at width 64, exactly equal, and two launches
+   ``torch.equal``; kernel, plain and row-gather times beside the bound,
+   with the kernel's time over the row gather's (``vs_library``) and the
+   bound's share of it (``bound_share``). Then its edge cases, each equal to
+   the plain version: every width 1-64 on one stream of random starts, one
+   window, windows at 0 and at rows - width, an odd count of records, odd
+   starts only, a table that starts one record in (8-byte aligned only).
 11. sampled_grad: one full-size block-mode step's loss and gradients
    through B2 and B3 and through their plain versions, over the fat CSR
    (2 B2 launches: identity and dedup backward) and the slim pairs CSR
@@ -72,7 +77,8 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
 12. sampled_train: ``build_sampled_train_step`` at fanouts 15/10, 3
    warm-up and 30 timed steps, block over the fat CSR, block over the slim
    CSR and block4 over the slim CSR: step_ms, edges/s, launches per step
-   (2 B2), peak memory; a 10-step profile of block over the slim CSR.
+   (2 B2), peak memory; a 10-step profile of each step over the slim CSR
+   (B3's share of the block and block4 steps).
 13. sampled_cli: ``train.cli.main --sample_fanouts 15 10`` at scale 0.1 in
    block mode, and in block4 mode with ``--sparse_emb --val_sampled``, each
    then served by ``predict_cli.main`` and evaluated by
@@ -216,7 +222,10 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    B2 against its plain version under the bf16 criterion; kernel_b2 on
    the step's identity (~8.2M rows into 10M segments) and dedup streams;
    kernel_b3 on the windows one block and one block4 batch fetch from
-   the 100M-record table, exactly equal to its plain version.
+   the 100M-record table, exactly equal to its plain version, with cold-L2
+   times of the kernel and the row gather at the two inner layers
+   (``kernel_cold_ms`` / ``library_cold_ms``: 128 MB written between
+   calls).
    rmat10m_sampled: the sparse step in uniform, block and block4 mode,
    3 warm-up and 15 timed steps each (2 B2 a step, 2 B3 in block modes),
    peak memory, a profile, ``step_twice_equal``; rmat10m_cache: the
@@ -303,17 +312,22 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def event_ms(fn, reps=REPS, warmup=WARMUP):
+def event_ms(fn, reps=REPS, warmup=WARMUP, before=None):
     """Median time of one call of ``fn`` from an idle stream in ms, one CUDA
     event pair per call: the host's work inside the call falls between the
-    two events, so it counts too."""
+    two events, so it counts too. ``before``, when given, runs before each
+    call, outside the events (it must leave the stream idle)."""
     import torch
 
     for _ in range(warmup):
+        if before is not None:
+            before()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -324,8 +338,9 @@ def event_ms(fn, reps=REPS, warmup=WARMUP):
     return statistics.median(times)
 
 
-def time_calls(fns, reps=REPS, warmup=WARMUP):
-    """Each named call of ``fns`` timed two ways, in ms:
+def time_calls(fns, reps=REPS, warmup=WARMUP, before=None):
+    """Each named call of ``fns`` timed two ways, in ms (``before``, when
+    given, runs before every call, outside what is timed):
 
     - ``<name>_ms``, its device time: the median over ``reps`` calls of the
       summed durations of every kernel, memcpy and memset that one call
@@ -340,7 +355,7 @@ def time_calls(fns, reps=REPS, warmup=WARMUP):
     from primekg_rgcn_tpu_torch.utils.telemetry import (device_us_by_range,
                                                         profile_trace)
 
-    out = {f"{name}_call_ms": event_ms(fn, reps, warmup)
+    out = {f"{name}_call_ms": event_ms(fn, reps, warmup, before)
            for name, fn in fns.items()}
     # A trace that lost a call's device events is taken again, twice at most.
     pending = dict(fns)
@@ -349,6 +364,8 @@ def time_calls(fns, reps=REPS, warmup=WARMUP):
             with profile_trace(tmp):
                 for name, fn in pending.items():
                     for i in range(reps):
+                        if before is not None:
+                            before()
                         with torch.profiler.record_function(
                                 f"timed:{name}#{i}"):
                             fn()
@@ -1277,11 +1294,21 @@ def b2_bound(msg, srt, n):
 
 
 def b3_bound(starts, width):
-    """Least time of B3, in ms: each window's records read once and written
-    once, and the starts read once, at the HBM rate (no arithmetic)."""
-    nbytes = starts.numel() * (width * 8 * 2 + 4)
-    return {"bytes": nbytes, "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "op_ms": 0.0}
+    """Least time of B3, in ms, at the HBM rate (no arithmetic): the
+    records that the windows cover read once (windows that overlap share
+    them: a block4 node's windows, a short row's window running into the
+    next row's), each window's records written once and the starts read
+    once."""
+    import torch
+
+    m = starts.numel()
+    distinct = 0
+    if m:
+        gaps = torch.diff(torch.sort(starts.long())[0]).clamp(max=width)
+        distinct = int(gaps.sum()) + width
+    nbytes = distinct * 8 + m * (width * 8 + 4)
+    return {"bytes": nbytes, "distinct_records": distinct,
+            "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3, "op_ms": 0.0}
 
 
 def bound_fields(b):
@@ -1503,15 +1530,14 @@ def phase_kernel_b2(graph, cfg, edges, dev, repo):
     return rows, max_err
 
 
-def phase_kernel_b3(graph, cfg, edges, dev):
-    """Kernel B3 against its plain version on the card, at the window
-    shapes of a block and a block4 step over the slim CSR (their real
-    starts) and at width 64; kernel, plain and row-gather times beside the
-    bound. Results must be exactly equal."""
+def b3_streams(graph, cfg, edges, dev):
+    """The windows that B3 fetches in one block and one block4 step over the
+    slim CSR of ``graph`` (outer and inner layer, real starts, recorded
+    from the step), and 30,976 windows of 64 records at random starts:
+    ``[(name, packed, starts, width)]``."""
     import torch
 
     from primekg_rgcn_tpu_torch.config import TrainConfig
-    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
     from primekg_rgcn_tpu_torch.train.sampled import build_sampled_train_step
 
     params, _, pos, csrs = sampled_setup(graph, cfg, edges, dev)
@@ -1532,24 +1558,146 @@ def phase_kernel_b3(graph, cfg, edges, dev):
     starts64 = torch.randint(0, e + 1, (30976,), generator=gen, device=dev,
                              dtype=torch.int32)
     shapes.append(("width64", packed, starts64, 64))
-    rows = []
-    for name, packed, starts, width in shapes:
-        got = pwf.window_rows_fetch(packed, starts, width)
-        want = pwf.window_rows_fetch_plain(packed, starts, width)
+    return shapes
+
+
+def rmat10m_b3_streams(ccsr, cfg, edges, dev):
+    """The windows that B3 fetches for one block and one block4 batch of
+    config 5 (1,024 positives and their negatives) from the 100M-record
+    table in granule-pairs form, recorded from the sampler: ``[(name,
+    packed, starts, width)]``."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.data.sampling import uniform_draw
+    from primekg_rgcn_tpu_torch.train.neg_sampling import candidate_batch
+
+    gen = torch.Generator(dev).manual_seed(0)
+    pos = torch.from_numpy(edges[np.random.default_rng(0).integers(
+        0, edges.shape[0], 1024)].astype(np.int64)).to(dev)
+    shapes = []
+    for mode in ("block", "block4"):
+        step, _ = rmat10m_step(ccsr, cfg, dev, mode)
+        cands = candidate_batch(pos[:, 0], pos[:, 1], pos[:, 2],
+                                cfg.num_nodes, 1, generator=gen)
+        calls = {}
+        with sampler_kernels(("record", calls)):
+            step.sample(torch.cat(cands[:2]).to(torch.int32),
+                        uniform_draw(gen, dev))
+        for layer, (packed, starts, width) in zip(("outer", "inner"),
+                                                  calls["b3"]):
+            shapes.append((f"config5_{mode}/{layer}", packed, starts, width))
+    return shapes
+
+
+def b3_equal(name, packed, starts, width):
+    """B3 on one input must equal its plain version, and two launches each
+    other, bit for bit."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+
+    got = pwf.window_rows_fetch(packed, starts, width)
+    again = pwf.window_rows_fetch(packed, starts, width)
+    want = pwf.window_rows_fetch_plain(packed, starts, width)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"b3/{name}: kernel and plain differ")
+    if not torch.equal(got, again):
+        raise AssertionError(f"b3/{name}: two launches differ")
+
+
+def l2_flush(dev, mb=128):
+    """A call that writes ``mb`` MB on the card (the H100's L2 holds 50)
+    and waits for it: ``time_calls``'s ``before`` for cold-L2 times."""
+    import torch
+
+    buf = torch.empty(mb << 18, dtype=torch.int32, device=dev)
+
+    def flush():
+        buf.add_(1)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"b3/{name}: kernel and plain differ")
-        rec = packed.view(-1, 2)
-        idx = starts.long()[:, None] + torch.arange(width, device=dev)
-        t = time_calls({
-            "kernel": lambda: pwf.launch(rec, starts, width),
-            "plain": lambda: pwf.window_rows_fetch_plain(packed, starts,
-                                                         width),
-            "library": lambda: rec[idx]})
-        row = dict(shape=name, windows=starts.numel(), width=width, **t,
-                   max_abs_err=0, **bound_fields(b3_bound(starts, width)))
-        rows.append(row)
-        emit("kernel_b3_shape", **row)
+    return flush
+
+
+def b3_shape_row(name, packed, starts, width, cold=False, **extra):
+    """B3 at one shape: ``b3_equal``, then kernel, plain and row-gather
+    (``rec[idx]``, its index precomputed) times beside ``b3_bound``, the
+    kernel's time over the row gather's (``vs_library``) and the bound's
+    share of it (``bound_share``); with ``cold``, the kernel's and the row
+    gather's with the L2 flushed before each call (``kernel_cold_ms``,
+    ``library_cold_ms``). Emits ``kernel_b3_shape`` and returns the row."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
+
+    b3_equal(name, packed, starts, width)
+    rec = packed.view(-1, 2)
+    idx = starts.long()[:, None] + torch.arange(width, device=rec.device)
+    fns = {"kernel": lambda: pwf.launch(rec, starts, width),
+           "library": lambda: rec[idx]}
+    t = time_calls({**fns, "plain": lambda: pwf.window_rows_fetch_plain(
+        packed, starts, width)})
+    if cold:
+        c = time_calls(fns, before=l2_flush(rec.device))
+        t.update(kernel_cold_ms=c["kernel_ms"],
+                 library_cold_ms=c["library_ms"],
+                 kernel_cold_call_ms=c["kernel_call_ms"],
+                 library_cold_call_ms=c["library_call_ms"])
+    bnd = b3_bound(starts, width)
+    b = bound_fields(bnd)
+    row = dict(shape=name, windows=starts.numel(), width=width,
+               distinct_records=bnd["distinct_records"], **extra, **t,
+               max_abs_err=0, vs_library=t["kernel_ms"] / t["library_ms"],
+               bound_share=b["bound_us"] / 1e3 / t["kernel_ms"], **b)
+    emit("kernel_b3_shape", **row)
+    return row
+
+
+def b3_cases(packed, dev):
+    """B3's edge cases, each ``b3_equal``: every width 1-64 on one stream of
+    3,001 random starts; one window; windows at 0 and at rows - width; an
+    odd count of records (1,001 windows of 7); odd starts only (records at
+    8-byte but not 16-byte offsets); the table viewed from its second
+    record (8-byte aligned only). Emits ``kernel_b3_cases``."""
+    import torch
+
+    rec = packed.view(-1, 2)
+    n = rec.shape[0]
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def rand(m, hi):  # m starts in [0, hi]
+        return torch.randint(0, hi + 1, (m,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    stream = rand(3001, n - 64)
+    for width in range(1, 65):
+        b3_equal(f"width{width}", packed, stream, width)
+    at = lambda *s: torch.tensor(s, dtype=torch.int32, device=dev)
+    cases = {"one_window": (rand(1, n - 10), 10),
+             "ends": (at(0, n - 6, 0, n - 6), 6),
+             "ends_64": (at(n - 64, 0), 64),
+             "odd_records": (rand(1001, n - 7), 7),
+             # x | 1 <= x + 1: every start odd, none past rows - width.
+             "odd_starts": (rand(4097, n - 11) | 1, 10),
+             "odd_starts_odd_width": (rand(513, n - 4) | 1, 3)}
+    for name, (starts, width) in cases.items():
+        b3_equal(name, packed, starts, width)
+    b3_equal("table_from_record_1", rec[1:], rand(2049, n - 13), 12)
+    emit("kernel_b3_cases", widths=[1, 64], stream_windows=3001,
+         cases=[*cases, "table_from_record_1"], all_equal=True,
+         twice_equal=True)
+
+
+def phase_kernel_b3(graph, cfg, edges, dev):
+    """Kernel B3 against its plain version on the card, at the window
+    shapes of a block and a block4 step over the slim CSR (their real
+    starts) and at width 64 (``b3_shape_row``: exactly equal, two launches
+    equal, timed beside the row gather and the bound), then its edge cases
+    (``b3_cases``). Returns the shape rows."""
+    shapes = b3_streams(graph, cfg, edges, dev)
+    rows = [b3_shape_row(*shape) for shape in shapes]
+    b3_cases(shapes[0][1], dev)
     return rows
 
 
@@ -1635,7 +1783,7 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
     the host each step, 3 warm-up then 30 timed steps on the host clock;
     block over the fat CSR, block over the slim pairs CSR (the main path of
     kernels B2 and B3) and block4 over the slim CSR. Then a 10-step profile
-    of the main path; 2 B2 launches a step (identity and dedup backward),
+    of each slim step; 2 B2 launches a step (identity and dedup backward),
     2 B3 over the slim CSR. At ``cfg.compute_dtype`` bf16 (phase
     ``sampled_bf16``, block over the slim CSR) every B2 launch must be a
     bf16 one. ``label`` names the phase (``full_kg_sampled``: config 4)."""
@@ -1701,17 +1849,19 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
              batch_size=tcfg.batch_size, **results[name])
         if name == "block/slim":
             main_counts = counts
+        if name in ("block/slim", "block4/slim"):
             prof_steps = 10
+            prof_dir = tmp / f"{label}_{mode}_profile"
             torch.cuda.synchronize()
-            with profile_trace(tmp / f"{label}_profile"):
+            with profile_trace(prof_dir):
                 t0 = time.perf_counter()
                 for _ in range(prof_steps):
                     one()
                 torch.cuda.synchronize()
                 prof_ms = (time.perf_counter() - t0) / prof_steps * 1e3
-            bd = trace_breakdown(tmp / f"{label}_profile" / "trace.json")
+            bd = trace_breakdown(prof_dir / "trace.json")
             if bd is None:
-                emit(f"{label}_profile", steps=prof_steps,
+                emit(f"{label}_profile", config=name, steps=prof_steps,
                      device_events=0, idle_share="not measured")
             else:
                 busy_ms = bd["busy_us"] / prof_steps / 1e3
@@ -4566,52 +4716,16 @@ def phase_rmat10m_grad(ccsr, cfg, edges, dev):
 
 
 def phase_rmat10m_b3(ccsr, cfg, edges, dev):
-    """B3 at config 5's shapes: the windows that one block and one block4
-    batch (1,024 positives and their negatives) fetch from the 100M-record
-    table in granule-pairs form, recorded from the sampler, each against
-    B3's plain version (exactly equal), with kernel, plain and row-gather
-    times beside the bound. Returns the rows."""
-    import numpy as np
-    import torch
-
-    from primekg_rgcn_tpu_torch.data.sampling import uniform_draw
-    from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
-    from primekg_rgcn_tpu_torch.train.neg_sampling import candidate_batch
-
-    gen = torch.Generator(dev).manual_seed(0)
-    pos = torch.from_numpy(edges[np.random.default_rng(0).integers(
-        0, edges.shape[0], 1024)].astype(np.int64)).to(dev)
-    rows = []
-    for mode in ("block", "block4"):
-        step, _ = rmat10m_step(ccsr, cfg, dev, mode)
-        cands = candidate_batch(pos[:, 0], pos[:, 1], pos[:, 2],
-                                cfg.num_nodes, 1, generator=gen)
-        calls = {}
-        with sampler_kernels(("record", calls)):
-            step.sample(torch.cat(cands[:2]).to(torch.int32),
-                        uniform_draw(gen, dev))
-        for layer, (packed, starts, width) in zip(("outer", "inner"),
-                                                  calls["b3"]):
-            got = pwf.window_rows_fetch(packed, starts, width)
-            want = pwf.window_rows_fetch_plain(packed, starts, width)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"rmat10m_b3/{mode}/{layer}: kernel and "
-                                     f"plain differ")
-            rec = packed.view(-1, 2)
-            idx = starts.long()[:, None] + torch.arange(width, device=dev)
-            t = time_calls({
-                "kernel": lambda: pwf.launch(rec, starts, width),
-                "plain": lambda: pwf.window_rows_fetch_plain(packed, starts,
-                                                             width),
-                "library": lambda: rec[idx]})
-            row = dict(shape=f"config5_{mode}/{layer}",
-                       records=rec.shape[0], windows=starts.numel(),
-                       width=width, **t, max_abs_err=0,
-                       **bound_fields(b3_bound(starts, width)))
-            rows.append(row)
-            emit("kernel_b3_shape", **row)
-    return rows
+    """B3 at config 5's shapes (``rmat10m_b3_streams``: one block and one
+    block4 batch's windows over the 100M-record table), each
+    ``b3_shape_row``: exactly equal to the plain version, two launches
+    equal, timed beside the row gather and the bound; at the two inner
+    layers also with a cold L2. Returns the rows."""
+    return [b3_shape_row(name, packed, starts, width,
+                         cold=name.endswith("inner"),
+                         records=packed.view(-1, 2).shape[0])
+            for name, packed, starts, width in rmat10m_b3_streams(
+                ccsr, cfg, edges, dev)]
 
 
 def phase_rmat10m_sampled(ccsr, cfg, edges, dev, tmp, steps=15):
@@ -5415,14 +5529,20 @@ def main():
         "library_ms": total(b3_rows[:2], "library_ms"),
         "block4_ms": total(b3_rows[2:4], "kernel_ms"),
         "block4_bound_ms": total(b3_rows[2:4], "bound_us") / 1e3,
-        "config5_shapes": {r["shape"]: {k: r[k] for k in (
+        "shapes": {r["shape"]: {k: r[k] for k in (
             "windows", "width", "kernel_ms", "kernel_call_ms", "plain_ms",
-            "library_ms", "bound_us", "bound_by")} for r in r5_b3_rows},
+            "library_ms", "library_call_ms", "bound_us", "bound_by",
+            "vs_library", "bound_share", "kernel_cold_ms",
+            "library_cold_ms") if k in r} for r in (*b3_rows, *r5_b3_rows)},
         "per": "one block-mode step over the slim CSR: ms, plain_ms, "
                "bound_ms and library_ms sum its two launches (outer and "
                "inner layer); library_ms is packed[starts[:, None] + "
-               "arange(F)]; launches is the sampled_train block/slim "
-               "count. " + TIMES}, {
+               "arange(F)]; shapes gives every timed shape (the bench.py "
+               "graph's block and block4 layers, width 64, config 5's "
+               "block and block4 layers), vs_library = kernel_ms / "
+               "library_ms, bound_share = bound / kernel_ms, *_cold_ms "
+               "with 128 MB written between calls; launches is the "
+               "sampled_train block/slim count. " + TIMES}, {
         "name": "halo_exchange", "id": "B4", "route": "cuda",
         "source": "primekg_rgcn_tpu_torch/csrc/halo_exchange.cu",
         "replaces": "primekg_rgcn_tpu/ops/pallas/halo.py:60",

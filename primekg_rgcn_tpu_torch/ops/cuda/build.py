@@ -6,7 +6,8 @@ of its own in ``primekg_rgcn_tpu_torch/_build/``, named by a hash of its
 source and the flags, at first use; the library is then loaded with
 ``ctypes``. A source may be built more than once with other ``-D`` defines
 (B1 and B2: one library per row dtype, so that the two compile in
-parallel).
+parallel). ``call_on_stream`` calls an entry point on the current stream
+of a tensor's device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -99,3 +102,19 @@ def check_rc(rc: int, name: str) -> None:
     """Raise when a C entry point reports a refused launch."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def call_on_stream(entry, device: int, *args) -> int:
+    """``entry(*args, stream)`` with ``stream`` the raw handle of the
+    current stream of CUDA device ``device`` (an index, as
+    ``Tensor.get_device()`` gives it), with that device current.
+
+    This is the launch path of every wrapper, kept light: the raw handle
+    costs well under a microsecond where ``torch.cuda.current_stream()``
+    costs 3-8 us, and the current device is switched (2-3 us) only when it
+    is not ``device`` already (PERF.md section 6)."""
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch._C._cuda_getDevice():
+        return entry(*args, stream)
+    with torch.cuda.device(device):
+        return entry(*args, stream)

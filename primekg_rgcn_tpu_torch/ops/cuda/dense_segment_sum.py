@@ -38,7 +38,8 @@ from typing import Tuple
 
 import torch
 
-from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
+from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, call_on_stream,
+                                                   check_rc)
 from primekg_rgcn_tpu_torch.ops.cuda.segment_sum import _num_sms
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -181,11 +182,10 @@ def launch(msg: torch.Tensor, srt: torch.Tensor,
     bf16 = msg.dtype == torch.bfloat16
     entry = (LIBRARY_BF16.load().dense_sorted_segment_sum_bf16 if bf16
              else LIBRARY.load().dense_sorted_segment_sum_f32)
-    with torch.cuda.device(msg.device):
-        rc = entry(
-            msg.data_ptr(), srt.data_ptr(), out.data_ptr(), carry.data_ptr(),
-            meta.data_ptr(), ln, d, num_segments, vec, lanes, min_rows,
-            pieces, torch.cuda.current_stream().cuda_stream)
+    rc = call_on_stream(
+        entry, msg.get_device(), msg.data_ptr(), srt.data_ptr(),
+        out.data_ptr(), carry.data_ptr(), meta.data_ptr(), ln, d,
+        num_segments, vec, lanes, min_rows, pieces)
     check_rc(rc, "dense_sorted_segment_sum")
     dense_sorted_segment_sum.launches += 1
     dense_sorted_segment_sum.launches_bf16 += bf16

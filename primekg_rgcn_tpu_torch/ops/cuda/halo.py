@@ -31,7 +31,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
+from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, call_on_stream,
+                                                   check_rc)
 
 # The kernel's parameter block holds this many send and recv pointers.
 MAX_SHARDS = 64
@@ -131,11 +132,9 @@ def launch(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     bf16 = sends[0].dtype == torch.bfloat16
     lib = LIBRARY.load()
     entry = lib.halo_exchange_bf16 if bf16 else lib.halo_exchange_f32
-    with torch.cuda.device(sends[0].device):
-        rc = entry(
-            table(*ptrs[:n]), table(*ptrs[n:]),
-            (ctypes.c_int * n)(*step_offsets(n)), n, p, d, vec,
-            torch.cuda.current_stream().cuda_stream)
+    rc = call_on_stream(
+        entry, sends[0].get_device(), table(*ptrs[:n]), table(*ptrs[n:]),
+        (ctypes.c_int * n)(*step_offsets(n)), n, p, d, vec)
     check_rc(rc, "halo_exchange")
     halo_exchange.launches += 1
     halo_exchange.launches_bf16 += bf16

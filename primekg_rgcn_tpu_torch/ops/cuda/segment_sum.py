@@ -39,7 +39,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
+from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, call_on_stream,
+                                                   check_rc)
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p)
@@ -215,13 +216,11 @@ def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
     bf16 = x.dtype == torch.bfloat16
     entry = (LIBRARY_BF16.load().gather_segment_sum_bf16 if bf16
              else LIBRARY.load().gather_segment_sum_f32)
-    with torch.cuda.device(x.device):
-        rc = entry(
-            x.data_ptr(), src.data_ptr(), rowptr.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            carry.data_ptr(), carry_row.data_ptr(),
-            s, d, x.shape[0], src.shape[0], vec, lanes, per_piece, pieces,
-            torch.cuda.current_stream().cuda_stream)
+    rc = call_on_stream(
+        entry, x.get_device(), x.data_ptr(), src.data_ptr(),
+        rowptr.data_ptr(), None if scale is None else scale.data_ptr(),
+        out.data_ptr(), carry.data_ptr(), carry_row.data_ptr(),
+        s, d, x.shape[0], src.shape[0], vec, lanes, per_piece, pieces)
     check_rc(rc, "gather_segment_sum")
     gather_segment_sum.launches += 1
     gather_segment_sum.launches_bf16 += bf16

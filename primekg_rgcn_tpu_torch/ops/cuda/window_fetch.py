@@ -7,11 +7,13 @@ This is the counterpart of ``window_rows_fetch`` in
 ``primekg_rgcn_tpu/ops/pallas/window_fetch.py``: it replaces the TPU kernel
 ``_roll_kernel`` (through ``_pallas_window_fetch``). The kernel source is
 ``primekg_rgcn_tpu_torch/csrc/window_fetch.cu``; its header comment gives
-the design and what bounds it on the H100 (memory bytes, at the step's
-shapes launch latency). It is built with ``nvcc`` for ``sm_90a`` at first
-use into ``primekg_rgcn_tpu_torch/_build/`` and bound through ``ctypes``
-(``ops/cuda/build.py``). Block-mode sampling over a slim packed CSR calls
-it once per layer (``data/sampling._sample_layer_combined``).
+the design (threads over the flat output, one 16-byte chunk of two
+records a thread) and what bounds it on the H100 (memory bytes; at the
+bench.py graph's outer layers launch latency). It is built with ``nvcc``
+for ``sm_90a`` at first use into ``primekg_rgcn_tpu_torch/_build/`` and
+bound through ``ctypes`` (``ops/cuda/build.py``). Block-mode sampling over
+a slim packed CSR calls it once per layer
+(``data/sampling._sample_layer_combined``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import ctypes
 
 import torch
 
-from primekg_rgcn_tpu_torch.ops.cuda.build import CudaLibrary, check_rc
+from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, call_on_stream,
+                                                   check_rc)
 
 # Records per granule row of the pairs form: [G, 128] int32 is the same
 # bytes as [G * 64, 2].
@@ -104,17 +107,15 @@ def launch(rows: torch.Tensor, starts: torch.Tensor,
     """Launch the kernel on CUDA tensors that ``window_rows_fetch`` has
     checked; counts the launch."""
     m = starts.shape[0]
-    out = torch.empty(m, width, 2, dtype=torch.int32, device=rows.device)
+    out = rows.new_empty((m, width, 2))
     if m == 0:
         return out
     if rows.data_ptr() % 8:
         raise ValueError("packed must be 8-byte aligned (one record per "
                          "int2 load)")
-    lib = LIBRARY.load()
-    with torch.cuda.device(rows.device):
-        rc = lib.window_rows_fetch_i32(
-            rows.data_ptr(), starts.data_ptr(), out.data_ptr(), m, width,
-            rows.shape[0], torch.cuda.current_stream().cuda_stream)
+    rc = call_on_stream(LIBRARY.load().window_rows_fetch_i32,
+                        rows.get_device(), rows.data_ptr(), starts.data_ptr(),
+                        out.data_ptr(), m, width, rows.shape[0])
     check_rc(rc, "window_rows_fetch")
     window_rows_fetch.launches += 1
     return out

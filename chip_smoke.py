@@ -84,10 +84,13 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    then served by ``predict_cli.main`` and evaluated by
    ``evaluate.cli.main``; B2 must launch in both.
 14. kernel_b4: kernel B4 (``csrc/halo_exchange.cu``) against its plain
-   version, bit for bit, at the node-sharded step's shapes (n = 4 shards,
-   P = 7,736, D = 64 and 128, the real serve lists of the ``bench.py``
-   graph) and on edge cases (n = 2 and 8, P = 1, D = 8, odd D, unaligned
-   views); kernel, plain and ``copy_`` times beside the byte bound.
+   version, bit for bit, two launches equal, at the node-sharded step's
+   shapes (n = 4 shards, P = 7,736, D = 64 and 128, the real serve lists
+   of the ``bench.py`` graph) and on edge cases (n = 1, 2, 3 and 8, P = 1,
+   D = 8, odd D in whole 16-byte units a pair or not, pairs that are not a
+   multiple of the 16 KB tile below and past the L2, views offset by one
+   element and by 4 bytes: the element-wise kernel); kernel, plain and
+   ``copy_`` times beside the byte bound, warm and with a cold L2.
 15. node_grad: one node-sharded step (4 shards on the card, dropout off) on
    given candidates through B1, B4 and B2 (2 B1 launches per layer and
    bucket with real edges, 4 B4 launches, 20 B2: the sorted backward of
@@ -191,9 +194,11 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    profile.
    The sharded layouts on config 3's graph, 4 shards: the node partition
    (``uniform_caps`` by default at 30 relations, so the layer runs the
-   relation scan, ``ScanAccumulate``: 3 B1 launches a bucket in a step)
-   and full_kg_node_grad (node_grad's checks); full_kg_node_train, 10
-   timed steps, beside the same step with ``uniform_caps=False`` (the
+   relation scan, ``ScanAccumulate``: 3 B1 launches a bucket in a step),
+   B4 at its node step's two shapes (full_kg_kernel_b4: P = 31,856, D = 64
+   and 128, float32, as kernel_b4's shapes) and full_kg_node_grad
+   (node_grad's checks); full_kg_node_train, 10 timed steps, beside the
+   same step with ``uniform_caps=False`` (the
    kept partials, 2 B1 a bucket), whose peak memory the scan exists to
    save (full_kg_node_memory); full_kg_node_serve: the sharded encode
    against the dense one within rtol 2e-4 and its top-10 ids against the
@@ -243,9 +248,10 @@ its float32 counterpart:
   CSR, or the float32 call on the upcast table, named) beside the bf16
   bound and the float32 kernel's time. After 9, B2's bf16 variant at a bf16
   block step's identity- and dedup-backward streams and edge cases,
-  ``index_add_`` of the upcast rows beside it; after 14, B4's at the node step's shapes, bit
-  for bit, ``copy_`` beside it. Two children feed B1's bf16 variant a bad
-  CSR and one B2's unsorted ids: each must stop on the device-side assert.
+  ``index_add_`` of the upcast rows beside it; after 14, B4's at the node
+  step's shapes and edge cases, as kernel_b4. Two children feed B1's bf16
+  variant a bad CSR and one B2's unsorted ids: each must stop on the
+  device-side assert.
 - grad_bf16 (after 6): one full-size step in bf16 through the kernels and
   through their plain versions: 6 + 6 bf16 B1 launches and no float32 one,
   every gradient within 1e-2 of its largest magnitude, the losses within
@@ -2023,52 +2029,115 @@ def b4_bound(sends):
             "op_ms": 0.0}
 
 
-def phase_kernel_b4(psg, dev, dtype=None):
-    """Kernel B4 against its plain version on the card, exactly equal: at
-    the node-sharded step's two shapes (the real serve lists over random
-    [n_loc + 1, D] tables, D = 64 and 128) and on edge cases; kernel, plain
-    and ``copy_`` of the same bytes timed beside the bound. With ``dtype``
-    bf16 (phase ``kernel_bf16``, lines ``kernel_bf16_b4_*``) every payload
-    is bf16 and launches the bf16 variant, 16-byte vectors of 8 elements."""
+def l2_bytes(dev):
+    """The card's L2 size in bytes (52,428,800 on the H100)."""
+    import torch
+
+    return torch.cuda.get_device_properties(dev).L2_cache_size
+
+
+def b4_sends(psg, d, dtype, gen, dev):
+    """The node step's exchange at width ``d``: shard i sends the rows of
+    its serve list ``psg.serve[i]`` of a random [n_loc + 1, d] table."""
+    import torch
+
+    serve = psg.serve.to(dev).long()
+    tables = [torch.randn(psg.n_loc + 1, d, device=dev, generator=gen)
+              .to(dtype) for _ in range(psg.n_devices)]
+    return [tables[i][serve[i]] for i in range(psg.n_devices)]
+
+
+def b4_equal(name, sends):
+    """B4 on one exchange must equal its plain version, and two launches
+    each other, bit for bit, each launch of the sends' dtype's variant."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
+
+    bf16 = sends[0].dtype == torch.bfloat16
+    reset_counts()
+    got = halo.halo_exchange(sends)
+    again = halo.halo_exchange(sends)
+    want = halo.halo_exchange_plain(sends)
+    torch.cuda.synchronize()
+    if (halo.halo_exchange.launches, halo.halo_exchange.launches_bf16) != \
+            (2, 2 * bf16):
+        raise AssertionError(f"{name}: not 2 launches of its dtype's variant")
+    for o, (g, a, w) in enumerate(zip(got, again, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: recv {o} differs from the plain "
+                                 f"version")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name}: recv {o} differs between two "
+                                 f"launches")
+
+
+def b4_shape_row(name, sends, **extra):
+    """B4 at one shape: ``b4_equal``, then kernel, plain and ``copy_`` of
+    the same bytes timed beside ``b4_bound``, warm and with the L2 flushed
+    before each call (``kernel_cold_ms``, ``library_cold_ms``).
+    ``vs_library`` is kernel / ``copy_`` warm (``vs_library_cold`` cold);
+    ``l2_warm`` says the sends fit the card's L2, and then the warm times
+    are L2 times and ``bound_share`` is taken from the cold time, else
+    from the warm one."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
+
+    b4_equal(name, sends)
+    flat = sum(t.numel() for t in sends)
+    gen = torch.Generator(sends[0].device).manual_seed(7)
+    src = torch.randn(flat, device=sends[0].device, generator=gen).to(
+        sends[0].dtype)
+    dst = torch.empty_like(src)
+    fns = {"kernel": lambda: halo.launch(sends),
+           "library": lambda: dst.copy_(src)}
+    t = time_calls({**fns, "plain": lambda: halo.halo_exchange_plain(sends)})
+    c = time_calls(fns, before=l2_flush(sends[0].device))
+    t.update(kernel_cold_ms=c["kernel_ms"], library_cold_ms=c["library_ms"],
+             kernel_cold_call_ms=c["kernel_call_ms"],
+             library_cold_call_ms=c["library_call_ms"])
+    b = bound_fields(b4_bound(sends))
+    l2_warm = flat * src.element_size() <= l2_bytes(sends[0].device)
+    return dict(shape=name, dtype=str(sends[0].dtype).split(".")[-1],
+                **extra, **t, max_abs_err=0,
+                vs_library=t["kernel_ms"] / t["library_ms"],
+                vs_library_cold=t["kernel_cold_ms"] / t["library_cold_ms"],
+                l2_warm=l2_warm, bound_share=b["bound_us"] / 1e3 / (
+                    t["kernel_cold_ms"] if l2_warm else t["kernel_ms"]),
+                **b)
+
+
+def phase_kernel_b4(psg, dev, dtype=None, label=None, cases=True):
+    """Kernel B4 against its plain version on the card, exactly equal, two
+    launches equal: at the node-sharded step's two shapes of ``psg`` (the
+    real serve lists over random [n_loc + 1, D] tables, D = 64 and 128;
+    ``b4_shape_row``) and, with ``cases``, on edge cases: 1, 2, 3 and 8
+    shards, one row, odd widths (whole 16-byte units a pair or not), a
+    pair that is not a multiple of the 16 KB tile, an exchange past the L2
+    whose pair is not a multiple of it either, sends offset by one
+    element and by 4 bytes (the element-wise kernel). With
+    ``dtype`` bf16 (phase ``kernel_bf16``, lines ``kernel_bf16_b4_*``)
+    every payload is bf16 and launches the bf16 variant. ``label`` names
+    the lines (config 3's shapes: ``full_kg_kernel_b4``)."""
     import torch
 
     from primekg_rgcn_tpu_torch.ops.cuda import halo
 
     dtype = dtype or torch.float32
-    label = "kernel_bf16_b4" if dtype == torch.bfloat16 else "kernel_b4"
+    label = label or ("kernel_bf16_b4" if dtype == torch.bfloat16
+                      else "kernel_b4")
     gen = torch.Generator(dev).manual_seed(6)
-    serve = psg.serve.to(dev).long()
     n, p = psg.n_devices, psg.halo_width
-
-    def check(name, sends):
-        reset_counts()
-        got = halo.halo_exchange(sends)
-        want = halo.halo_exchange_plain(sends)
-        torch.cuda.synchronize()
-        if halo.halo_exchange.launches_bf16 != (dtype == torch.bfloat16):
-            raise AssertionError(f"{label}/{name}: not its dtype's variant")
-        for o, (g, w) in enumerate(zip(got, want)):
-            if not torch.equal(g, w):
-                raise AssertionError(f"{label}/{name}: recv {o} differs "
-                                     f"from the plain version")
-
+    where = "full_kg" if label.startswith("full_kg") else "main_path"
     rows = []
     for d in (64, 128):
-        tables = [torch.randn(psg.n_loc + 1, d, device=dev,
-                              generator=gen).to(dtype) for _ in range(n)]
-        sends = [tables[i][serve[i]] for i in range(n)]
-        name = f"main_path/n{n}/P{p}/D{d}"
-        check(name, sends)
-        flat = sum(t.numel() for t in sends)
-        src = torch.randn(flat, device=dev, generator=gen).to(dtype)
-        dst = torch.empty_like(src)
-        row = dict(shape=name, n=n, p=p, d=d, **time_calls({
-            "kernel": lambda: halo.launch(sends),
-            "plain": lambda: halo.halo_exchange_plain(sends),
-            "library": lambda: dst.copy_(src)}),
-            max_abs_err=0, **bound_fields(b4_bound(sends)))
+        row = b4_shape_row(f"{where}/n{n}/P{p}/D{d}",
+                           b4_sends(psg, d, dtype, gen, dev), n=n, p=p, d=d)
         rows.append(row)
         emit(f"{label}_shape", **row)
+    if not cases:
+        return rows
 
     def sends_of(n_, p_, d_, offset=0):
         out = []
@@ -2078,19 +2147,25 @@ def phase_kernel_b4(psg, dev, dtype=None):
             out.append(buf[offset:].view(n_, p_, d_))
         return out
 
-    cases = {"n2": sends_of(2, 7736, 64), "n8": sends_of(8, 3872, 128),
+    elt = torch.empty((), dtype=dtype).element_size()
+    cases = {"n1": sends_of(1, 7736, 64), "n2": sends_of(2, 7736, 64),
+             "n3": sends_of(3, 1001, 24), "n8": sends_of(8, 3872, 128),
              "p1": sends_of(4, 1, 64), "d8": sends_of(4, 7736, 8),
              "odd_d": sends_of(4, 999, 37),
+             "odd_d_whole_units": sends_of(4, 16, 37),
+             "pair_not_tile_multiple": sends_of(4, 2500, 64),
+             "past_l2_odd_pair": sends_of(4, 20001, 128),
              "unaligned_views": sends_of(4, 7736, 64, offset=1),
+             "offset_4_bytes": sends_of(4, 7736, 64, offset=4 // elt),
              "unaligned_odd": sends_of(3, 5, 3, offset=1)}
-    wide = 16 // torch.empty((), dtype=dtype).element_size()
     for name, sends in cases.items():
-        check(name, sends)
-        aligned = all(t.data_ptr() % 16 == 0 for t in sends)
+        b4_equal(f"{label}/{name}", sends)
+        _, p_, d_ = sends[0].shape
+        vec = halo.vec_width(p_, d_, elt, [t.data_ptr() for t in sends])
         emit(f"{label}_case", case=name, n=len(sends),
-             shape=list(sends[0].shape),
-             vec=wide if sends[0].shape[2] % wide == 0 and aligned else 1,
-             max_abs_err=0)
+             shape=list(sends[0].shape), vec=vec,
+             path="vector" if vec > 1 else "element", max_abs_err=0,
+             twice_equal=True)
     return rows
 
 
@@ -5275,6 +5350,8 @@ def main():
              real_halo_edges=int((psg3.dst_halo < psg3.n_loc).sum()),
              launches_per_step=node_launches(psg3),
              launches_per_step_kept_partials=node_launches(psg3_kept))
+        kg_b4_rows = phase_kernel_b4(psg3, dev, label="full_kg_kernel_b4",
+                                     cases=False)
         kg_ngrad_err = phase_node_grad(g3, psg3, cfg3, edges3, dev,
                                        label="full_kg_node_grad")
         kg_node = {}
@@ -5564,6 +5641,12 @@ def main():
         "bound_ms": total(b4_rows, "bound_us") / 1e3,
         "bound_by": bound_by(b4_rows),
         "library_ms": total(b4_rows, "library_ms"),
+        "shapes": {f"{r['shape']}/{r['dtype']}": {k: r[k] for k in (
+            "n", "p", "d", "kernel_ms", "kernel_cold_ms", "kernel_call_ms",
+            "plain_ms", "library_ms", "library_cold_ms", "library_call_ms",
+            "bound_us", "bound_by", "vs_library", "vs_library_cold",
+            "bound_share", "l2_warm")}
+            for r in (*b4_rows, *b4_16_rows, *kg_b4_rows)},
         "bf16": {
             "ms": total(b4_16_rows, "kernel_ms"),
             "call_ms": total(b4_16_rows, "kernel_call_ms"),
@@ -5583,7 +5666,12 @@ def main():
                "and library_ms sum its two launches (D = 64 and 128); a "
                "training step runs each twice (forward, backward); "
                "library_ms is one copy_ of the same bytes; launches is the "
-               "node_train count. " % (b4_rows[0]["n"], b4_rows[0]["p"])
+               "node_train count; shapes gives every timed shape (the "
+               "bench.py graph's at float32 and bf16, config 3's at "
+               "float32), *_cold_ms with 128 MB written between calls, "
+               "vs_library = kernel_ms / library_ms, bound_share = bound / "
+               "the HBM time (kernel_cold_ms where l2_warm: the sends fit "
+               "the card's L2, else kernel_ms). " % (b4_rows[0]["n"], b4_rows[0]["p"])
                + TIMES}]}),
         flush=True)
     print(card, flush=True)

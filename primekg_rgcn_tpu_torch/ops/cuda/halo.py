@@ -13,8 +13,9 @@ is the counterpart of ``pallas_halo_exchange`` in
 ``_halo_kernel``, with the semantics of a tiled ``lax.all_to_all`` over the
 mesh axis. One process drives every shard and the shards' tensors all lie
 on the mesh's one device, so the exchange is one launch over the n * n
-pairs (``csrc/halo_exchange.cu``; its header comment gives the design and
-what bounds it on the H100: memory bytes). It is built with ``nvcc`` for
+pairs (``csrc/halo_exchange.cu``; its header comment gives the design, the
+redesigns measured against it, and what bounds it on the H100: memory
+bytes). It is built with ``nvcc`` for
 ``sm_90a`` at first use into ``primekg_rgcn_tpu_torch/_build/`` and bound
 through ``ctypes`` (``ops/cuda/build.py``).
 
@@ -27,6 +28,8 @@ backward launches the kernel too.
 from __future__ import annotations
 
 import ctypes
+import functools
+import operator
 from typing import List, Sequence, Tuple
 
 import torch
@@ -48,7 +51,7 @@ def halo_schedule(n: int) -> List[Tuple[str, int]]:
     """The TPU kernel's event order for an ``n``-shard exchange:
     ``[("start", 0), ..., ("start", n-2), ("local_copy", -1), ("wait", 0),
     ..., ("wait", n-2)]``. Transfer i of shard s goes to peer
-    ``(s + 1 + i) % n``; the CUDA kernel issues its blocks in this order
+    ``(s + 1 + i) % n``; the CUDA kernel's work list follows this order
     (:func:`step_offsets`)."""
     events: List[Tuple[str, int]] = [("start", i) for i in range(n - 1)]
     events.append(("local_copy", -1))
@@ -57,10 +60,11 @@ def halo_schedule(n: int) -> List[Tuple[str, int]]:
 
 
 def step_offsets(n: int) -> List[int]:
-    """The kernel's grid steps from ``halo_schedule(n)``'s copy events: at
-    step i (``blockIdx.z``) shard s copies its block for peer
-    ``(s + offsets[i]) % n``: ``1 + i`` for ("start", i), 0 for the local
-    copy. Waits have no step: the kernel's end completes every pair."""
+    """The kernel's copy steps from ``halo_schedule(n)``'s copy events: at
+    step i shard s copies its block for peer ``(s + offsets[i]) % n``:
+    ``1 + i`` for ("start", i), 0 for the local copy. Pair k of the
+    kernel's work list is step ``k // n`` of shard ``k % n``. Waits have no
+    step: the kernel's end completes every pair."""
     return [1 + i if kind == "start" else 0
             for kind, i in halo_schedule(n) if kind != "wait"]
 
@@ -69,17 +73,17 @@ def _check(sends: Sequence[torch.Tensor]) -> None:
     n = len(sends)
     if not 1 <= n <= MAX_SHARDS:
         raise ValueError(f"need 1 to {MAX_SHARDS} shards, got {n}")
-    shape, dtype = tuple(sends[0].shape), sends[0].dtype
+    shape, dtype, device = sends[0].shape, sends[0].dtype, sends[0].device
     for s in sends:
         if s.dtype not in PAYLOAD_DTYPES or s.dim() != 3 or s.shape[0] != n:
             raise ValueError(f"each send must be float32 or bfloat16 "
                              f"[{n}, P, D], got {s.dtype} {tuple(s.shape)}")
         if s.dtype != dtype:
             raise ValueError(f"sends differ in dtype: {s.dtype} vs {dtype}")
-        if tuple(s.shape) != shape:
+        if s.shape != shape:
             raise ValueError(f"sends differ in shape: {tuple(s.shape)} vs "
-                             f"{shape}")
-        if s.device != sends[0].device:
+                             f"{tuple(shape)}")
+        if s.device != device:
             raise ValueError("every send must lie on the mesh's one device")
         if not s.is_contiguous():
             raise ValueError("sends must be contiguous")
@@ -116,25 +120,42 @@ def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return launch(sends)
 
 
+def vec_width(p: int, d: int, element_size: int, ptrs: Sequence[int]) -> int:
+    """The kernel's vector for a [n, P, D] exchange, in elements:
+    ``16 // element_size`` (16-byte vectors) when a pair's P * D elements
+    are whole 16-byte units and every pointer is 16-byte aligned, else 1
+    (one element a thread). Decided by shape and alignment before the
+    launch."""
+    wide = 16 // element_size
+    return wide if (p * d) % wide == 0 and not functools.reduce(
+        operator.or_, ptrs) & 15 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets(n: int):
+    """``step_offsets(n)`` as the C array the entry reads, built once per
+    n (the entry never writes it)."""
+    return (ctypes.c_int * n)(*step_offsets(n))
+
+
 def launch(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Launch the kernel on CUDA tensors that ``halo_exchange`` has
     checked, the entry of their dtype; counts the launch (and a bf16 one).
-    16-byte vectors where D is a multiple of them and every pointer is
-    16-byte aligned, else one element a thread."""
-    n, p, d = sends[0].shape
-    recvs = [torch.empty_like(sends[0]) for _ in range(n)]
+    16-byte vectors where ``vec_width`` allows them, else one element a
+    thread."""
+    s0 = sends[0]
+    n, p, d = s0.shape
+    recvs = [torch.empty_like(s0) for _ in range(n)]
     if p * d == 0:
         return recvs
     ptrs = [s.data_ptr() for s in sends] + [r.data_ptr() for r in recvs]
-    wide = 16 // sends[0].element_size()
-    vec = wide if d % wide == 0 and all(q % 16 == 0 for q in ptrs) else 1
     table = ctypes.c_uint64 * n
-    bf16 = sends[0].dtype == torch.bfloat16
+    bf16 = s0.dtype == torch.bfloat16
     lib = LIBRARY.load()
     entry = lib.halo_exchange_bf16 if bf16 else lib.halo_exchange_f32
     rc = call_on_stream(
-        entry, sends[0].get_device(), table(*ptrs[:n]), table(*ptrs[n:]),
-        (ctypes.c_int * n)(*step_offsets(n)), n, p, d, vec)
+        entry, s0.get_device(), table(*ptrs[:n]), table(*ptrs[n:]),
+        _offsets(n), n, p, d, vec_width(p, d, s0.element_size(), ptrs))
     check_rc(rc, "halo_exchange")
     halo_exchange.launches += 1
     halo_exchange.launches_bf16 += bf16

@@ -4,7 +4,7 @@ main paths give it, beside the row gather and, optionally, other B3
 sources.
 
     python3 scripts/port_time_b3.py [--config5] [--old OLD.cu ...]
-        [--cold] [--host] [--b4]
+        [--cold] [--host]
 
 Run from the repository's root on a machine with one CUDA card. It records
 B3's real window streams, as ``chip_smoke.py`` makes them (its helpers are
@@ -34,11 +34,9 @@ other sources first, then the current one, then the other way round
 before each call). ``--host`` times the host work of each piece of the
 wrapper over 1,000 calls at the four block and block4 shapes of the
 ``bench.py`` graph, the launch path before ``call_on_stream`` beside it,
-and ``call_ms`` of the kernel and the row gather. ``--b4`` times kernel
-B4 against ``copy_`` at its two main-path shapes (the 4-shard node
-partition of the ``bench.py`` graph, D 64 and 128) in 11 interleaved
-rounds. One JSON line per stream (and per host shape and B4 shape), then
-the card's name and power limit.
+and ``call_ms`` of the kernel and the row gather (kernel B4's rounds
+against ``copy_`` are ``scripts/port_time_b4.py``). One JSON line per
+stream (and per host shape), then the card's name and power limit.
 """
 
 import argparse
@@ -47,7 +45,6 @@ import importlib.util
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -189,53 +186,6 @@ def host_pieces(smoke, name, packed, starts, width):
                 / call_ms["library_call_ms"])
 
 
-def b4_rounds(smoke, graph, dev, rounds=11):
-    """Kernel B4 against ``copy_`` of the same bytes at its two main-path
-    shapes, ``rounds`` rounds of ``time_calls``, the order of the two
-    turned each round: each one's median, least and largest device ms."""
-    import torch
-
-    from primekg_rgcn_tpu_torch.ops.cuda import halo
-    from primekg_rgcn_tpu_torch.parallel.node_shard import partition_nodes
-
-    psg = partition_nodes(graph, smoke.N_SHARDS)
-    gen = torch.Generator(dev).manual_seed(6)
-    serve = psg.serve.to(dev).long()
-    n, p = psg.n_devices, psg.halo_width
-    out = []
-    for d in (64, 128):
-        tables = [torch.randn(psg.n_loc + 1, d, device=dev, generator=gen)
-                  for _ in range(n)]
-        sends = [tables[i][serve[i]] for i in range(n)]
-        for g, w in zip(halo.halo_exchange(sends),
-                        halo.halo_exchange_plain(sends)):
-            if not torch.equal(g, w):
-                raise AssertionError(f"b4/D{d}: kernel and plain differ")
-        flat = sum(t.numel() for t in sends)
-        src = torch.randn(flat, device=dev, generator=gen)
-        dst = torch.empty_like(src)
-        fns = {"kernel": lambda: halo.launch(sends),
-               "library": lambda: dst.copy_(src)}
-        seen = {"kernel": [], "library": []}
-        for r in range(rounds):
-            order = list(fns) if r % 2 == 0 else list(fns)[::-1]
-            t = smoke.time_calls({k: fns[k] for k in order})
-            for k in seen:
-                seen[k].append(t[f"{k}_ms"])
-        ratio = [a / b for a, b in zip(seen["kernel"], seen["library"])]
-        row = dict(shape=f"main_path/n{n}/P{p}/D{d}", rounds=rounds,
-                   **{f"{k}_ms_{stat}": f(v) for k, v in seen.items()
-                      for stat, f in (("median", statistics.median),
-                                      ("min", min), ("max", max))},
-                   kernel_over_library_median=statistics.median(ratio),
-                   kernel_over_library_min=min(ratio),
-                   kernel_over_library_max=max(ratio),
-                   kernel_ms=seen["kernel"], library_ms=seen["library"],
-                   **smoke.bound_fields(smoke.b4_bound(sends)))
-        out.append(row)
-    return out
-
-
 def main(argv=None):
     import torch
 
@@ -244,7 +194,6 @@ def main(argv=None):
     ap.add_argument("--old", nargs="+", default=[])
     ap.add_argument("--cold", action="store_true")
     ap.add_argument("--host", action="store_true")
-    ap.add_argument("--b4", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("port_time_b3.py needs a CUDA card", file=sys.stderr)
@@ -256,14 +205,13 @@ def main(argv=None):
     spec.loader.exec_module(smoke)
 
     from primekg_rgcn_tpu_torch.config import ModelConfig
-    from primekg_rgcn_tpu_torch.ops.cuda import halo
     from primekg_rgcn_tpu_torch.ops.cuda import window_fetch as pwf
 
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    libs = [pwf.LIBRARY, *([halo.LIBRARY] if args.b4 else [])]
+    libs = [pwf.LIBRARY]
     others = {}  # the other sources' launchers, by their directory's name
     for source in args.old:
         lib, others[Path(source).resolve().parent.name] = other_kernel(source)
@@ -283,9 +231,6 @@ def main(argv=None):
             print(json.dumps({"host": True, **host_pieces(
                 smoke, name, packed, starts, width), "card": smi}),
                 flush=True)
-    if args.b4:
-        for row in b4_rounds(smoke, graph, dev):
-            print(json.dumps({"b4": True, **row, "card": smi}), flush=True)
     if args.config5:
         ccsr, edges5 = smoke.phase_rmat10m_graph(dev)
         cfg5 = ModelConfig(num_nodes=smoke.RMAT10M[0],

@@ -186,7 +186,8 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    profile; the restricted and the full final layer alone; B2 on the
    restricted layer's segment-sum stream beside ``index_add_``.
    full_kg_trainer: ``Trainer`` for one epoch (45 steps of 1,024,
-   validation, checkpoints; 1 B2 a step), losses finite. full_kg_sampled:
+   validation, checkpoints; graphed: its launches counted in a profile
+   of the epoch, and those of its Python runs), losses finite. full_kg_sampled:
    config 4, the block-mode step over the slim CSR: gradients through B2
    and B3 against their plain versions (``full_kg_sampled_grad``, fat and
    slim CSR), B2 on the step's identity and dedup streams
@@ -235,6 +236,35 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    3 warm-up and 15 timed steps each (2 B2 a step, 2 B3 in block modes),
    peak memory, a profile, ``step_twice_equal``; rmat10m_cache: the
    cached step from a cold cache, the same figures and the cache's MB.
+27d. the device-resident epochs (``train/graphs.py``, the port's
+   ``--steps_per_scan``): train_graphed (after train_restricted_on): the
+   ``bench.py`` full-graph epoch of 34 updates as CUDA graphs at K = 1
+   (the default), 4 and 32 against the eager epoch from one state, two
+   epochs each, every parameter, adam state tensor, the epochs' (loss,
+   acc) and the generator's state ``torch.equal``; per K one timed and
+   one profiled epoch (12 B1 an update counted in the trace), peak
+   memory, capture seconds. eval_graphed: the validation epoch as one
+   graph against eager, ``torch.equal`` over three epochs, 6 B1 an epoch
+   in the trace. train_cli_graphed (after train_cli): ``train.cli
+   --steps_per_scan 2 --save_every 1``, through ``check_checkpoints``,
+   then resumed from its epoch-1 checkpoint and from a copy of it with
+   adam's step counts on the host and ``capturable`` off: both equal to
+   the uninterrupted run bit for bit. sampled_train_graphed (after
+   sampled_train): the block/slim epoch (``SampledEpoch``, 34 steps) at
+   K = 1, 4, 32 against eager, ``torch.equal``, 2 B2 and 2 B3 a step in
+   the trace. full_kg_train_graphed (after full_kg_trainer): config 3's
+   split restricted update against eager at the grad criterion (SGD, two
+   epochs of 24), one host read an update, the generator equal; the same
+   at four micro-batches an update (full_kg_train_graphed_accum4, one
+   graph each) and with every update overflowing
+   (full_kg_graphed_overflow); the adam
+   update timed and profiled, 60 B1 and 1 B2 an update. rmat10m_cache_
+   graphed (after rmat10m_sampled): config 5's cached epoch graphed
+   against eager, ``torch.equal``, 2 B2 a step in the trace. The
+   ``train``, ``sampled_train`` and ``node_train`` phases assert
+   ``step_twice_equal``; the restricted steps print it. A wrapper's
+   launch counter counts a graphed body at its warm-up and its capture,
+   not at a replay: the graphed phases count kernels in their traces.
 28. the kernel summary line, then the card line, then the result line.
 
 bf16 compute (``compute_dtype="bfloat16"``, full width) adds, each beside
@@ -978,10 +1008,23 @@ def phase_train(graph, cfg, edges, dev, tmp, steps=50, label=None,
     last_loss = float(last[0] / last[2])
     if not (np.isfinite(first_loss) and np.isfinite(last_loss)):
         raise AssertionError(f"non-finite loss {first_loss}, {last_loss}")
+    # One step twice from one state: the same bits? Asserted for the full
+    # final layer; the restricted one's gradient sums with index_add_
+    # (GatherGroupSum.backward), not bit-deterministic on the card, so
+    # its answer is printed.
+    twice = step_twice_equal(
+        lambda p, o, bi, g: loop.train_step(p, o, graph, edges_pad, bi, cfg,
+                                            tcfg, generator=g,
+                                            final_plan=final_plan),
+        params, opt, torch.from_numpy(rng.integers(
+            0, graph.num_edges, b)).to(dev).view(1, b), dev)
+    if final_plan is None and not twice:
+        raise AssertionError(f"{label}: one step twice from one state gave "
+                             f"other bits")
     figures = dict(step_ms=step_ms, train_edges_per_s=b / step_ms * 1e3,
                    launches=launches, launches_per_step=launches / steps,
                    b2_launches=counts["B2"], fallbacks=fallbacks,
-                   peak_memory_mb=peak_mb)
+                   peak_memory_mb=peak_mb, step_twice_equal=twice)
     emit(label, steps=steps, batch_size=b, train_edges=graph.num_edges,
          step_ms_pageable_batch_copy=pageable_ms, first_loss=first_loss,
          last_loss=last_loss, restricted_final_layer=final_plan is not None,
@@ -1844,13 +1887,20 @@ def phase_sampled_train(graph, cfg, edges, dev, tmp, steps=30,
             raise AssertionError(f"{name}: launches {counts}, expected {want}")
         if bf16:
             only_bf16(f"{label}/{name}", counts, read_bf16_counts())
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        twice = step_twice_equal(step, params, opt, edges_dev[
+            torch.from_numpy(rng.integers(0, edges.shape[0],
+                                          tcfg.batch_size)).to(dev)], dev)
+        if not twice:
+            raise AssertionError(f"{label}/{name}: one step twice from one "
+                                 f"state gave other bits")
         results[name] = dict(
             step_ms=step_ms, train_edges_per_s=tcfg.batch_size / step_ms * 1e3,
             launches=counts,
             launches_per_step={k: v / steps for k, v in counts.items()},
-            peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
-            budgets=list(step.budgets), first_loss=first_loss,
-            last_loss=last_loss)
+            peak_memory_mb=peak_mb, budgets=list(step.budgets),
+            first_loss=first_loss, last_loss=last_loss,
+            step_twice_equal=twice)
         emit(label, config=name, steps=steps,
              batch_size=tcfg.batch_size, **results[name])
         if name == "block/slim":
@@ -1900,11 +1950,12 @@ def phase_sampled_cli(tmp):
         out = tmp / f"sampled_cli_{name}"
         reset_counts()
         t0 = time.perf_counter()
-        result = train_cli.main([*base, *extra, "--output_dir", str(out)])
+        with trainer_states() as states:
+            result = train_cli.main([*base, *extra, "--output_dir", str(out)])
         seconds = time.perf_counter() - t0
         launches[name] = read_counts()
         hist = result["history"]
-        problems = []
+        problems = check_checkpoints(out, states)
         if not np.all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
             problems.append(f"losses {hist}")
         for f in ("best_model.pt", "final_model.pt"):
@@ -2342,6 +2393,9 @@ def phase_node_train(psg, cfg, edges, dev, tmp, steps=30, label=None):
         0, edges.shape[0], tcfg.batch_size)).to(dev))
     result["step_twice_equal"] = step_twice_equal(step, params, opt, batch,
                                                   dev)
+    if not result["step_twice_equal"]:
+        raise AssertionError(f"{label}: one step twice from one state gave "
+                             f"other bits")
     with take_index_add():
         result["step_twice_equal_index_add"] = step_twice_equal(
             step, params, opt, batch, dev)
@@ -4378,9 +4432,13 @@ def phase_full_kg_trainer(graph, edges, dev, tmp):
     """``Trainer`` for one epoch on the config-3 graph: 46,080 training
     edges (45 steps of 1,024), 4,096 validation edges, ``restrict_final=
     "auto"`` (which must resolve to a plan), validation and best, periodic
-    and final checkpoints; B1 launches 2R a step (2R more per fallback) and
-    2R for the validation encode, B2 one a step that took the restricted
-    layer's fast path; every loss finite. Returns the counts."""
+    and final checkpoints; the epoch runs as CUDA graphs under the
+    profiler, which counts B1 2R an update (2R more per fallback) and 2R
+    for the validation encode, B2 one an update that took the restricted
+    layer; the wrappers count the Python runs only: 2R B1 and 1 B2 each
+    for the restricted branch's warm-up and capture, 4R B1 each for the
+    full one's (when a batch overflows), 2R B1 for the validation's
+    warm-up encode; every loss finite. Returns the profile's counts."""
     import numpy as np
 
     from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
@@ -4403,16 +4461,34 @@ def phase_full_kg_trainer(graph, edges, dev, tmp):
     if trainer.final_plan is None:
         raise AssertionError("full_kg_trainer: restrict_final='auto' did not "
                              "resolve to a plan")
-    result = trainer.train()
+    result = {}
+    kernels, _, _ = profiled(lambda: result.update(trainer.train()),
+                             tmp / "full_kg_trainer_profile")
     seconds = time.perf_counter() - t0
     counts = read_counts()
     fallbacks = pfl.final_layer_restricted.fallbacks - fallbacks
     steps = 45
+    # Every update's kernels run once, at its warm-up or at a replay: 2R B1
+    # and 1 B2 an update through the restricted layer, 4R B1 a fallback,
+    # 2R B1 for the validation encode, as the eager epoch launched them.
     want = {"B1": 2 * r * (steps + fallbacks + 1), "B2": steps - fallbacks,
             "B3": 0, "B4": 0}
-    if counts != want:
+    if kernels != want:
+        raise AssertionError(f"full_kg_trainer: kernels in the profile "
+                             f"{kernels}, expected {want} ({fallbacks} "
+                             f"fallbacks); {profiled.last_span}")
+    # The epoch runs as CUDA graphs: a wrapper counts its launches when its
+    # Python runs, at a body's eager warm-up and at its capture, not at a
+    # replay. Each branch of the restricted layer runs its Python twice at
+    # most (2R B1 and 1 B2 the restricted one, 4R B1 the full one), the
+    # validation epoch once (its warm-up: one encode, 2R).
+    fast_py, full_py = min(steps - fallbacks, 2), min(fallbacks, 2)
+    want_py = {"B1": 2 * r * fast_py + 4 * r * full_py + 2 * r,
+               "B2": fast_py, "B3": 0, "B4": 0}
+    if counts != want_py or trainer.graphs.replays < steps - 4:
         raise AssertionError(f"full_kg_trainer: launches {counts}, expected "
-                             f"{want} ({fallbacks} fallbacks)")
+                             f"{want_py} ({fallbacks} fallbacks), "
+                             f"{trainer.graphs.replays} replays")
     hist = result["history"]
     losses = hist["train_losses"] + hist["val_losses"]
     if len(hist["train_losses"]) != 1 or not np.all(np.isfinite(losses)):
@@ -4424,12 +4500,15 @@ def phase_full_kg_trainer(graph, edges, dev, tmp):
         raise AssertionError(f"full_kg_trainer: missing {missing}")
     emit("full_kg_trainer", train_edges=len(train_edges),
          val_edges=len(val_edges), steps=steps, fallbacks=fallbacks,
-         launches=counts, train_loss=hist["train_losses"][0],
+         launches=kernels, launches_in_python=counts,
+         replays=trainer.graphs.replays,
+         captures=trainer.graphs.captures,
+         train_loss=hist["train_losses"][0],
          val_loss=hist["val_losses"][0], epoch_s=result["epoch_times_s"][0],
          setup_s=setup_s, seconds=seconds,
          train_edges_per_s=len(train_edges) / result["epoch_times_s"][0],
          e_cap_sum=sum(trainer.final_plan.e_cap), checkpoints=list(files))
-    return counts
+    return kernels
 
 
 # -- the combined reductions, the layer-1 cache and BASELINE config 5 ---------
@@ -4839,6 +4918,618 @@ def phase_rmat10m_sampled(ccsr, cfg, edges, dev, tmp, steps=15):
     return results
 
 
+# -- device-resident epochs: the trainers' CUDA graphs ------------------------
+
+KERNEL_NAMES = {"B1": "gather_segment_sum_kernel",
+                "B2": "dense_segment_sum_kernel",
+                "B3": "window_rows_fetch_kernel",
+                "B4": "halo_exchange_kernel"}
+
+
+def profiled(fn, prof_dir):
+    """``fn()`` under ``torch.profiler``: (kernel launches by id counted in
+    its trace, the trace's breakdown (``trace_breakdown``), host ms). The
+    graphed phases count launches here: a wrapper's counter counts once
+    per capture, not per replay."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.utils.telemetry import (profile_trace,
+                                                        trace_breakdown)
+
+    torch.cuda.synchronize()
+    with profile_trace(prof_dir):
+        # Device work that is not counted, and a sync, before fn: the
+        # tracer may miss kernels launched just after it starts.
+        settle = torch.zeros(1, device="cuda")
+        for _ in range(3):
+            settle.add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    path = prof_dir / "trace.json"
+    kernels = sorted((e["ts"], e["name"])
+                     for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "kernel")
+    counts = {k: sum(kernel in name for _, name in kernels)
+              for k, kernel in KERNEL_NAMES.items()}
+    # Where each kernel's launches sit in the trace (count, first and last
+    # as ms after its first kernel, and its last kernel's), for a caller
+    # whose counts disagree to print.
+    first, last = (kernels[0][0], kernels[-1][0]) if kernels else (0, 0)
+    profiled.last_span = {"kernels": len(kernels),
+                          "window_ms": (last - first) / 1e3}
+    for k, kernel in KERNEL_NAMES.items():
+        ts = [t for t, name in kernels if kernel in name]
+        if ts:
+            profiled.last_span[k] = (len(ts), (ts[0] - first) / 1e3,
+                                     (ts[-1] - first) / 1e3)
+    return counts, trace_breakdown(path), ms
+
+
+def flat_tensors(obj, prefix=""):
+    """(name, tensor) of every tensor in nested dicts, lists and tuples."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        yield prefix, obj
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from flat_tensors(v, f"{prefix}/{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from flat_tensors(v, f"{prefix}/{i}")
+
+
+def run_state(params, opt, gen, **extra):
+    """Copies of every parameter, optimizer-state tensor and of the
+    generator's state, by name (``extra``: more tensors)."""
+    state = {f"params/{k}": v.detach().clone()
+             for k, v in named_leaves(params)}
+    state.update((f"opt{k}", v.detach().clone())
+                 for k, v in flat_tensors(opt.state_dict()))
+    state["generator"] = gen.get_state()
+    state.update((k, v.detach().clone()) for k, v in extra.items())
+    return state
+
+
+def differing(want, got):
+    """The names whose tensors are not ``torch.equal``."""
+    import torch
+
+    return [k for k in want if not torch.equal(want[k], got[k])]
+
+
+def graphed_timing(label, run, steps, tmp, want=None, profile=True):
+    """One timed epoch of ``run`` (a callable, its graphs captured) on the
+    host clock with its peak memory, then, with ``profile``, one under the
+    profiler: its kernel launches counted in the trace (held against
+    ``want``, or against ``want(fallbacks)`` with the restricted layer's
+    fallbacks in that epoch), device busy ms a step and the idle share.
+    Returns the figures."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    fig = dict(step_ms=step_ms,
+               peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+    if not profile:
+        return fig
+    fallbacks = pfl.final_layer_restricted.fallbacks
+    counts, bd, prof_ms = profiled(run, tmp / f"{label}_profile")
+    fallbacks = pfl.final_layer_restricted.fallbacks - fallbacks
+    per_step = {k: v / steps for k, v in counts.items()}
+    if callable(want):
+        want = want(fallbacks)
+        fig["profiled_fallbacks"] = fallbacks
+    if want is not None and counts != want:
+        raise AssertionError(f"{label}: kernels in the profile {counts}, "
+                             f"expected {want}; {profiled.last_span}")
+    fig["launches_per_step_from_profile"] = per_step
+    if bd is None:
+        fig.update(device_events=0, idle_share="not measured")
+    else:
+        busy_ms = bd["busy_us"] / steps / 1e3
+        fig.update(device_busy_ms_per_step=busy_ms,
+                   idle_share=bd["idle_share"],
+                   idle_share_two_windows=1.0 - busy_ms / step_ms,
+                   step_ms_under_profiler=prof_ms / steps,
+                   top_kernels_us=bd["top_kernels_us"])
+    return fig
+
+
+def graph_figures(graphs):
+    return dict(captures=graphs.captures, replays=graphs.replays,
+                warmups=graphs.warmups, capture_s=graphs.capture_s)
+
+
+def phase_train_graphed(graph, cfg, edges, dev, tmp, updates=34):
+    """The full-graph epoch (``train/loop.build_train_epoch``) on the
+    ``bench.py`` graph at full width, ``updates`` updates of 1,024 (adam,
+    clip 1.0, dropout 0.5), as CUDA graphs (``train/graphs.StepGraphs``) at
+    K = 1 (the default), 4 and 32 (34 = 8 x 4 + 2 and 32 + 2, a
+    remainder each) against the same epochs run eagerly from one state: two
+    epochs each (the first warms up and captures), then every parameter,
+    adam state tensor, the epochs' (loss, acc) and the generator's state
+    ``torch.equal``. Then per K one timed epoch and one profiled (12 B1 an
+    update, counted in the trace), with peak memory and capture seconds;
+    the eager epoch timed the same way. Only the default K and the eager
+    epoch are profiled. Returns the figures."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.train import graphs as pgraphs
+    from primekg_rgcn_tpu_torch.train import loop
+
+    b = 1024
+    pick = np.random.default_rng(3).permutation(edges.shape[0])
+    train_edges = edges[pick[:updates * b]]
+
+    def build(k, graphed):
+        tcfg = TrainConfig(batch_size=b, steps_per_scan=k)
+        params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                                  device=dev)
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        opt = loop.make_optimizer(tcfg, params)
+        host, gen = (torch.Generator().manual_seed(1),
+                     torch.Generator(dev).manual_seed(2))
+        graphs = pgraphs.StepGraphs(dev, gen) if graphed else None
+        fn = loop.build_train_epoch(graph, train_edges, cfg, tcfg, params,
+                                    opt, graphs=graphs)
+        if fn.final_plan is not None:
+            raise AssertionError("train_graphed: the bench.py graph resolved "
+                                 "to the restricted final layer")
+        return params, opt, gen, graphs, lambda: torch.stack(fn(host, gen))
+
+    def two_epochs(run):
+        params, opt, gen, _, epoch = run
+        stats = torch.stack([epoch() for _ in range(2)])
+        return run_state(params, opt, gen, stats=stats)
+
+    eager = build(0, False)
+    want = two_epochs(eager)
+    results = {"eager": graphed_timing("train_graphed_eager", eager[4],
+                                       updates, tmp,
+                                       {"B1": 12 * updates, "B2": 0, "B3": 0,
+                                        "B4": 0})}
+    del eager
+    for k in (1, 4, 32):
+        run = build(k, True)
+        t0 = time.perf_counter()
+        got = two_epochs(run)
+        first_s = time.perf_counter() - t0
+        bad = differing(want, got)
+        if bad:
+            raise AssertionError(f"train_graphed K={k}: the graphed epochs "
+                                 f"differ from the eager ones in {bad}")
+        results[f"k{k}"] = dict(
+            graphed_timing(f"train_graphed_k{k}", run[4], updates, tmp,
+                           {"B1": 12 * updates, "B2": 0, "B3": 0, "B4": 0},
+                           profile=k == pgraphs.DEFAULT_STEPS_PER_GRAPH),
+            first_two_epochs_s=first_s, **graph_figures(run[3]))
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    default = pgraphs.DEFAULT_STEPS_PER_GRAPH
+    emit("train_graphed", updates_per_epoch=updates, batch_size=b,
+         default_k=default, equal_to_eager=True,
+         step_ms={k: v["step_ms"] for k, v in results.items()},
+         device_busy_ms_per_step={k: v.get("device_busy_ms_per_step")
+                                  for k, v in results.items()}, **results)
+    results["default"] = results[f"k{default}"]
+    return results
+
+
+def phase_eval_graphed(graph, cfg, edges, dev, tmp, batches=16):
+    """The validation epoch (``train/loop.build_eval_epoch``: one encode,
+    then ``batches`` batches of 1,024 with their negatives, the last one
+    partial) as one CUDA graph against the same epoch run eagerly: three
+    epochs each from one generator state (warm-up, capture, replay), their
+    (loss, acc) and the generator's state ``torch.equal``; then 5 timed
+    epochs each and a profiled one (6 B1 an epoch). Returns the
+    figures."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.train import graphs as pgraphs
+    from primekg_rgcn_tpu_torch.train import loop
+
+    pick = np.random.default_rng(4).permutation(edges.shape[0])
+    val_edges = edges[pick[:batches * 1024 - 100]]
+    params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    tcfg = TrainConfig(batch_size=1024)
+    runs = {}
+    for name in ("eager", "graphed"):
+        gen = torch.Generator(dev).manual_seed(5)
+        graphs = pgraphs.StepGraphs(dev, gen) if name == "graphed" else None
+        fn = loop.build_eval_epoch(graph, val_edges, cfg, tcfg, graphs=graphs)
+        epoch = (lambda fn=fn, gen=gen: torch.stack(fn(params, gen)))
+        stats = torch.stack([epoch() for _ in range(3)])
+        runs[name] = (epoch, graphs, {"stats": stats,
+                                      "generator": gen.get_state()})
+    bad = differing(runs["eager"][2], runs["graphed"][2])
+    if bad:
+        raise AssertionError(f"eval_graphed: graphed differs from eager in "
+                             f"{bad}")
+    figures = {}
+    for name, (epoch, graphs, _) in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            epoch()
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) / 5 * 1e3
+        counts, bd, _ = profiled(epoch, tmp / f"eval_graphed_{name}_profile")
+        want = {"B1": 6, "B2": 0, "B3": 0, "B4": 0}
+        if counts != want:
+            raise AssertionError(f"eval_graphed/{name}: kernels in the "
+                                 f"profile {counts}, expected {want}; "
+                                 f"{profiled.last_span}")
+        figures[name] = dict(epoch_ms=epoch_ms, launches_from_profile=counts)
+        if bd is not None:
+            figures[name].update(device_busy_ms=bd["busy_us"] / 1e3,
+                                 idle_share=bd["idle_share"])
+        if graphs is not None:
+            figures[name].update(graph_figures(graphs))
+    emit("eval_graphed", val_edges=len(val_edges), batches=batches,
+         equal_to_eager=True, **figures)
+    return figures
+
+
+def recording_graphs(dev, gen):
+    """A ``StepGraphs`` that also notes the key of every run (``keys``)."""
+    from primekg_rgcn_tpu_torch.train.graphs import StepGraphs
+
+    class Recording(StepGraphs):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.keys = []
+
+        def run(self, key, body):
+            self.keys.append(key)
+            return super().run(key, body)
+
+    return Recording(dev, gen)
+
+
+def phase_full_kg_train_graphed(graph, edges, dev, tmp, updates=24):
+    """Config 3's epoch (``restrict_final="auto"``, which resolves to a
+    plan), ``updates`` updates of 1,024, graphed against eager. The
+    restricted layer's gradient sums with ``index_add_``, which is not
+    bit-deterministic on the card, so the two are held at the grad
+    criterion (``close_scaled``) with SGD (lr 1e-2, clip 1.0, dropout 0.5)
+    over two epochs: the epochs' (loss, acc), every parameter and the last
+    update's gradient; the generator's state equal, the fallbacks alike,
+    one host read an update (one micro-batch). The same at four
+    micro-batches an update (``full_kg_train_graphed_accum4``: each
+    micro-batch runs its own graph), and with a plan cut to one group a
+    relation (``full_kg_graphed_overflow``: every update takes the full
+    layer through its graph). Then the default adam step, eager
+    and graphed: one timed epoch and one profiled, 60 B1 and 1 B2 an
+    update that took the restricted layer, 120 B1 a fallback. Returns the
+    figures."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
+    from primekg_rgcn_tpu_torch.models import rgcn
+    from primekg_rgcn_tpu_torch.ops import rgcn_final_layer as pfl
+    from primekg_rgcn_tpu_torch.train import loop
+
+    n, r = graph.num_nodes, graph.num_relations
+    cfg = ModelConfig(num_nodes=n, num_relations=r)
+    pick = np.random.default_rng(5).permutation(edges.shape[0])
+    train_edges = edges[pick[:updates * 1024]]
+    resolve = loop.resolve_final_plan
+
+    def cut(plan):
+        g = plan.group
+        return pfl.FinalLayerPlan(
+            plan.rowptr, (g,) * r, g, torch.full_like(plan.cap, g),
+            torch.arange(r, device=plan.cap.device) * g, plan.bucket_start)
+
+    def build(tcfg, graphed, overflow=False):
+        params = rgcn.init_params(torch.Generator().manual_seed(0), cfg,
+                                  device=dev)
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        opt = loop.make_optimizer(tcfg, params)
+        host, gen = (torch.Generator().manual_seed(1),
+                     torch.Generator(dev).manual_seed(2))
+        graphs = recording_graphs(dev, gen) if graphed else None
+        if overflow:
+            loop.resolve_final_plan = lambda *a, **kw: cut(resolve(*a, **kw))
+        try:
+            fn = loop.build_train_epoch(graph, train_edges, cfg, tcfg, params,
+                                        opt, graphs=graphs)
+        finally:
+            loop.resolve_final_plan = resolve
+        if fn.final_plan is None:
+            raise AssertionError("full_kg_train_graphed: no plan")
+        return params, opt, gen, graphs, lambda: torch.stack(fn(host, gen))
+
+    def compare(label, overflow, accum=1):
+        tcfg = TrainConfig(batch_size=1024, optimizer="sgd", lr=1e-2,
+                           gradient_accumulation_steps=accum)
+        n_updates = 2 * (updates // accum)
+        runs = {}
+        for name in ("eager", "graphed"):
+            run = build(tcfg, name == "graphed", overflow)
+            before = pfl.final_layer_restricted.fallbacks
+            stats = torch.stack([run[4]() for _ in range(2)])
+            torch.cuda.synchronize()
+            runs[name] = (run, stats,
+                          pfl.final_layer_restricted.fallbacks - before)
+        (e, e_stats, e_fb), (g, g_stats, g_fb) = (runs["eager"],
+                                                  runs["graphed"])
+        errs = {"stats": close_scaled(g_stats, e_stats, f"{label}/stats")}
+        for (k, a), (_, b) in zip(named_leaves(g[0]), named_leaves(e[0])):
+            errs[k] = close_scaled(a.detach(), b.detach(), f"{label}/{k}")
+            errs[f"{k}/grad"] = close_scaled(a.grad, b.grad,
+                                             f"{label}/{k}/grad")
+        reads = g[3].keys.count(("ranges",))
+        micro = [k[2] for k in g[3].keys if k[0] == "micro"]
+        problems = []
+        if not torch.equal(g[2].get_state(), e[2].get_state()):
+            problems.append("generator states differ")
+        if g_fb != e_fb or (overflow and g_fb != 2 * updates):
+            problems.append(f"fallbacks {g_fb} graphed, {e_fb} eager")
+        if reads != n_updates:
+            problems.append(f"{reads} host reads in {n_updates} updates")
+        if micro != list(range(accum)) * n_updates:
+            problems.append(f"micro-batch graphs run for {micro}")
+        if problems:
+            raise AssertionError(f"{label}: " + "; ".join(problems))
+        fig = dict(max_abs_err=max(errs.values()), fallbacks=g_fb,
+                   host_reads=reads, updates=n_updates, accum=accum,
+                   keys=sorted({str(k) for k in g[3].keys}),
+                   **graph_figures(g[3]))
+        emit(label, criterion="grad (close_scaled)", optimizer="sgd",
+             **fig)
+        return fig
+
+    results = {"compare": compare("full_kg_train_graphed_grad", False),
+               "accum4": compare("full_kg_train_graphed_accum4", False, 4),
+               "overflow": compare("full_kg_graphed_overflow", True)}
+    tcfg = TrainConfig(batch_size=1024)
+    for name in ("eager", "graphed"):
+        run = build(tcfg, name == "graphed")
+        run[4]()
+        results[name] = graphed_timing(
+            f"full_kg_train_graphed_{name}", run[4], updates, tmp,
+            want=lambda f: {"B1": 2 * r * (updates - f) + 4 * r * f,
+                            "B2": updates - f, "B3": 0, "B4": 0})
+        if run[3] is not None:
+            results[name].update(graph_figures(run[3]))
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("full_kg_train_graphed", updates_per_epoch=updates,
+         step_ms={k: results[k]["step_ms"] for k in ("eager", "graphed")},
+         **{k: results[k] for k in ("eager", "graphed")})
+    return results
+
+
+def phase_sampled_train_graphed(graph, cfg, edges, dev, tmp):
+    """The one-device sampled epoch (``train/sampled.SampledEpoch``) on the
+    ``bench.py`` graph, block over the slim pairs CSR, fanouts 15/10,
+    batch 1,024 (adam, clip 1.0), 34 steps an epoch (33 whole batches and
+    one wrapped), graphed at K = 1 (the default: every step one replay), 4
+    and 32 (one chunk of 32, then two steps one at a time): two epochs
+    graphed and eagerly from one state, the epochs' (loss, acc), every
+    parameter, adam state tensor and the generator's state ``torch.equal``
+    at each K. Then one timed epoch each, and one profiled at the default
+    K and eagerly: 2 B2 and 2 B3 a step, counted in the trace. Returns the
+    figures."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.train import graphs as pgraphs
+    from primekg_rgcn_tpu_torch.train.sampled import (SampledEpoch,
+                                                      build_sampled_train_step)
+
+    params0, edges_dev, _, csrs = sampled_setup(graph, cfg, edges, dev)
+    n = 33 * 1024 + 100
+    steps = -(-n // 1024)
+    pick = np.random.default_rng(6).permutation(edges.shape[0])[:n]
+    train_edges = edges_dev[torch.from_numpy(pick).to(dev)]
+
+    def order(epoch):
+        perm = np.random.default_rng(10 + epoch).permutation(n)
+        return np.concatenate([perm, perm[:steps * 1024 - n]])
+
+    def build(k, graphed):
+        tcfg = TrainConfig(batch_size=1024, steps_per_scan=k)
+        params = fresh_params(params0)
+        step = build_sampled_train_step(csrs["slim"], cfg, tcfg,
+                                        fanouts=(15, 10), mode="block",
+                                        device=dev)
+        opt = step.init_optimizer(params)
+        gen = torch.Generator(dev).manual_seed(0)
+        graphs = pgraphs.StepGraphs(dev, gen) if graphed else None
+        epoch = SampledEpoch(step, params, opt, train_edges, gen, tcfg,
+                             graphs=graphs)
+        count = itertools.count()
+        return params, opt, gen, graphs, lambda: epoch(order(next(count)))
+
+    def two_epochs(run):
+        params, opt, gen, _, epoch = run
+        stats = torch.stack([epoch() for _ in range(2)])
+        return run_state(params, opt, gen, stats=stats)
+
+    want = {"B1": 0, "B2": 2 * steps, "B3": 2 * steps, "B4": 0}
+    eager = build(0, False)
+    reference = two_epochs(eager)
+    results = {"eager": graphed_timing("sampled_train_graphed_eager",
+                                       eager[4], steps, tmp, want)}
+    del eager
+    for k in (1, 4, 32):
+        run = build(k, True)
+        bad = differing(reference, two_epochs(run))
+        if bad:
+            raise AssertionError(f"sampled_train_graphed K={k}: graphed "
+                                 f"differs from eager in {bad}")
+        results[f"k{k}"] = dict(
+            graphed_timing(
+                f"sampled_train_graphed_k{k}", run[4], steps, tmp, want,
+                profile=k == pgraphs.DEFAULT_STEPS_PER_GRAPH),
+            **graph_figures(run[3]))
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("sampled_train_graphed", config="block/slim", steps_per_epoch=steps,
+         default_k=pgraphs.DEFAULT_STEPS_PER_GRAPH,
+         equal_to_eager=True,
+         step_ms={k: v["step_ms"] for k, v in results.items()},
+         device_busy_ms_per_step={k: v.get("device_busy_ms_per_step")
+                                  for k, v in results.items()},
+         **results)
+    results["default"] = results[
+        f"k{pgraphs.DEFAULT_STEPS_PER_GRAPH}"]
+    return results
+
+
+def phase_rmat10m_cache_graphed(ccsr, cfg, edges, dev, tmp):
+    """Config 5's cached step (``rmat10m_step(cache=True)``: uniform, cold
+    cache, bf16, sparse SGD) through ``SampledEpoch``, 34 steps an epoch of
+    positives drawn from the 100M edges: two epochs graphed at the default
+    K and eagerly from one state, the epochs' (loss, acc), every parameter,
+    the histories and the generator's state ``torch.equal``; then one timed
+    and one profiled epoch each (2 B2 a step). Returns the figures."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.train import graphs as pgraphs
+    from primekg_rgcn_tpu_torch.train.sampled import SampledEpoch
+
+    step, tcfg = rmat10m_step(ccsr, cfg, dev, cache=True)
+    n = 33 * 1024 + 100
+    steps = -(-n // 1024)
+    rows = np.random.default_rng(7).integers(0, edges.shape[0], n)
+    train_edges = torch.from_numpy(edges[rows].astype(np.int64)).to(dev)
+
+    def order(epoch):
+        perm = np.random.default_rng(20 + epoch).permutation(n)
+        return np.concatenate([perm, perm[:steps * 1024 - n]])
+
+    want = {"B1": 0, "B2": 2 * steps, "B3": 0, "B4": 0}
+    reference, results = None, {}
+    for name in ("eager", "graphed"):
+        params, _ = rmat10m_setup(ccsr, cfg, edges, dev)
+        opt = step.init_optimizer(params)
+        gen = torch.Generator(dev).manual_seed(0)
+        graphs = pgraphs.StepGraphs(dev, gen) if name == "graphed" else None
+        epoch = SampledEpoch(step, params, opt, train_edges, gen, tcfg,
+                             graphs=graphs)
+        count = itertools.count()
+        run = lambda: epoch(order(next(count)))
+        stats = torch.stack([run() for _ in range(2)])
+        got = run_state(params, opt, gen, stats=stats)
+        if reference is None:
+            reference = got
+        else:
+            bad = differing(reference, got)
+            if bad:
+                raise AssertionError(f"rmat10m_cache_graphed: graphed "
+                                     f"differs from eager in {bad}")
+        del got
+        results[name] = graphed_timing(f"rmat10m_cache_graphed_{name}", run,
+                                       steps, tmp, want)
+        if graphs is not None:
+            results[name].update(graph_figures(graphs))
+        del params, opt, epoch, run, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    del reference
+    emit("rmat10m_cache_graphed", steps_per_epoch=steps,
+         default_k=pgraphs.DEFAULT_STEPS_PER_GRAPH,
+         equal_to_eager=True,
+         step_ms={k: v["step_ms"] for k, v in results.items()}, **results)
+    return results
+
+
+def old_adam_checkpoint(src, dst):
+    """A copy of checkpoint ``src`` as a run before capturable adam wrote
+    it: every step count a CPU tensor and ``capturable`` off."""
+    import torch
+
+    payload = torch.load(src, map_location="cpu", weights_only=False)
+    opt = payload["optimizer_state_dict"]
+    for group in opt["param_groups"]:
+        group["capturable"] = False
+    for state in opt["state"].values():
+        state["step"] = torch.tensor(float(state["step"]))
+    torch.save(payload, dst)
+
+
+def phase_train_cli_graphed(tmp):
+    """``train.cli.main --steps_per_scan 2 --save_every 1`` at scale 0.1
+    for 2 epochs, through ``check_checkpoints``, its ``train_config``
+    recording 2; then the run resumed from its epoch-1 checkpoint, and from
+    a copy of it with adam's step counts on the host and ``capturable``
+    off (``old_adam_checkpoint``), each for epoch 2 in a directory of its
+    own: both final models equal the uninterrupted run's bit for bit, and
+    so do the histories."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.train import checkpoint
+    from primekg_rgcn_tpu_torch.train import cli as train_cli
+
+    base = ["--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+            "--seed", "0", "--device", "cuda", "--steps_per_scan", "2",
+            "--save_every", "1"]
+    out = tmp / "train_cli_graphed"
+    reset_counts()
+    t0 = time.perf_counter()
+    with trainer_states() as states:
+        result = train_cli.main([*base, "--output_dir", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    problems = check_checkpoints(out, states)
+    final = checkpoint.load(out / "models" / "final_model.pt")
+    if final["train_config"]["steps_per_scan"] != 2:
+        problems.append(f"train_config {final['train_config']}")
+    epoch1 = out / "checkpoints" / "checkpoint_epoch_1.pt"
+    old = tmp / "checkpoint_epoch_1_old_adam.pt"
+    old_adam_checkpoint(epoch1, old)
+    resumed = {}
+    for name, path in (("resumed", epoch1), ("resumed_old_adam", old)):
+        run = train_cli.main([*base, "--resume", str(path), "--output_dir",
+                              str(tmp / f"train_cli_{name}")])
+        got = checkpoint.load(tmp / f"train_cli_{name}" / "models" /
+                              "final_model.pt")
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            named_leaves(got["params"]), named_leaves(final["params"])))
+        resumed[name] = same and run["history"] == result["history"]
+        if not resumed[name]:
+            problems.append(f"{name}: history {run['history']} against "
+                            f"{result['history']}, parameters equal {same}")
+    if problems:
+        raise AssertionError("train_cli_graphed: " + "; ".join(problems))
+    emit("train_cli_graphed", seconds=seconds, launches_in_python=launches,
+         history=result["history"], epoch_time_s=result["epoch_times_s"],
+         resumed_equal=resumed, async_writes=states["async"])
+    return launches
+
+
 def main():
     import torch
 
@@ -5245,7 +5936,10 @@ def main():
             graph, cfg, edges, dev, Path(tmp), label="train_restricted_on",
             final_plan=bench_plan, launches_per_step=6)
         restricted_b2 = restricted_figures["b2_launches"]
+        train_graphed = phase_train_graphed(graph, cfg, edges, dev, Path(tmp))
+        eval_graphed = phase_eval_graphed(graph, cfg, edges, dev, Path(tmp))
         cli_launches = phase_train_cli(Path(tmp))
+        phase_train_cli_graphed(Path(tmp))
         cli_eval = {"train_cli": eval_cli_after(Path(tmp) / "train_cli",
                                                 "train_cli")}
         cli16_launches = phase_cli_bf16(Path(tmp))
@@ -5257,6 +5951,8 @@ def main():
         sgrad_err = phase_sampled_grad(graph, cfg, edges, dev)
         sampled, main_counts = phase_sampled_train(graph, cfg, edges, dev,
                                                    Path(tmp))
+        sampled_graphed = phase_sampled_train_graphed(graph, cfg, edges, dev,
+                                                      Path(tmp))
         sgrad16_err = phase_sampled_grad(graph, cfg16, edges, dev)
         sampled16, _ = phase_sampled_train(
             graph, cfg16, edges, dev, Path(tmp), configs=("block/slim",))
@@ -5330,6 +6026,7 @@ def main():
         kg_grad_err = phase_full_kg_grad(g3_cpu, g3, edges3, dev)
         kg_train, kg_b2 = phase_full_kg_train(g3, edges3, dev, Path(tmp))
         kg_trainer = phase_full_kg_trainer(g3, edges3, dev, Path(tmp))
+        kg_graphed = phase_full_kg_train_graphed(g3, edges3, dev, Path(tmp))
         kg_sgrad_err = phase_sampled_grad(g3, cfg3, edges3, dev,
                                           label="full_kg_sampled_grad")
         kg_b2_streams = phase_full_kg_b2_streams(g3, cfg3, edges3, dev)
@@ -5392,6 +6089,8 @@ def main():
         r5_err, r5_b2_rows = phase_rmat10m_grad(ccsr5, cfg5, edges5, dev)
         r5_b3_rows = phase_rmat10m_b3(ccsr5, cfg5, edges5, dev)
         rmat10m = phase_rmat10m_sampled(ccsr5, cfg5, edges5, dev, Path(tmp))
+        rmat10m_graphed = phase_rmat10m_cache_graphed(ccsr5, cfg5, edges5,
+                                                      dev, Path(tmp))
         del ccsr5, edges5
 
     # -- 23. summary --------------------------------------------------------
@@ -5433,6 +6132,13 @@ def main():
                              "full_kg_edge_train": kg_edge_counts["B1"],
                              "sampled_cache": {k: v["B1"] for k, v in
                                                cache_counts.items()}},
+        "launches_per_step_in_graphs": {
+            "train_graphed": train_graphed["default"][
+                "launches_per_step_from_profile"]["B1"],
+            "eval_graphed_epoch": eval_graphed["graphed"][
+                "launches_from_profile"]["B1"],
+            "full_kg_train_graphed": kg_graphed["graphed"][
+                "launches_per_step_from_profile"]["B1"]},
         "launches_per_step": {"forward": 6, "backward": 6},
         "launches_per_step_sharded": {
             "node_train": node_counts["B1"] / 30,
@@ -5518,6 +6224,13 @@ def main():
             "sampled_cache": {k: v["B2"] for k, v in cache_counts.items()},
             "rmat10m_sampled": {k: v["launches"]["B2"]
                                 for k, v in rmat10m.items()}},
+        "launches_per_step_in_graphs": {
+            "sampled_train_graphed": sampled_graphed["default"][
+                "launches_per_step_from_profile"]["B2"],
+            "full_kg_train_graphed": kg_graphed["graphed"][
+                "launches_per_step_from_profile"]["B2"],
+            "rmat10m_cache_graphed": rmat10m_graphed["graphed"][
+                "launches_per_step_from_profile"]["B2"]},
         "launches_per_step": {"sampled_block": 2, "restricted_step": 1,
                               "node_step": 5 * N_SHARDS,
                               "sampled_dp": {
@@ -5594,6 +6307,9 @@ def main():
             "full_kg_zero3": kg_zero3["launches"]["B3"],
             "rmat10m_sampled": {k: v["launches"]["B3"]
                                 for k, v in rmat10m.items()}},
+        "launches_per_step_in_graphs": {
+            "sampled_train_graphed": sampled_graphed["default"][
+                "launches_per_step_from_profile"]["B3"]},
         "launches_per_step": {"sampled_block": 2,
                               "sampled_dp": 2 * N_SHARDS,
                               "rmat10m_block": 2},

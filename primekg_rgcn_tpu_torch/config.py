@@ -64,6 +64,13 @@ class TrainConfig:
     save_every: int = 10
     early_stopping: int = 0
     seed: int = 42
+    # Work per CUDA graph replay: on the full-graph trainer, optimizer
+    # updates per captured segment (then one remainder segment); on the
+    # one-device sampled trainer (--sample_fanouts), steps per captured
+    # chunk. 0 takes each trainer's default (train/graphs.py). The JAX
+    # package's 0, the whole epoch in one execution, is a TPU dispatch
+    # figure the port does not copy.
+    steps_per_scan: int = 0
     # The batch-restricted final layer (ops/rgcn_final_layer.py), the JAX
     # package's tri-state: "auto"/None takes it when the graph's edges are
     # >= AUTO_EDGE_RATIO x the plan's capacity, "on"/True always,

@@ -37,7 +37,7 @@ from primekg_rgcn_tpu_torch.data.sampling import (CombinedBlock,
 from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
                                                  distmult_score_all_tails)
 from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import (
-    FinalLayerPlan, final_layer_restricted)
+    BatchRanges, FinalLayerPlan, final_layer_restricted)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 
 Params = Dict[str, Any]
@@ -153,7 +153,8 @@ def model_apply(params: Params, graph: RelGraph, heads, tails, rels,
                 enc_mask: Optional[torch.Tensor] = None,
                 dec_mask: Optional[torch.Tensor] = None,
                 layer_fn=rgcn_layer_segment,
-                final_plan: Optional[FinalLayerPlan] = None) -> torch.Tensor:
+                final_plan: Optional[FinalLayerPlan] = None,
+                final_ranges: Optional[BatchRanges] = None) -> torch.Tensor:
     """Training forward: encode the whole graph, score a triple batch [B].
 
     The encoder runs over the entire message-passing graph for every batch
@@ -165,7 +166,9 @@ def model_apply(params: Params, graph: RelGraph, heads, tails, rels,
     ``final_plan`` (``ops/rgcn_final_layer.plan_final_layer``) computes the
     final conv at the heads' and tails' rows only, with the same values and
     gradients; layer 1 (through ``layer_fn``) and its dropout run as in
-    :func:`encoder_apply`.
+    :func:`encoder_apply`. ``final_ranges`` hands it the batch's ranges
+    with their overflow flag already read (``final_layer_restricted``'s
+    ``ranges``).
     """
     if final_plan is not None:
         enc = params["encoder"]
@@ -177,7 +180,7 @@ def model_apply(params: Params, graph: RelGraph, heads, tails, rels,
         x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])], dim=0)
         out = final_layer_restricted(enc["conv2"], x_pad, graph, final_plan,
                                      torch.cat([heads, tails]),
-                                     compute_dtype=cdt)
+                                     compute_dtype=cdt, ranges=final_ranges)
         head_emb, tail_emb = out[: heads.shape[0]], out[heads.shape[0]:]
     else:
         node_emb = encoder_apply(params, graph, cfg, train=train,

@@ -26,11 +26,18 @@ Construction:
   empty range and copies its first occurrence's output row, so duplicate
   rows receive the sum of their cotangents in the backward.
 - The static buffer overflows only for hub-heavy batches. JAX branches on
-  the device (``lax.cond``) to the full layer; eager PyTorch reads the
-  overflow flag once per step, right after the B-sized range metadata, and
-  takes the full layer (kernel B1 both ways) when any relation's total
-  exceeds its ``e_cap``. ``final_layer_restricted.fallbacks`` counts those
-  steps. ``e_cap`` is sized by simulating the negative sampler on the real
+  the device (``lax.cond``) to the full layer; the port reads the overflow
+  flag on the host and takes the full layer (kernel B1 both ways) when any
+  relation's total exceeds its ``e_cap``. The work splits at that read:
+  :func:`final_layer_ranges` (the sorted batch and its B-sized range
+  metadata, which give the flag) and the two branches, the restricted rows
+  or the full layer. Eagerly, :func:`final_layer_restricted` runs both
+  parts and reads the flag between them, once per micro-batch; the
+  graphed trainer (``train/loop.py``) captures the ranges with the
+  candidates, reads the flag after their replay and replays the captured
+  branch, handing the ranges and the answer in as ``ranges``.
+  ``final_layer_restricted.fallbacks`` counts the reads that took the full
+  layer. ``e_cap`` is sized by simulating the negative sampler on the real
   degree table when the plan is built.
 
 The JAX package leaves both segment-sums to XLA; no TPU kernel is replaced
@@ -51,7 +58,7 @@ sums in bf16 at this dtype.)
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -253,6 +260,30 @@ def batch_ranges(plan: FinalLayerPlan, ns: torch.Tensor,
     return start, deg, csum - deg_g, ok
 
 
+class BatchRanges(NamedTuple):
+    """Part (a) of the restricted layer for one batch, which gives the
+    overflow flag: :func:`sorted_batch`'s ``ns``, ``perm`` and ``is_dup``,
+    :func:`batch_ranges`' ``start``, ``deg``, ``off`` and ``ok`` (0-d bool
+    tensor), and ``fits``: None, or the flag as the host read it."""
+
+    ns: torch.Tensor
+    perm: torch.Tensor
+    is_dup: torch.Tensor
+    start: torch.Tensor
+    deg: torch.Tensor
+    off: torch.Tensor
+    ok: torch.Tensor
+    fits: Optional[bool] = None
+
+
+def final_layer_ranges(plan: FinalLayerPlan,
+                       nodes: torch.Tensor) -> BatchRanges:
+    """The sorted batch and its range metadata for ``nodes`` (the batch's
+    heads, then its tails), on the device, with no host read."""
+    ns, perm, is_dup = sorted_batch(nodes)
+    return BatchRanges(ns, perm, is_dup, *batch_ranges(plan, ns, is_dup))
+
+
 def enumerate_slots(graph: RelGraph, plan: FinalLayerPlan, start, deg,
                     off):
     """The static buffer of ``sum(e_cap)`` slots for ranges that fit:
@@ -285,6 +316,7 @@ def final_layer_restricted(
     nodes: torch.Tensor,
     *,
     compute_dtype: torch.dtype = torch.float32,
+    ranges: Optional[BatchRanges] = None,
 ) -> torch.Tensor:
     """Final-layer output rows for ``nodes`` only (duplicates allowed).
 
@@ -296,22 +328,33 @@ def final_layer_restricted(
         plan: from :func:`plan_final_layer`.
         nodes: int [B] node ids (the batch's heads, then its tails).
         compute_dtype: float32, or bfloat16 (see the module docstring).
+        ranges: :func:`final_layer_ranges` of ``nodes`` with ``fits`` set
+            by the caller, who has read the flag; None computes them here
+            and reads the flag.
 
     Returns float32 [B, Dout], equal to
     ``rgcn_layer_segment(layer_params, h1_pad[:N], graph)[nodes]`` up to
-    summation order. Reads one flag from the device (the overflow check);
-    on overflow it computes exactly that, through kernel B1 on the card.
+    summation order. Without ``ranges`` it reads one flag from the device
+    (the overflow check); on overflow it computes exactly that, through
+    kernel B1 on the card.
     """
     n = graph.num_nodes
     num_rel = graph.num_relations
     b = nodes.shape[0]
     g = plan.group
-    ns, perm, is_dup = sorted_batch(nodes)
-    start, deg, off, ok = batch_ranges(plan, ns, is_dup)
-    if not bool(ok):  # the step's one host read
-        final_layer_restricted.fallbacks += 1
+    if ranges is None:
+        ranges = final_layer_ranges(plan, nodes)
+        fits = bool(ranges.ok)  # the step's one host read
+        if not fits:
+            final_layer_restricted.fallbacks += 1
+    else:
+        fits = ranges.fits
+        if fits is None:
+            raise ValueError("ranges.fits must hold the flag as read")
+    if not fits:
         return rgcn_layer_segment(layer_params, h1_pad[:n], graph,
                                   compute_dtype=compute_dtype)[nodes]
+    ns, perm, is_dup, start, deg, off = ranges[:6]
 
     w_rel = materialize_relation_weights(layer_params).to(compute_dtype)
     w_root = layer_params["w_root"].to(compute_dtype)

@@ -24,7 +24,10 @@ node-partitioned one
 one --device; the edge layout accumulates --gradient_accumulation_steps
 batches per update, the node layout ignores it; the node layout's halo
 exchange is kernel B4 on the card (the JAX CLI's --halo_impl has no
-counterpart). --compute_dtype bfloat16 runs the
+counterpart). --steps_per_scan K sets the work per CUDA-graph replay:
+optimizer updates per captured segment of the full-graph epoch, steps per
+captured chunk of the one-device sampled one (the sharded trainers run
+eagerly). --compute_dtype bfloat16 runs the
 layers in bf16 on every one of these paths (float32 by default, or with
 --resume the checkpoint's); the checkpoints record it, and serving and
 evaluation follow it. Checkpoints are reference-layout
@@ -66,6 +69,15 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--early_stopping", type=int, default=0)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--steps_per_scan", type=int, default=0,
+                   help="split each epoch into CUDA-graph segments of this "
+                        "many optimizer updates, then one of the remainder "
+                        "(0 = the default, 1); with the batch-restricted "
+                        "final layer the graphs hold one micro-batch each, "
+                        "the overflow flag read between them, whatever "
+                        "this value; with --sample_fanouts on one device: "
+                        "steps per captured chunk (0 = the default, 1). "
+                        "On the CPU the same steps run eagerly")
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default=None,
                    help="layer compute dtype (default float32, or with "
@@ -277,7 +289,7 @@ def main(argv=None):
             num_neg_samples=args.num_neg_samples, grad_clip=args.grad_clip,
             gradient_accumulation_steps=args.gradient_accumulation_steps,
             save_every=args.save_every, early_stopping=args.early_stopping,
-            seed=args.seed)
+            seed=args.seed, steps_per_scan=args.steps_per_scan)
         if args.sample_fanouts:
             # Sampled training on a mesh is data-parallel: either --shard
             # layout splits the seed batch, and its frontier, over the

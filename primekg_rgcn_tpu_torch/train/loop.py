@@ -1,15 +1,16 @@
 """Full-graph training on one device: optimizer, loss, step, epochs and the
 Trainer.
 
-The counterpart of ``primekg_rgcn_tpu/train/loop.py``. There an epoch is one
-jitted ``lax.scan``; here PyTorch runs eagerly, so an epoch is a Python loop
-of steps, but what the JAX host sees is kept: shuffling, negative sampling,
-the full-graph encode, the BCE loss, gradient accumulation, clipping and
-the optimizer update all stay on the device, and the host reads one
-(loss, accuracy) pair per epoch, with no ``.item()`` per step. The one
-exception is the batch-restricted final layer (``final_plan``): it reads
-its overflow flag once per step, where the JAX package branches on the
-device.
+The counterpart of ``primekg_rgcn_tpu/train/loop.py``. There an epoch is
+``lax.scan`` segments of ``steps_per_scan`` updates; here it is segments of
+that many updates captured as CUDA graphs and replayed
+(``train/graphs.py``), or, on the CPU, the same bodies run eagerly. What the
+JAX host sees is kept: shuffling, negative sampling, the full-graph encode,
+the BCE loss, gradient accumulation, clipping and the optimizer update all
+stay on the device, and the host reads one (loss, accuracy) pair per
+epoch, with no ``.item()`` per step. The one exception is the
+batch-restricted final layer (``final_plan``): it reads its overflow flags
+once per update, where the JAX package branches on the device.
 
 Semantics kept from the JAX package:
 
@@ -37,6 +38,7 @@ a seed) and one on the training device (negatives and dropout masks).
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import time
 from pathlib import Path
@@ -52,10 +54,13 @@ from primekg_rgcn_tpu_torch.models.rgcn import (Params, encoder_apply,
                                                 init_params, model_apply,
                                                 param_leaves)
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
-from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import (FinalLayerPlan,
-                                                         resolve_final_plan)
+from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import (
+    BatchRanges, FinalLayerPlan, final_layer_ranges, final_layer_restricted,
+    resolve_final_plan)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 from primekg_rgcn_tpu_torch.train import checkpoint as ckpt_lib
+from primekg_rgcn_tpu_torch.train.graphs import (StepGraphs, run_segments,
+                                                 steps_per_graph)
 from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
                                                        candidate_batch)
 from primekg_rgcn_tpu_torch.train.torch_interop import state_dict_from_params
@@ -80,21 +85,49 @@ def make_optimizer(cfg: TrainConfig,
     and then step the table's row slices with an optimizer of their own
     (``train/sampled.py``). Every rule here is elementwise but for the step
     count, so one optimizer over a stacked [n, n_loc, D] tensor of row
-    slices keeps exactly each slice's state and update."""
+    slices keeps exactly each slice's state and update.
+
+    On CUDA, adam and adamw are ``capturable``: their step count lives on
+    the device, so a CUDA graph can replay the update (without it the bias
+    correction reads a host count). The eager path on the card takes the
+    same rule, so that the two agree bit for bit. The CPU keeps
+    ``capturable=False``, which is all torch allows there; a loaded state
+    keeps the optimizer's own setting (:func:`_keep_capturable`)."""
     leaves = (list(param_leaves(params)) if isinstance(params, dict)
               else list(params))
     adam = dict(lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                weight_decay=cfg.weight_decay)
-    if cfg.optimizer == "adam":
-        # Coupled L2: decay joins the gradient before the moments, as
-        # add_decayed_weights before scale_by_adam.
-        return torch.optim.Adam(leaves, **adam)
-    if cfg.optimizer == "adamw":
-        return torch.optim.AdamW(leaves, **adam)
+                weight_decay=cfg.weight_decay,
+                capturable=bool(leaves) and leaves[0].is_cuda)
+    if cfg.optimizer in ("adam", "adamw"):
+        # adam: coupled L2, decay joins the gradient before the moments, as
+        # add_decayed_weights before scale_by_adam; adamw: decoupled.
+        cls = torch.optim.Adam if cfg.optimizer == "adam" else \
+            torch.optim.AdamW
+        opt = cls(leaves, **adam)
+        opt.register_load_state_dict_post_hook(functools.partial(
+            _keep_capturable, capturable=adam["capturable"]))
+        return opt
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(leaves, lr=cfg.lr,
                                weight_decay=cfg.weight_decay)
     raise ValueError(f"Unknown optimizer: {cfg.optimizer}")
+
+
+def _keep_capturable(optimizer: torch.optim.Optimizer, *,
+                     capturable: bool) -> None:
+    """``load_state_dict`` takes the saved groups' hyperparameters,
+    ``capturable`` among them: a state saved on the CPU, or before the rule
+    was capturable, would turn it off on the card, and one saved on the
+    card would turn it on on the CPU. Keep the optimizer's own setting;
+    a capturable rule's step counts go to their parameters' device as
+    float32."""
+    for group in optimizer.param_groups:
+        group["capturable"] = capturable
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if capturable and "step" in state:
+                state["step"] = torch.as_tensor(
+                    state["step"], dtype=torch.float32).to(p.device)
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor],
@@ -140,14 +173,16 @@ def loss_from_candidates(params: Params, graph: RelGraph, heads, tails, rels,
                          enc_mask: Optional[torch.Tensor] = None,
                          dec_mask: Optional[torch.Tensor] = None,
                          layer_fn=rgcn_layer_segment,
-                         final_plan: Optional[FinalLayerPlan] = None):
+                         final_plan: Optional[FinalLayerPlan] = None,
+                         final_ranges: Optional[BatchRanges] = None):
     """Masked BCE-with-logits loss of one candidate batch through the
     full-graph model (the final layer batch-restricted with a
-    ``final_plan``): (loss_mean, (correct, count)), all 0-d tensors."""
+    ``final_plan``, with ``final_ranges`` as ``model_apply`` takes them):
+    (loss_mean, (correct, count)), all 0-d tensors."""
     scores = model_apply(params, graph, heads, tails, rels, model_cfg,
                          train=train, generator=generator, enc_mask=enc_mask,
                          dec_mask=dec_mask, layer_fn=layer_fn,
-                         final_plan=final_plan)
+                         final_plan=final_plan, final_ranges=final_ranges)
     loss_sum, correct, count = bce_stats(scores, labels, weights)
     return loss_sum / count.clamp(min=1.0), (correct, count)
 
@@ -210,11 +245,29 @@ def train_step(params: Params, optimizer: torch.optim.Optimizer,
 
 def build_train_epoch(graph: RelGraph, edges: np.ndarray,
                       model_cfg: ModelConfig, train_cfg: TrainConfig,
-                      params: Params, optimizer: torch.optim.Optimizer):
+                      params: Params, optimizer: torch.optim.Optimizer, *,
+                      graphs: Optional[StepGraphs] = None):
     """One training epoch over ``edges`` ([E, 3] real train edges) on the
     graph's device. Returns ``epoch_fn(host_gen, device_gen) -> (loss,
     acc)``, 0-d tensors on the device; the permutation comes from
     ``host_gen`` (CPU), negatives and dropout from ``device_gen``.
+
+    With ``graphs`` (a :class:`~primekg_rgcn_tpu_torch.train.graphs.
+    StepGraphs` whose generator is ``device_gen``) the updates run in
+    segments, as the JAX package's scan segments: ``n_updates // K`` of K
+    updates, then one of the remainder, K = ``train_cfg.steps_per_scan``
+    (0: ``graphs.DEFAULT_STEPS_PER_GRAPH``). Each segment is a CUDA graph
+    on the card and its eager body on the CPU. The epoch's batch indices go
+    to the device once, into a buffer that each update reads at a step
+    counter on the device and advances. With a batch-restricted final
+    layer the update splits at its overflow flags, read on the host once
+    per update: one graph draws the candidates of every micro-batch and
+    their ranges, then each micro-batch's forward and backward (and after
+    the last, the clip and the optimizer step) replays the graph of the
+    branch its flag picks, whatever K. The gradients then stay in
+    tensors of the epoch's own that every micro-batch accumulates into.
+    Without ``graphs`` each update runs eagerly through
+    :func:`train_step`.
 
     The batch-restricted final layer's plan is resolved here, once, per
     ``train_cfg.restrict_final`` (seeded by ``train_cfg.seed``, as the JAX
@@ -232,16 +285,85 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
                                     train_cfg.num_neg_samples,
                                     seed=train_cfg.seed,
                                     mode=train_cfg.restrict_final)
+    # What every update reads and writes across replays.
+    idx = torch.empty(n_updates, accum, b, dtype=torch.long, device=device)
+    slot = torch.zeros((), dtype=torch.long, device=device)
+    stats = torch.zeros(3, device=device)
+    update_stats = torch.zeros(3, device=device)
+    leaves = list(param_leaves(params))
+    grads: List[torch.Tensor] = []
+
+    def candidates(gen):
+        bi = idx.index_select(0, slot.view(1))[0]
+        slot.add_(1)
+        return [sample_candidates(edges_pad, bi[a], graph.num_nodes,
+                                  train_cfg.num_neg_samples, generator=gen)
+                for a in range(accum)]
+
+    def update(gen):
+        stats.add_(update_step(params, optimizer, graph, candidates(gen),
+                               model_cfg, train_cfg, generator=gen))
+
+    def ranges(gen):
+        micro = candidates(gen)
+        rs = [final_layer_ranges(final_plan, torch.cat([c[0], c[1]]))
+              for c in micro]
+        return micro, rs, torch.stack([r.ok for r in rs])
+
+    def micro_step(a, cands, r, gen):
+        if a == 0:
+            optimizer.zero_grad(set_to_none=False)
+            update_stats.zero_()
+        loss, (correct, count) = loss_from_candidates(
+            params, graph, *cands, model_cfg, train=True, generator=gen,
+            final_plan=final_plan, final_ranges=r)
+        loss.backward()
+        update_stats.add_(torch.stack([loss.detach() * count, correct,
+                                       count]))
+        if a == accum - 1:
+            apply_update(optimizer, train_cfg, accum=accum)
+            stats.add_(update_stats)
+
+    def restricted_update(gen):
+        if not grads:
+            grads.extend(torch.zeros_like(p) for p in leaves)
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        micro, rs, ok = graphs.run(("ranges",), lambda: ranges(gen))
+        for a, fits in enumerate(ok.tolist()):  # the update's one host read
+            final_layer_restricted.fallbacks += not fits
+            r = rs[a]._replace(fits=fits)
+            # One graph per micro-batch and branch: each reads its own
+            # candidates and ranges, at the addresses the ranges graph
+            # writes them to.
+            graphs.run(("micro", fits, a),
+                       functools.partial(micro_step, a, micro[a], r, gen))
 
     def epoch_fn(host_gen: torch.Generator, device_gen: torch.Generator):
         perm = torch.randperm(num_edges, generator=host_gen)
         perm = torch.cat([perm, torch.full((pad,), num_edges)])
-        batch_indices = perm.view(n_updates, accum, b).to(device)
-        stats = torch.zeros(3, device=device)
-        for u in range(n_updates):
-            stats += train_step(params, optimizer, graph, edges_pad,
-                                batch_indices[u], model_cfg, train_cfg,
-                                generator=device_gen, final_plan=final_plan)
+        if graphs is None:
+            batch_indices = perm.view(n_updates, accum, b).to(device)
+            total = torch.zeros(3, device=device)
+            for u in range(n_updates):
+                total += train_step(params, optimizer, graph, edges_pad,
+                                    batch_indices[u], model_cfg, train_cfg,
+                                    generator=device_gen,
+                                    final_plan=final_plan)
+            return total[0] / total[2], total[1] / total[2]
+        if device_gen is not graphs.generator:
+            raise ValueError("the epoch's graphs draw from the generator "
+                             "registered with them")
+        idx.copy_(perm.view(n_updates, accum, b))
+        slot.zero_()
+        stats.zero_()
+        if final_plan is not None:
+            for _ in range(n_updates):
+                restricted_update(device_gen)
+        else:
+            run_segments(graphs, "updates", lambda: update(device_gen),
+                         n_updates, steps_per_graph(
+                             train_cfg.steps_per_scan))
         return stats[0] / stats[2], stats[1] / stats[2]
 
     epoch_fn.final_plan = final_plan
@@ -249,11 +371,17 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
 
 
 def build_eval_epoch(graph: RelGraph, edges: np.ndarray,
-                     model_cfg: ModelConfig, train_cfg: TrainConfig):
+                     model_cfg: ModelConfig, train_cfg: TrainConfig, *,
+                     graphs: Optional[StepGraphs] = None):
     """A validation epoch: no shuffle, no dropout, one full-graph encode,
     then every batch of ``edges`` with its sampled negatives scored against
     the cached embeddings. Returns ``eval_fn(params, generator) -> (loss,
-    acc)``, 0-d tensors on the graph's device."""
+    acc)``, 0-d tensors on the graph's device.
+
+    With ``graphs`` the whole epoch, the encode and every batch, is one
+    graph (the counterpart of the JAX package's one ``jax.jit``), captured
+    for the ``params`` of its first calls and ``graphs``' generator: other
+    tensors raise ``ValueError``."""
     device = graph.src.device
     num_edges = int(edges.shape[0])
     b = train_cfg.batch_size
@@ -262,8 +390,10 @@ def build_eval_epoch(graph: RelGraph, edges: np.ndarray,
     idx = torch.cat([torch.arange(num_edges),
                      torch.full((n_steps * b - num_edges,), num_edges)])
     idx = idx.view(n_steps, b).to(device)
+    result = torch.zeros(2, device=device)
+    captured_for: List[Tuple[int, ...]] = []
 
-    def eval_fn(params: Params, generator: torch.Generator):
+    def eval_body(params: Params, generator: torch.Generator):
         stats = torch.zeros(3, device=device)
         with torch.no_grad():
             node_emb = encoder_apply(params, graph, model_cfg)
@@ -276,6 +406,20 @@ def build_eval_epoch(graph: RelGraph, edges: np.ndarray,
                                         rel_table[rels])
                 stats += torch.stack(bce_stats(scores, labels, weights))
         return stats[0] / stats[2], stats[1] / stats[2]
+
+    def eval_fn(params: Params, generator: torch.Generator):
+        if graphs is None:
+            return eval_body(params, generator)
+        ptrs = tuple(p.data_ptr() for p in param_leaves(params))
+        if not captured_for:
+            captured_for.append(ptrs)
+        if ptrs != captured_for[0] or generator is not graphs.generator:
+            raise ValueError("the validation graph reads the parameters "
+                             "and the generator of its first calls")
+        graphs.run(("eval",), lambda: result.copy_(
+            torch.stack(eval_body(params, generator))))
+        out = result.clone()
+        return out[0], out[1]
 
     return eval_fn
 
@@ -308,19 +452,23 @@ class Trainer:
         self._setup(model_cfg, train_cfg, output_dir, device, args,
                     train_edges)
         self.optimizer = make_optimizer(train_cfg, self.params)
+        self.graphs = StepGraphs(self.device, self.device_gen)
         self.train_epoch_fn = build_train_epoch(
             train_graph.to(self.device), train_edges, model_cfg, train_cfg,
-            self.params, self.optimizer)
+            self.params, self.optimizer, graphs=self.graphs)
         self.final_plan = self.train_epoch_fn.final_plan
         self.eval_epoch_fn = build_eval_epoch(
-            full_graph.to(self.device), val_edges, model_cfg, train_cfg)
+            full_graph.to(self.device), val_edges, model_cfg, train_cfg,
+            graphs=self.graphs)
 
     def _setup(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                output_dir, device, args: Optional[argparse.Namespace],
                train_edges: np.ndarray) -> None:
         """What every trainer holds: device, directories, the CLI namespace,
         both generators, the parameters (from the host generator, then the
-        device generator seeded from it), history and metrics."""
+        device generator seeded from it), history and metrics. A trainer
+        whose epochs run as CUDA graphs sets ``graphs``, its
+        :class:`~primekg_rgcn_tpu_torch.train.graphs.StepGraphs`."""
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
@@ -354,6 +502,7 @@ class Trainer:
         self.num_train_edges = int(train_edges.shape[0])
         self.metrics = MetricsLogger(self.output_dir / "metrics.jsonl")
         self.saver = ckpt_lib.AsyncSaver()
+        self.graphs: Optional[StepGraphs] = None
 
     # -- checkpoint plumbing -------------------------------------------------
     def _checkpoint_payload(self) -> Dict[str, Any]:
@@ -394,6 +543,9 @@ class Trainer:
                 f"trainer runs {self.model_cfg.compute_dtype!r}")
         self._restore_params(payload["params"])
         self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        if self.graphs is not None:
+            # The loaded state is new tensors: capture again.
+            self.graphs.reset()
         self.epoch = payload["epoch"]
         self.best_val_loss = payload["best_val_loss"]
         self.best_val_acc = payload["best_val_acc"]

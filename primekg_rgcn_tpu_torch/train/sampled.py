@@ -8,8 +8,9 @@ of O(E). ``resolve_sampler`` picks the pick layout,
 ``build_sampled_train_step`` builds the one-device step (dense adam, or the
 sparse-embedding update: SGD, or adafactor with ``table_opt``; with
 ``cache_layer1`` one sampled hop and a table of layer-1 histories),
-``build_sampled_eval_epoch`` the sampled validation, and ``SampledTrainer``
-runs epochs, validation, checkpoints, early stopping and resume.
+``build_sampled_eval_epoch`` the sampled validation, ``SampledEpoch`` the
+one-device epoch in chunks of steps, and ``SampledTrainer`` runs epochs,
+validation, checkpoints, early stopping and resume.
 
 The data-parallel steps split the batch over the n shards of a mesh
 (``parallel/mesh.py``; every shard on the one device): each shard samples
@@ -27,8 +28,10 @@ step's stream order: negatives, then sampling, then dropout, shard after
 shard in the data-parallel steps (JAX derives each device's streams with
 ``fold_in(key, device)`` instead). A test may hand a step its candidates,
 sampler draws and dropout masks, per shard in the data-parallel steps.
-There is no ``lax.scan`` chunking: PyTorch runs eagerly, and the host reads
-the losses once per epoch.
+On one device the trainer runs the JAX trainer's ``lax.scan`` chunks as
+CUDA graphs of ``steps_per_scan`` steps (``train/graphs.py``); the
+data-parallel steps run eagerly. Either way the host reads the losses once
+per epoch.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather,
                                                   make_mesh, make_mesh_2d,
                                                   psum, psum_scatter,
                                                   shard_groups)
+from primekg_rgcn_tpu_torch.train.graphs import (StepGraphs, run_segments,
+                                                 steps_per_graph)
 from primekg_rgcn_tpu_torch.train.loop import (Candidates, Trainer,
                                                apply_update,
                                                build_eval_epoch,
@@ -330,8 +335,17 @@ class SplitOptimizer:
         if isinstance(self.table, torch.optim.Optimizer):
             self.table.load_state_dict(state["table"])
         else:
+            # In place: a captured step reads these tensors.
             for k, v in state["table"].items():
-                self.table[k] = v.to(self.table[k].device)
+                self.table[k].copy_(v)
+
+
+def _assign_(table: Dict[str, torch.Tensor],
+             state: Dict[str, torch.Tensor]) -> None:
+    """Write a factored rule's new statistics into ``table``'s tensors, in
+    place, so that a captured step that reads them sees each update."""
+    for k, v in state.items():
+        table[k].copy_(v)
 
 
 class CachedOptimizer:
@@ -462,9 +476,9 @@ def build_sampled_train_step(csr, model_cfg: ModelConfig,
                         row_valid=torch.ones(n, device=emb.device),
                         n_valid=n, lr=lr)
                     emb.add_(upd.to(emb.dtype))
-                    base.table.update(state)
+                    _assign_(base.table, state)
                 elif factored:
-                    base.table.update(factored_rows_update(
+                    _assign_(base.table, factored_rows_update(
                         x0.grad, batch.frontier, emb, base.table, lr=lr))
                 elif x0 is None:
                     emb.sub_(lr * emb.grad)
@@ -896,6 +910,61 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     return step
 
 
+class SampledEpoch:
+    """The one-device sampled epoch as the JAX trainer runs it: the whole
+    batches in chunks of K = ``train_cfg.steps_per_scan`` steps (0:
+    ``graphs.DEFAULT_STEPS_PER_GRAPH``), then the remaining steps
+    one at a time, the wrapped last batch among them. Through ``graphs``
+    each chunk, and each lone step, is a CUDA graph on the card and its
+    eager body on the CPU; with ``graphs`` None every step runs eagerly.
+
+    ``epoch(order)`` takes the epoch's batches, flat (``steps * B``
+    indices into ``train_edges``, int64 [n, 3] on the device), copies them
+    to the device once, into a buffer that each step reads at a step
+    counter on the device and advances, and returns [steps, 2] (loss, acc)
+    on the device. ``step_fn`` is a one-device
+    :func:`build_sampled_train_step`, or a data-parallel step, which the
+    JAX trainer does not chunk: its epoch takes ``graphs`` None."""
+
+    def __init__(self, step_fn, params: Params, optimizer,
+                 train_edges: torch.Tensor, generator: torch.Generator,
+                 train_cfg: TrainConfig, *,
+                 graphs: Optional[StepGraphs] = None):
+        self.step_fn, self.params, self.optimizer = step_fn, params, optimizer
+        self.train_edges, self.generator = train_edges, generator
+        self.graphs = graphs
+        n, b = train_edges.shape[0], train_cfg.batch_size
+        self.steps = -(-n // b)
+        self.n_full = n // b  # chunks take whole batches
+        self.k = min(steps_per_graph(train_cfg.steps_per_scan),
+                     self.n_full)
+        device = train_edges.device
+        # Read and written by every replay: allocated once.
+        self.batches = torch.empty(self.steps, b, dtype=torch.long,
+                                   device=device)
+        self.stats = torch.zeros(self.steps, 2, device=device)
+        self.slot = torch.zeros((), dtype=torch.long, device=device)
+
+    def _step(self) -> None:
+        at = self.slot.view(1)
+        pos = self.train_edges.index_select(
+            0, self.batches.index_select(0, at).view(-1))
+        loss, acc = self.step_fn(self.params, self.optimizer, pos,
+                                 self.generator)
+        self.stats.index_copy_(0, at, torch.stack([loss, acc])[None])
+        self.slot.add_(1)
+
+    def __call__(self, order: np.ndarray) -> torch.Tensor:
+        self.batches.copy_(torch.from_numpy(
+            np.asarray(order, np.int64).reshape(self.batches.shape)))
+        self.slot.zero_()
+        chunked = self.n_full // self.k * self.k if self.k > 1 else 0
+        run_segments(self.graphs, "steps", self._step, chunked, self.k)
+        run_segments(self.graphs, "steps", self._step,
+                     self.steps - chunked, 1)
+        return self.stats.clone()
+
+
 # The cached trainer warm-starts its histories with one full-graph conv1
 # pass on graphs of at most this many padded edges; larger ones (config 5's
 # 100M) start cold.
@@ -918,8 +987,11 @@ class SampledTrainer(Trainer):
     its histories start as one full-graph conv1 pass of the initial
     parameters (kernel B1 on the card) on graphs of at most
     ``CACHE_WARM_MAX_EDGES`` padded edges, else as zeros, and ride in the
-    checkpoints' optimizer state. Every combination the JAX trainer refuses
-    raises ``ValueError`` with its message. Validation
+    checkpoints' optimizer state. On one device the epoch is a
+    :class:`SampledEpoch`, its chunks CUDA graphs on the card, and the
+    full-graph validation one graph; the data-parallel steps and the
+    sampled validation run eagerly. Every combination the JAX trainer
+    refuses raises ``ValueError`` with its message. Validation
     encodes the full graph once per epoch (``train/loop.build_eval_epoch``;
     with zero3 from the gathered table), or, with ``val_sampled``, scores
     each batch through its sampled encode, through the sharded fetch with
@@ -1035,8 +1107,13 @@ class SampledTrainer(Trainer):
                 table_opt=table_opt, cache_layer1=cache_layer1,
                 cache_init=cache_init, device=self.device, **kw)
         self.optimizer = self.step_fn.init_optimizer(self.params)
+        if not multi:
+            self.graphs = StepGraphs(self.device, self.device_gen)
         self.train_edges = torch.from_numpy(
             np.asarray(train_edges, np.int64)).to(self.device)
+        self._epoch = SampledEpoch(self.step_fn, self.params, self.optimizer,
+                                   self.train_edges, self.device_gen,
+                                   train_cfg, graphs=self.graphs)
         if val_sampled and self._zero3:
             self.eval_epoch_fn = self._sharded_eval(np.asarray(val_edges))
         elif val_sampled:
@@ -1046,7 +1123,7 @@ class SampledTrainer(Trainer):
         else:
             full_eval = build_eval_epoch(
                 full_graph.to(self.device), np.asarray(val_edges), model_cfg,
-                train_cfg)
+                train_cfg, graphs=self.graphs)
             self.eval_epoch_fn = lambda params, gen: full_eval(
                 self._full_params(params), gen)
 
@@ -1100,17 +1177,12 @@ class SampledTrainer(Trainer):
             perm = rng.permutation(n)
             # The last batch wraps around to the permutation's start.
             order = np.concatenate([perm, perm[:steps * b - n]])
-            batches = torch.from_numpy(order.reshape(steps, b)).to(
-                self.device)
-            stats = []
-            for s in range(steps):
-                stats.extend(self.step_fn(
-                    self.params, self.optimizer,
-                    self.train_edges[batches[s]], self.device_gen))
+            stats = self._epoch(order)
             val_loss, val_acc = self.eval_epoch_fn(self.params,
                                                    self.device_gen)
             # The one host read of the epoch.
-            vals = torch.stack(stats + [val_loss, val_acc]).tolist()
+            vals = torch.cat([stats.view(-1),
+                              torch.stack([val_loss, val_acc])]).tolist()
             tr_loss = float(np.mean(vals[0:2 * steps:2]))
             tr_acc = float(np.mean(vals[1:2 * steps:2]))
             val_loss, val_acc = vals[-2:]

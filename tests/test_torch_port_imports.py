@@ -75,6 +75,16 @@ def test_the_import_walk_covers_the_sharded_layouts():
     assert seen["bad"] == []
 
 
+def test_the_import_walk_covers_the_step_graphs():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("train.graphs", "train.loop", "train.sampled"):
+        assert f"primekg_rgcn_tpu_torch.{name}" in seen["names"]
+    assert seen["bad"] == []
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert (REPO / "chip_smoke.py").exists()

@@ -246,7 +246,8 @@ def train_step(params: Params, optimizer: torch.optim.Optimizer,
 def build_train_epoch(graph: RelGraph, edges: np.ndarray,
                       model_cfg: ModelConfig, train_cfg: TrainConfig,
                       params: Params, optimizer: torch.optim.Optimizer, *,
-                      graphs: Optional[StepGraphs] = None):
+                      graphs: Optional[StepGraphs] = None,
+                      plan_edges: Optional[np.ndarray] = None):
     """One training epoch over ``edges`` ([E, 3] real train edges) on the
     graph's device. Returns ``epoch_fn(host_gen, device_gen) -> (loss,
     acc)``, 0-d tensors on the device; the permutation comes from
@@ -271,8 +272,10 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
 
     The batch-restricted final layer's plan is resolved here, once, per
     ``train_cfg.restrict_final`` (seeded by ``train_cfg.seed``, as the JAX
-    package plans it), and kept as ``epoch_fn.final_plan`` (None when the
-    full layer runs)."""
+    package plans it) from ``plan_edges`` (default: ``edges``; a benchmark
+    that runs an epoch over a sample of the edges sizes the plan on all of
+    them), and kept as ``epoch_fn.final_plan`` (None when the full layer
+    runs)."""
     device = graph.src.device
     num_edges = int(edges.shape[0])
     b = train_cfg.batch_size
@@ -281,7 +284,9 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
     n_updates = -(-n_steps // accum)
     pad = n_updates * accum * b - num_edges
     edges_pad = edges_with_sentinel(edges, device)
-    final_plan = resolve_final_plan(graph, edges, b,
+    final_plan = resolve_final_plan(graph,
+                                    edges if plan_edges is None
+                                    else plan_edges, b,
                                     train_cfg.num_neg_samples,
                                     seed=train_cfg.seed,
                                     mode=train_cfg.restrict_final)

@@ -85,6 +85,18 @@ def test_the_import_walk_covers_the_step_graphs():
     assert seen["bad"] == []
 
 
+def test_the_import_walk_covers_the_bench_modules():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("bench.roofline", "bench.suite", "bench.scaling",
+                 "bench.pod_scale", "bench.config3_probe",
+                 "bench.restricted_probe"):
+        assert f"primekg_rgcn_tpu_torch.{name}" in seen["names"]
+    assert seen["bad"] == []
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert (REPO / "chip_smoke.py").exists()

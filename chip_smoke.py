@@ -139,6 +139,22 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    ``--zero1`` (2 epochs) and with ``--zero3 --table_opt adafactor
    --grad_clip 0 --val_sampled`` (2 epochs, then resumed for a third),
    each final model evaluated by ``evaluate.cli.main``.
+18c. the same layouts across processes (``--distributed``,
+   ``phase_distributed``), run last, after 27e: distributed_cli: ``train.cli --shard edge
+   --n_devices 4`` at scale 0.1 for 2 epochs as one process over NCCL
+   (``--distributed --num_processes 1``) and without ``--distributed``,
+   history and final parameters torch.equal, the backend printed.
+   distributed_steps: two processes on the one card (``python3
+   chip_smoke.py dist_child``; gloo, by the backend rule) run the edge
+   step and the zero3 block/slim step at full width, 4 shards, 3 steps
+   each from one saved state, against this process's run from it: losses
+   within rel 1e-5, parameters within rtol 2e-6, atol 2e-7; each
+   process's launches asserted a step (24 B1; 12 B2 and 4 B3) and its
+   zero3 table two of the four slices; which collective kinds gloo runs
+   on CUDA tensors; two more processes (``nccl_shared_child``) put an
+   NCCL communicator on the one card, which NCCL must refuse. step_ms is
+   printed as mechanics, not speed. The children run at once, about a
+   minute in all.
 19. eval: ``evaluate.cli.main --filtered --rank_direction both`` at full
    width on the full-size graph with the train CLI's drug-gene hold-out
    (14,658 directed test edges): 6 B1 launches, every results.json key
@@ -5909,6 +5925,346 @@ def phase_pod_scale(repo):
     return node, zero3
 
 
+# -- the edge layout and the data-parallel sampled steps across processes --
+
+DIST_STEPS = 3
+DIST_TIMEOUT = 300
+
+
+def free_port():
+    """A port no process listens on now (a socket bound to port 0)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def bench_graph():
+    """The ``bench.py`` graph on the host: (graph, model config, edges)."""
+    import numpy as np
+
+    from primekg_rgcn_tpu_torch.config import ModelConfig
+    from primekg_rgcn_tpu_torch.data import artifacts, synthetic
+
+    raw = synthetic.primekg_like(seed=0, scale=1.0)
+    su, du, ru = synthetic.bidirect(raw["src"], raw["dst"], raw["rel"])
+    graph = artifacts.split_to_rel_graph({
+        "edge_index": np.stack([su, du]), "edge_type": ru,
+        "num_nodes": raw["num_nodes"], "num_relations": 3})
+    return (graph, ModelConfig(num_nodes=graph.num_nodes, num_relations=3),
+            np.stack([su, du, ru], 1))
+
+
+def dist_state(cfg, edges, seed=5):
+    """The saved state the distributed phase starts each run from: the
+    parameters of seed 0, the generator's seed, and DIST_STEPS batches of
+    1,024 positives (the edge step's with a mask column of ones)."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.models import rgcn
+
+    rng = np.random.default_rng(seed)
+    pos = [torch.from_numpy(edges[rng.integers(0, len(edges), 1024)]
+                            .astype(np.int64)) for _ in range(DIST_STEPS)]
+    return {"params": rgcn.init_params(torch.Generator().manual_seed(0),
+                                       cfg),
+            "seed": seed, "positives": pos,
+            "edge_batches": [torch.cat([p, torch.ones_like(p[:, :1])], 1)
+                             for p in pos]}
+
+
+def dist_runs(graph, cfg, state, dev):
+    """DIST_STEPS steps of the edge step and of the zero3 block step over
+    the slim pairs CSR, each from ``state``, over N_SHARDS shards on a mesh
+    that spans the live process group (or this one process): batch 1024,
+    fanouts 15/10, adam lr 1e-3, clip 1.0. Returns {layout: losses, whole
+    parameters after the last step (host), each step's launches and
+    host-clock ms, the table's local rows}."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.data.sampling import build_combined_csr
+    from primekg_rgcn_tpu_torch.parallel import edge_shard
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.train import loop, sampled
+
+    mesh = make_mesh(N_SHARDS, dev)
+    tcfg = TrainConfig(batch_size=1024)
+    csr = build_combined_csr(graph, slim=True, window_pairs=True)
+    edge_step = edge_shard.build_sharded_train_step(
+        mesh, edge_shard.shard_rel_graph(graph, N_SHARDS), cfg, tcfg)
+    zero3 = sampled.build_sampled_train_step_zero3(
+        csr, cfg, tcfg, mesh, fanouts=(15, 10), mode="block")
+    out = {}
+    for layout in ("edge", "zero3"):
+        params = fresh_params(_to(state["params"], dev))
+        if layout == "zero3":
+            params = zero3.shard_params(params)
+            opt = zero3.init_optimizer(params)
+        else:
+            opt = loop.make_optimizer(tcfg, params)
+        gen = torch.Generator(dev).manual_seed(state["seed"])
+        losses, launches, ms = [], [], []
+        for i in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            if layout == "edge":
+                stats = edge_step(params, opt,
+                                  state["edge_batches"][i].to(dev), gen)
+                loss = (stats[0] / stats[2]).item()
+            else:
+                loss = zero3(params, opt, state["positives"][i].to(dev),
+                             gen)[0].item()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(read_counts())
+            losses.append(loss)
+        full = zero3.full_params(params) if layout == "zero3" else params
+        out[layout] = {
+            "losses": losses, "launches": launches, "step_ms": ms,
+            "params": {k: p.detach().cpu() for k, p in named_leaves(full)},
+            "table_rows": int(params["encoder"]["node_emb"].shape[0])}
+    return out
+
+
+def _to(tree, dev):
+    """A nested dict of tensors, moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def collective_kinds(dev):
+    """Which collectives the live group's backend runs on tensors on
+    ``dev``: {kind: "ok", or the first line of its error}. The port builds
+    every cross-process collective from all_reduce alone; this reads what
+    the others would do."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.ones(4 * world, device=dev)
+    kinds = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world * world, device=dev), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+    }
+    out = {}
+    for name, run in kinds.items():
+        try:
+            run()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as exc:
+            out[name] = str(exc).strip().splitlines()[0][:300]
+    return out
+
+
+def dist_child(argv):
+    """One process of the distributed phase's pair on the card: ``rank
+    world port state out``. It meets its peer through
+    ``maybe_initialize_distributed`` (the backend rule), runs ``dist_runs``
+    from the saved state, then reads which collective kinds its backend has
+    on CUDA tensors, and saves all of it to ``out.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from primekg_rgcn_tpu_torch.train.multichip import (
+        maybe_initialize_distributed)
+
+    rank, world, port = (int(a) for a in argv[:3])
+    state_path, out_path = argv[3:5]
+    if not maybe_initialize_distributed(f"localhost:{port}", world, rank,
+                                        device="cuda"):
+        raise RuntimeError("the distributed phase's processes did not meet")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    graph, cfg, _ = bench_graph()
+    state = torch.load(state_path, weights_only=False)
+    runs = dist_runs(graph.to(dev), cfg, state, dev)
+    torch.save({"backend": dist.get_backend(), "runs": runs,
+                "device": torch.cuda.current_device(),
+                "kinds": collective_kinds(dev)}, f"{out_path}.{rank}")
+    return 0
+
+
+def nccl_shared_child(argv):
+    """One of two processes that put an NCCL communicator on the one card
+    (``rank port``): prints whether NCCL accepted it, or its error."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, port = (int(a) for a in argv[:2])
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.ones(4, device="cuda")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        print(json.dumps({"accepted": True}), flush=True)
+    except RuntimeError as exc:      # DistBackendError among them
+        print(json.dumps({"accepted": False, "error": " ".join(
+            str(exc).split())[:600]}), flush=True)
+    return 0
+
+
+# A step's launches in each of two processes: half the one-process counts
+# (its two shards' B1 chunks both ways; zero3's fetch backward, 2 owners x
+# 4 requesters, its shards' 2 dedup sums and 2 window fetches each).
+DIST_LAUNCHES = {"edge": {"B1": 24, "B2": 0, "B3": 0, "B4": 0},
+                 "zero3": {"B1": 0, "B2": 8 + 4, "B3": 4, "B4": 0}}
+
+
+def dist_compare(ref, ranks, want, ref_want):
+    """Each process's ``dist_runs`` against the one-process ``ref``:
+    launches a step (``want``, and ``ref_want`` for the reference), the
+    zero3 table's local slices (half), losses within rel 1e-5 and whole
+    parameters within rtol 2e-6, atol 2e-7. Returns the figures by
+    layout."""
+    import torch
+
+    figures = {}
+    for layout in ("edge", "zero3"):
+        solo = ref[layout]
+        if solo["launches"] != [ref_want[layout]] * DIST_STEPS:
+            raise AssertionError(f"distributed_steps/{layout}: one-process "
+                                 f"launches {solo['launches']}")
+        errs = []
+        for r, run in enumerate(g[layout] for g in ranks):
+            if run["launches"] != [want[layout]] * DIST_STEPS:
+                raise AssertionError(
+                    f"distributed_steps/{layout}: process {r} launched "
+                    f"{run['launches']}, expected {want[layout]} a step")
+            if layout == "zero3" and run["table_rows"] != N_SHARDS // 2:
+                raise AssertionError(f"distributed_steps/zero3: process {r} "
+                                     f"holds {run['table_rows']} slices")
+            for a, b in zip(run["losses"], solo["losses"]):
+                if abs(a - b) > 1e-5 * abs(b):
+                    raise AssertionError(
+                        f"distributed_steps/{layout}: process {r} losses "
+                        f"{run['losses']}, one process {solo['losses']}")
+            for k, want_p in solo["params"].items():
+                torch.testing.assert_close(
+                    run["params"][k], want_p, rtol=2e-6, atol=2e-7,
+                    msg=lambda m, k=k: f"distributed_steps/{layout}/{k}: "
+                                       f"{m}")
+                errs.append(float((run["params"][k] - want_p).abs().max()))
+        figures[layout] = {
+            "losses": solo["losses"], "max_abs_err": max(errs),
+            "launches_per_process": want[layout],
+            "launches_one_process": ref_want[layout],
+            "step_ms_per_process": [g[layout]["step_ms"] for g in ranks],
+            "step_ms_one_process": solo["step_ms"]}
+    return figures
+
+
+def phase_distributed(repo, tmp, graph, cfg, edges, dev):
+    """``--distributed`` on the card (train/multichip, the process-spanning
+    mesh). distributed_cli: the edge CLI (``--shard edge --n_devices 4``,
+    scale 0.1, 2 epochs) as one process over NCCL (``--distributed
+    --num_processes 1``) and without ``--distributed``: history and final
+    parameters torch.equal. distributed_steps: two processes on the one
+    card (gloo, the backend rule) run the edge step and the zero3 block
+    step over the slim CSR, 4 shards, DIST_STEPS steps each from one saved
+    state (``dist_state``), against this process's run from it: losses
+    within rel 1e-5, parameters within rtol 2e-6, atol 2e-7 (the drill's);
+    each process's launches a step asserted, half the one-process counts
+    (edge 24 B1; zero3 8 fetch-backward + 4 dedup B2 and 4 B3), its table
+    two of the four slices. Two more processes put an NCCL communicator on
+    the one card, which NCCL must refuse. The children run at once, this
+    process's reference beside them. Returns the per-process launches."""
+    import torch
+
+    state_path = tmp / "dist_state.pt"
+    torch.save(dist_state(cfg, edges), state_path)
+    out_path = tmp / "dist_out"
+    cli = [sys.executable, "-m", "primekg_rgcn_tpu_torch.train.cli",
+           "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
+           "--shard", "edge", "--n_devices", str(N_SHARDS)]
+    cli_port, pair_port, nccl_port = free_port(), free_port(), free_port()
+    argvs = {
+        "cli_plain": cli + ["--output_dir", str(tmp / "dist_cli_plain")],
+        "cli_nccl": cli + ["--output_dir", str(tmp / "dist_cli_nccl"),
+                           "--distributed", "--coordinator_address",
+                           f"localhost:{cli_port}", "--num_processes", "1",
+                           "--process_id", "0"],
+        **{f"steps_{r}": [sys.executable, "chip_smoke.py", "dist_child",
+                          str(r), "2", str(pair_port), str(state_path),
+                          str(out_path)] for r in range(2)},
+        **{f"nccl_shared_{r}": [sys.executable, "chip_smoke.py",
+                                "nccl_shared_child", str(r), str(nccl_port)]
+           for r in range(2)}}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(a, cwd=repo, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, a in argvs.items()}
+    try:
+        ref = dist_runs(graph, cfg, torch.load(state_path,
+                                               weights_only=False), dev)
+        done = {k: (*p.communicate(timeout=DIST_TIMEOUT), p.returncode)
+                for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for k, (out, err, rc) in done.items():
+        if rc != 0:
+            print(out[-8000:], flush=True)
+            raise AssertionError(f"distributed/{k}: exit {rc}: "
+                                 f"{err[-4000:]}")
+
+    # (a) one process over NCCL through the CLI, bit for bit.
+    plain, nccl = (torch.load(tmp / d / "models" / "final_model.pt",
+                              weights_only=False)
+                   for d in ("dist_cli_plain", "dist_cli_nccl"))
+    if plain["history"] != nccl["history"] or any(
+            not torch.equal(plain["model_state_dict"][k],
+                            nccl["model_state_dict"][k])
+            for k in plain["model_state_dict"]):
+        raise AssertionError("distributed_cli: the one-process NCCL run "
+                             "differs from the run without --distributed")
+    backend_line = next((ln for ln in done["cli_nccl"][0].splitlines()
+                         if "torch.distributed: backend" in ln), "")
+    if "backend nccl, process 0 of 1" not in backend_line:
+        raise AssertionError(f"distributed_cli: backend line "
+                             f"{backend_line!r}")
+    emit("distributed_cli", backend=backend_line.split(" - ")[-1],
+         history=nccl["history"], equal=True, seconds=seconds)
+
+    # (b) two processes on the one card against this process.
+    ranks = [torch.load(f"{out_path}.{r}", weights_only=False)
+             for r in range(2)]
+    figures = dist_compare(ref, [g["runs"] for g in ranks], DIST_LAUNCHES,
+                           {"edge": {"B1": 48, "B2": 0, "B3": 0, "B4": 0},
+                            "zero3": dp_launches("zero3")})
+    nccl_shared = [json.loads(done[f"nccl_shared_{r}"][0].splitlines()[-1])
+                   for r in range(2)]
+    if any(n["accepted"] for n in nccl_shared):
+        raise AssertionError(f"distributed_steps: NCCL accepted two ranks "
+                             f"on one card: {nccl_shared}")
+    emit("distributed_steps", backend=ranks[0]["backend"],
+         devices=[g["device"] for g in ranks], steps=DIST_STEPS,
+         collective_kinds_on_cuda=ranks[0]["kinds"],
+         nccl_shared_card=nccl_shared[0]["error"], seconds=seconds,
+         step_ms_note="mechanics, not speed: two processes share one card "
+                      "through gloo's host-staged transport, beside the "
+                      "other children of this phase",
+         **figures)
+    return {k: v["launches_per_process"] for k, v in figures.items()}
+
+
 def main():
     import torch
 
@@ -6490,6 +6846,11 @@ def main():
         pod_node, pod_zero3 = phase_pod_scale(repo)
         pod_counts = {"node": pod_node["launches"],
                       **{r["mode"]: r["launches"] for r in pod_zero3}}
+
+        # -- the edge and sampled layouts across processes (--distributed),
+        # last: its children share the card with this process --------------
+        dist_counts = phase_distributed(repo, Path(tmp), graph, cfg, edges,
+                                        dev)
     emit("profile_retakes", retakes=PROFILE_RETAKES)
 
     # -- 23. summary --------------------------------------------------------
@@ -6533,6 +6894,8 @@ def main():
                              "train_restricted_on": restricted_launches,
                              "edge_train": edge_counts["B1"],
                              "edge_cli": edge_cli_counts["B1"],
+                             "distributed_edge_per_process_step":
+                                 dist_counts["edge"]["B1"],
                              "full_kg_node_train": {
                                  k: v[0]["B1"] for k, v in kg_node.items()},
                              "full_kg_node_serve": kg_nserve["B1"],
@@ -6629,6 +6992,7 @@ def main():
             "sampled_dp_train": {k: v["launches"]["B2"]
                                  for k, v in sampled_dp.items()},
             "sampled_dp_cli": {k: v["B2"] for k, v in dp_cli_counts.items()},
+            "distributed_zero3_per_process_step": dist_counts["zero3"]["B2"],
             "full_kg_zero3": kg_zero3["launches"]["B2"],
             "combined_agg": {k: v["launches"]["B2"]
                              for k, v in agg_runs.items()},
@@ -6718,6 +7082,7 @@ def main():
             "full_kg_sampled": kg_sampled_counts["B3"],
             "sampled_dp_train": {k: v["launches"]["B3"]
                                  for k, v in sampled_dp.items()},
+            "distributed_zero3_per_process_step": dist_counts["zero3"]["B3"],
             "full_kg_zero3": kg_zero3["launches"]["B3"],
             "rmat10m_sampled": {k: v["launches"]["B3"]
                                 for k, v in rmat10m.items()}},
@@ -6814,4 +7179,10 @@ def main():
 
 
 if __name__ == "__main__":
+    # Two child modes of the distributed phase; with no argument, the run.
+    CHILDREN = {"dist_child": dist_child,
+                "nccl_shared_child": nccl_shared_child}
+    if len(sys.argv) > 1 and sys.argv[1] in CHILDREN:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(CHILDREN[sys.argv[1]](sys.argv[2:]))
     sys.exit(main())

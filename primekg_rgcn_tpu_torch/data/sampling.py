@@ -816,6 +816,36 @@ def sample_batch_combined(draw: Draw, ccsr: CombinedCsr,
                         seed_gather=seed_gather)
 
 
+def draw_shapes(csr, n_seeds: int, fanouts: Sequence[int], mode: str, *,
+                combined: bool, allow_ident: bool = False):
+    """(shapes, rows): the shapes of the uniforms that
+    :func:`sample_batch` (``combined`` False) or
+    :func:`sample_batch_combined` draws for ``n_seeds`` seeds, in draw
+    order, and the innermost block's ``m_out``. Every frontier has a
+    static capacity, so both follow from the sizes alone: a process of a
+    data-parallel step draws another process's shard by shape, without
+    sampling it."""
+    n = csr.num_nodes
+    base, n_win = parse_sample_mode(mode)
+    m = _unique_cap(n_seeds, n)
+    shapes, rows = [], m
+    for li, f in enumerate(fanouts):
+        rows, f = m, int(f)
+        if combined:
+            if base in ("uniform", "block"):
+                shapes.append((m, f if base == "uniform" else n_win))
+            raw = m + m * f
+            if allow_ident and li == len(fanouts) - 1 and \
+                    raw >= _ident_fraction() * (n + 1):
+                break
+        else:
+            if base == "uniform":
+                shapes.extend([(m, f)] * csr.num_relations)
+            raw = m + csr.num_relations * m * f
+        m = _unique_cap(raw, n)
+    return shapes, rows
+
+
 def _block_aggregate_combined(layer_params, x_in: torch.Tensor,
                               block: CombinedBlock,
                               compute_dtype: Optional[torch.dtype] = None

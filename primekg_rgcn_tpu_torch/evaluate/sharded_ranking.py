@@ -26,7 +26,8 @@ import torch
 
 from primekg_rgcn_tpu_torch.ops.distmult import (distmult_score,
                                                  distmult_score_all_tails)
-from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, all_gather, psum
+from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather, psum,
+                                                  refuse_across_processes)
 
 
 def _owner_masked_fetch(locals_: Sequence[torch.Tensor], ids: torch.Tensor,
@@ -45,6 +46,7 @@ def _owner_masked_fetch(locals_: Sequence[torch.Tensor], ids: torch.Tensor,
 
 def _shard_slices(mesh: Mesh, emb_dm: torch.Tensor, num_nodes: int):
     """The shards' [n_loc, D] slices and their masks of real (< N) rows."""
+    refuse_across_processes(mesh, "the sharded evaluator")
     n, n_loc, _ = emb_dm.shape
     if n != mesh.n_shards:
         raise ValueError(f"table has {n} shards, mesh {mesh.n_shards}")

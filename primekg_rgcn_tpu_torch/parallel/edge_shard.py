@@ -1,4 +1,5 @@
-"""Edge-sharded RGCN, one process driving the shards.
+"""Edge-sharded RGCN: one process driving every shard, or each process of
+a group its own.
 
 The counterpart of ``primekg_rgcn_tpu/parallel/edge_shard.py``, the JAX
 ``ShardedTrainer``'s default layout:
@@ -25,11 +26,20 @@ The counterpart of ``primekg_rgcn_tpu/parallel/edge_shard.py``, the JAX
   without one is skipped, as in the node layout's buckets.
 
 All shards live on the mesh's one device (``parallel/mesh.py``): the
-psum is the sum of the shards' partials in shard order. Under bf16 compute
-each aggregate is rounded to bf16 before its normalisation, and the
-partials, their sum and the relation products stay bf16 up to the layer's
-float32 result, as the JAX edge layer does (``ops/rgcn_segment.py``'s
-dtype table).
+psum is the sum of the shards' partials in shard order. Across processes
+each process aggregates its own shards' chunks, sums them, and the sum
+runs across the processes through the autograd psum (its backward is a
+psum too); each process scores its own shards' slices of the batch and
+backpropagates their loss sum over the global count, and the replicated
+parameters' gradients are summed across the processes before the clip.
+Every process draws every shard's negatives and dropout masks from the one
+generator and keeps its own, so the generators stay equal, and the
+encoder's dropout mask, drawn from it, is the same in every process.
+
+Under bf16 compute each aggregate is rounded to bf16 before its
+normalisation, and the partials, their sum and the relation products stay
+bf16 up to the layer's float32 result, as the JAX edge layer does
+(``ops/rgcn_segment.py``'s dtype table).
 """
 
 from __future__ import annotations
@@ -42,11 +52,12 @@ import torch
 
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
-from primekg_rgcn_tpu_torch.models.rgcn import Params, compute_dtype, dropout
+from primekg_rgcn_tpu_torch.models.rgcn import (Params, compute_dtype,
+                                                dropout, param_leaves)
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
     AggOp, aggregate, materialize_relation_weights)
-from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, psum
+from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, all_reduce_, psum
 from primekg_rgcn_tpu_torch.train.loop import Candidates, apply_update
 from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
                                                        candidate_batch)
@@ -182,8 +193,8 @@ def build_edge_ops(sg: ShardedGraph) -> List[List[Optional[AggOp]]]:
 def rgcn_layer_edge_sharded(layer_params, x: torch.Tensor, sg: ShardedGraph,
                             ops: Sequence[Sequence[Optional[AggOp]]], *,
                             agg_fn=aggregate,
-                            compute_dtype: torch.dtype = torch.float32
-                            ) -> torch.Tensor:
+                            compute_dtype: torch.dtype = torch.float32,
+                            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One RGCN layer over every shard's edges: x is the replicated float32
     [N, Din] table; returns the float32 [N, Dout] layer output.
 
@@ -194,6 +205,9 @@ def rgcn_layer_edge_sharded(layer_params, x: torch.Tensor, sg: ShardedGraph,
     JAX layer stacks all R before its one psum; the sums are the same, in
     the same shard order); otherwise each shard sums its transformed
     partials over the relations first and the shards' totals are summed.
+    With a ``mesh`` that spans processes, ``ops`` are this process's
+    shards' and each sum also runs across the processes, for every
+    relation, whether or not this process's shards have its edges.
     """
     n = sg.num_nodes
     w_rel = materialize_relation_weights(layer_params).to(compute_dtype)
@@ -210,11 +224,19 @@ def rgcn_layer_edge_sharded(layer_params, x: torch.Tensor, sg: ShardedGraph,
             return p
         return p * sg.inv_in_deg[r][:n, None].to(compute_dtype)
 
+    across = mesh is not None and mesh.world > 1
     if aggregate_first:
         for r in range(sg.num_relations):
             parts = [partial(row[r], x_pad, r) for row in ops
                      if row[r] is not None]
-            if parts:
+            if across:
+                # Without edges of r here, a zero partial that still
+                # requires grad: the psum's backward is a collective, which
+                # every process must join.
+                parts = parts or [xc.new_zeros(n, din).requires_grad_(
+                    torch.is_grad_enabled() and x.requires_grad)]
+                out = out + psum(parts, mesh) @ w_rel[r]
+            elif parts:
                 out = out + psum(parts) @ w_rel[r]
         return out.float()
     totals = []
@@ -225,7 +247,7 @@ def rgcn_layer_edge_sharded(layer_params, x: torch.Tensor, sg: ShardedGraph,
                 total = total + partial(op, (x_pad @ w_rel[r]).contiguous(),
                                         r)
         totals.append(total)
-    return (out + psum(totals)).float()
+    return (out + psum(totals, mesh)).float()
 
 
 def sharded_encoder(params: Params, sg: ShardedGraph,
@@ -233,29 +255,32 @@ def sharded_encoder(params: Params, sg: ShardedGraph,
                     cfg: ModelConfig, *, train: bool = False,
                     generator: Optional[torch.Generator] = None,
                     mask: Optional[torch.Tensor] = None,
-                    agg_fn=aggregate) -> torch.Tensor:
+                    agg_fn=aggregate,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The encoder over the edge shards: node_emb -> conv1 -> ReLU ->
     dropout -> conv2, the replicated [N, hidden] rows. With ``train`` the
     layer-1 dropout is one mask over the replicated rows, the same on every
     shard as in the JAX layer, drawn from ``generator`` or given as
-    ``mask``."""
+    ``mask``. ``ops`` and ``mesh`` as in :func:`rgcn_layer_edge_sharded`."""
     enc = params["encoder"]
     cdt = compute_dtype(cfg)
     x = rgcn_layer_edge_sharded(enc["conv1"], enc["node_emb"], sg, ops,
-                                agg_fn=agg_fn, compute_dtype=cdt)
+                                agg_fn=agg_fn, compute_dtype=cdt, mesh=mesh)
     x = torch.relu(x)
     if train and cfg.dropout > 0.0:
         x = dropout(x, cfg.dropout, generator=generator, mask=mask)
     return rgcn_layer_edge_sharded(enc["conv2"], x, sg, ops, agg_fn=agg_fn,
-                                   compute_dtype=cdt)
+                                   compute_dtype=cdt, mesh=mesh)
 
 
 def _on_mesh(mesh: Mesh, sg: ShardedGraph):
+    """The shards on the mesh's device and the ops of this process's."""
     if sg.n_devices != mesh.n_shards:
         raise ValueError(f"edge shards {sg.n_devices}, mesh "
                          f"{mesh.n_shards}")
     sg = sg.to(mesh.device)
-    return sg, build_edge_ops(sg)
+    ops = build_edge_ops(sg)
+    return sg, [ops[d] for d in mesh.local]
 
 
 def build_sharded_forward(mesh: Mesh, sg: ShardedGraph,
@@ -265,7 +290,8 @@ def build_sharded_forward(mesh: Mesh, sg: ShardedGraph,
     sg, ops = _on_mesh(mesh, sg)
 
     def encode(params: Params) -> torch.Tensor:
-        return sharded_encoder(params, sg, ops, model_cfg, agg_fn=agg_fn)
+        return sharded_encoder(params, sg, ops, model_cfg, agg_fn=agg_fn,
+                               mesh=mesh)
 
     return encode
 
@@ -290,13 +316,20 @@ def build_sharded_train_step(mesh: Mesh, sg: ShardedGraph,
     does. Masks not given are drawn from ``generator``. Both return
     [loss_sum, correct, count] summed over the shards and micro-batches, on
     the device.
+
+    Across processes ``draw`` draws every shard's candidates and keeps its
+    own (None for another process's), ``update`` scores its own shards and
+    draws the others' decoder masks by shape, each process backpropagates
+    its shards' loss sum over the global count, and the gradients are
+    summed across the processes before ``apply_update``.
     """
     sg, ops = _on_mesh(mesh, sg)
     n = mesh.n_shards
     accum = max(int(accum_steps), 1)
+    local = mesh.local
 
     def draw(batch: torch.Tensor, generator: Optional[torch.Generator]
-             ) -> List[List[Candidates]]:
+             ) -> List[List[Optional[Candidates]]]:
         micro = batch.view(-1, *batch.shape[-2:])
         if micro.shape[0] != accum:
             raise ValueError(f"batch holds {micro.shape[0]} micro-batches, "
@@ -304,10 +337,11 @@ def build_sharded_train_step(mesh: Mesh, sg: ShardedGraph,
         b = micro.shape[1]
         if b % n:
             raise ValueError(f"batch {b} must divide by the {n}-shard mesh")
-        return [[candidate_batch(p[:, 0], p[:, 1], p[:, 2], sg.num_nodes,
-                                 train_cfg.num_neg_samples, mask=p[:, 3],
-                                 generator=generator)
-                 for p in m.view(n, b // n, 4)] for m in micro]
+        return [[c if d in local else None for d, c in enumerate(
+                    candidate_batch(p[:, 0], p[:, 1], p[:, 2], sg.num_nodes,
+                                    train_cfg.num_neg_samples, mask=p[:, 3],
+                                    generator=generator)
+                    for p in m.view(n, b // n, 4))] for m in micro]
 
     def update(params: Params, optimizer: torch.optim.Optimizer,
                micro_cands: Sequence[Sequence[Candidates]], *,
@@ -322,20 +356,33 @@ def build_sharded_train_step(mesh: Mesh, sg: ShardedGraph,
             node_emb = sharded_encoder(
                 params, sg, ops, model_cfg, train=True, generator=generator,
                 mask=None if enc_masks is None else enc_masks[i],
-                agg_fn=agg_fn)
+                agg_fn=agg_fn, mesh=mesh)
+            mine = [c for c in cands if c is not None]
             shard_stats = []
-            for d, (h, t, r, y, w) in enumerate(cands):
+            for d, c in enumerate(cands):
+                drop = model_cfg.decoder_dropout > 0.0
+                if c is None:
+                    # Another process's shard: its mask, drawn and dropped.
+                    if drop and dec_masks is None:
+                        torch.rand((mine[0][2].shape[0], rel_table.shape[1]),
+                                   generator=generator,
+                                   device=rel_table.device)
+                    continue
+                h, t, r, y, w = c
                 re = rel_table[r]
-                if model_cfg.decoder_dropout > 0.0:
+                if drop:
                     re = dropout(re, model_cfg.decoder_dropout,
                                  generator=generator,
                                  mask=None if dec_masks is None
                                  else dec_masks[i][d])
                 shard_stats.append(torch.stack(bce_stats(
                     distmult_score(node_emb[h], node_emb[t], re), y, w)))
-            micro = psum(shard_stats)
-            (micro[0] / micro[2].clamp(min=1.0)).backward()
-            stats += micro.detach()
+            own = psum(shard_stats)
+            micro = psum([own.detach()], mesh)
+            (own[0] / micro[2].clamp(min=1.0)).backward()
+            stats += micro
+        all_reduce_([p.grad for p in param_leaves(params)
+                     if p.grad is not None], mesh)
         apply_update(optimizer, train_cfg, accum=len(micro_cands))
         return stats
 

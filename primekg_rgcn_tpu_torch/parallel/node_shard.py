@@ -65,7 +65,8 @@ from primekg_rgcn_tpu_torch.ops.cuda.halo import HaloExchange
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
     AggOp, aggregate, materialize_relation_weights, promote_matmul)
-from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, all_gather, psum
+from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather, psum,
+                                                  refuse_across_processes)
 from primekg_rgcn_tpu_torch.train.loop import Candidates, apply_update
 from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
                                                        candidate_batch)
@@ -599,6 +600,7 @@ def sharded_encoder(params: Params, sg: NodeShardedGraph,
 
 
 def _on_mesh(mesh: Mesh, sg: NodeShardedGraph) -> List[ShardOps]:
+    refuse_across_processes(mesh, "the node layout")
     if sg.n_devices != mesh.n_shards:
         raise ValueError(f"partition has {sg.n_devices} shards, mesh "
                          f"{mesh.n_shards}")

@@ -7,6 +7,11 @@ RGCNConv keeps it, ``optimizer_state_dict``, ``epoch``, ``best_val_loss``,
 generators' states as tensors. The pickle holds nothing of this package,
 so the JAX package's ``checkpoint.load`` reads the file as it stands.
 
+Across processes (``--distributed``) every process calls ``save``, after
+building its payload (which gathers the sharded leaves), and process 0
+alone writes, as the JAX ``save`` does; ``AsyncSaver`` runs on process 0
+alone.
+
 The JAX package's own format (``path.msgpack`` + ``path.json``) needs flax
 to read. Convert such a checkpoint once with
 ``python -m primekg_rgcn_tpu.train.torch_interop export ckpt out.pt``.
@@ -22,6 +27,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from primekg_rgcn_tpu_torch.parallel.mesh import process_group_size
 from primekg_rgcn_tpu_torch.train.torch_interop import reference_from_blob
 
 # Entries of a trainer checkpoint that ``load`` passes through when present.
@@ -43,7 +49,10 @@ def is_torch_checkpoint(path: Path) -> bool:
 def save(path, payload: Dict[str, Any]) -> None:
     """Write ``payload`` with ``torch.save``, atomically: to a temporary
     file beside ``path``, then ``os.replace``, so that a run killed while
-    saving leaves the previous file whole."""
+    saving leaves the previous file whole. A no-op on every process of a
+    group but process 0."""
+    if process_group_size()[1] != 0:
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -82,7 +91,11 @@ class AsyncSaver:
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: Dict[Path, Future] = {}
 
-    def save_async(self, path, payload: Dict[str, Any]) -> Future:
+    def save_async(self, path, payload: Dict[str, Any]) -> Optional[Future]:
+        """Queue the write (None, and nothing done, on a process of a
+        group other than process 0)."""
+        if process_group_size()[1] != 0:
+            return None
         path = Path(path)
         earlier = self._pending.pop(path, None)
         if earlier is not None:

@@ -34,6 +34,16 @@ evaluation follow it. Checkpoints are reference-layout
 ``.pt`` files under ``<output_dir>/models`` and
 ``<output_dir>/checkpoints``; the log goes to stdout and
 ``<output_dir>/training.log``.
+
+--distributed runs one process a --process_id of --num_processes, which
+meet at --coordinator_address (process 0's host:port; without it the
+``torchrun`` environment), the mesh's --n_devices shards split over them
+(``train/multichip.maybe_initialize_distributed``: NCCL on cards of their
+own, gloo on the CPU or on a shared card). Across processes it trains
+--shard edge, or --sample_fanouts with --shard (dp, --zero1, --zero3,
+--dp_pods, --table_opt); any other layout raises, --shard node naming
+ROADMAP A10.4b. Process 0 alone writes the checkpoints, metrics.jsonl,
+training.log and the synthetic splits.
 """
 
 from __future__ import annotations
@@ -154,6 +164,16 @@ def parse_args(argv=None):
                         "--device; none: one device")
     p.add_argument("--n_devices", type=int, default=0,
                    help="shards for --shard (0 = the visible devices)")
+    p.add_argument("--distributed", action="store_true",
+                   help="initialize the torch.distributed runtime before "
+                        "building the mesh: NCCL when each process has a "
+                        "card of its own, gloo on the CPU or on a shared "
+                        "card")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of process 0 (default: torchrun's "
+                        "MASTER_ADDR and MASTER_PORT)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     args = p.parse_args(argv)
     if not re.fullmatch(r"uniform|truncate|block([1-9]\d*)?",
                         args.sample_mode):
@@ -173,9 +193,10 @@ def parse_args(argv=None):
     return args
 
 
-def _load_graphs(args):
+def _load_graphs(args, write: bool = True):
     """(train_graph, full_graph, train_edges, val_edges, num_nodes,
-    num_relations), all on the CPU."""
+    num_relations), all on the CPU. With ``--synthetic`` the splits are
+    written under ``<output_dir>/synthetic_data`` when ``write``."""
     from primekg_rgcn_tpu_torch.data import artifacts
     from primekg_rgcn_tpu_torch.data.graph import build_rel_graph
     from primekg_rgcn_tpu_torch.data.synthetic import (bidirect, primekg_like,
@@ -213,6 +234,8 @@ def _load_graphs(args):
         full_graph = build_rel_graph(src, dst, rel, n, r)
         log.info("Synthetic graph: %d nodes, %d train edges", n,
                  len(train_edges))
+        if not write:
+            return train_graph, full_graph, train_edges, val_edges, n, r
 
         out = Path(args.output_dir) / "synthetic_data"
         out.mkdir(parents=True, exist_ok=True)
@@ -245,21 +268,59 @@ def _load_graphs(args):
             train["num_nodes"], train["num_relations"])
 
 
+def _check_across_processes(args, world: int) -> None:
+    """Raise for a layout that does not train across ``world`` processes:
+    it would train alone in each of them."""
+    if world == 1:
+        return
+    if args.shard == "node" and not args.sample_fanouts:
+        raise ValueError(
+            f"--shard node across {world} processes is not ported (ROADMAP "
+            f"A10.4b: the node layout and its halo exchange run in one "
+            f"process); use --shard edge, or --sample_fanouts with --shard")
+    if args.shard == "none":
+        raise ValueError(
+            f"--num_processes {world} trains a mesh that spans the "
+            f"processes: pass --shard edge, or --sample_fanouts with "
+            f"--shard (each process would otherwise train alone)")
+
+
 def main(argv=None):
     args = parse_args(argv)
+    fmt = "%(asctime)s - %(name)s - %(levelname)s - %(message)s"
+    logging.basicConfig(level=logging.INFO, format=fmt,
+                        handlers=[logging.StreamHandler(sys.stdout)])
+    world, rank = 1, 0
+    if args.distributed:
+        # First thing: each process takes its card before anything
+        # touches CUDA, and the mesh reads the group.
+        import torch.distributed as dist
+
+        from primekg_rgcn_tpu_torch.train.multichip import (
+            maybe_initialize_distributed)
+
+        live = maybe_initialize_distributed(
+            args.coordinator_address, args.num_processes, args.process_id,
+            device=args.device)
+        if not live and (args.num_processes or 0) > 1:
+            raise RuntimeError(
+                "--distributed with --num_processes > 1 did not yield a "
+                "multi-process runtime")
+        if dist.is_initialized():
+            world, rank = dist.get_world_size(), dist.get_rank()
+    _check_across_processes(args, world)
     from primekg_rgcn_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
-    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
-        handlers=[logging.StreamHandler(sys.stdout)])
-    file_log = logging.FileHandler(Path(args.output_dir) / "training.log")
-    file_log.setFormatter(logging.Formatter(
-        "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
     root = logging.getLogger()
-    root.addHandler(file_log)
+    file_log = None
+    if rank == 0:
+        # training.log is process 0's: appends from several would tear.
+        Path(args.output_dir).mkdir(parents=True, exist_ok=True)
+        file_log = logging.FileHandler(Path(args.output_dir) /
+                                       "training.log")
+        file_log.setFormatter(logging.Formatter(fmt))
+        root.addHandler(file_log)
     try:
         import torch
 
@@ -270,7 +331,7 @@ def main(argv=None):
         from primekg_rgcn_tpu_torch.utils.telemetry import profile_trace
 
         (train_graph, full_graph, train_edges, val_edges,
-         num_nodes, num_relations) = _load_graphs(args)
+         num_nodes, num_relations) = _load_graphs(args, write=rank == 0)
         if args.compute_dtype is None:
             args.compute_dtype = "float32"
             if args.resume:
@@ -323,8 +384,9 @@ def main(argv=None):
         logging.getLogger("train").info("Training completed successfully!")
         return result
     finally:
-        root.removeHandler(file_log)
-        file_log.close()
+        if file_log is not None:
+            root.removeHandler(file_log)
+            file_log.close()
 
 
 if __name__ == "__main__":

@@ -58,6 +58,8 @@ from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import (
     BatchRanges, FinalLayerPlan, final_layer_ranges, final_layer_restricted,
     resolve_final_plan)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
+from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, check_same_across,
+                                                  process_group_size, psum)
 from primekg_rgcn_tpu_torch.train import checkpoint as ckpt_lib
 from primekg_rgcn_tpu_torch.train.graphs import (StepGraphs, run_segments,
                                                  steps_per_graph)
@@ -130,18 +132,26 @@ def _keep_capturable(optimizer: torch.optim.Optimizer, *,
                     state["step"], dtype=torch.float32).to(p.device)
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float, *,
+                         sharded: Sequence[torch.Tensor] = (),
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` where their global L2
     norm exceeds ``max_norm``, with no epsilon, as
     ``optax.clip_by_global_norm`` (``torch.nn.utils.clip_grad_norm_``
     divides by ``norm + 1e-6``). Returns the norm as a 0-d tensor on the
-    device, without a host synchronise."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    device, without a host synchronise. ``sharded`` are this process's
+    slices of gradients split over the processes of ``mesh``: their
+    squared norms are summed across the processes first, so the norm is
+    the global one, and they are scaled too."""
+    norms = [torch.linalg.vector_norm(g) for g in grads]
+    if sharded:
+        sq = torch.stack([torch.linalg.vector_norm(g)
+                          for g in sharded]).square().sum()
+        norms.insert(0, psum([sq], mesh).sqrt())
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     factor = torch.where(norm > max_norm, max_norm / norm,
                          torch.ones_like(norm))
-    for g in grads:
+    for g in (*sharded, *grads):
         g.mul_(factor)
     return norm
 
@@ -447,6 +457,11 @@ class Trainer:
     written by a background thread (``checkpoint.AsyncSaver``) from a host
     copy taken at the call; the final one is written at once, after the
     pending writes. Each epoch appends one event to ``metrics.jsonl``.
+
+    Across processes every process runs this loop and calls each save (the
+    snapshot may gather shards); process 0 alone writes the files. The
+    best-checkpoint and early-stop decisions read the validation loss,
+    whose bits are checked to agree across the processes each epoch.
     """
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -480,8 +495,10 @@ class Trainer:
         self.output_dir = Path(output_dir)
         self.checkpoint_dir = self.output_dir / "checkpoints"
         self.model_dir = self.output_dir / "models"
-        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
-        self.model_dir.mkdir(parents=True, exist_ok=True)
+        if process_group_size()[1] == 0:
+            # Across processes the files are process 0's alone.
+            self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+            self.model_dir.mkdir(parents=True, exist_ok=True)
         # The reference's checkpoints carry the CLI namespace; a Trainer
         # built without the CLI records the model's dimensions there.
         self.args = args or argparse.Namespace(
@@ -585,6 +602,8 @@ class Trainer:
             # The one host read of the epoch.
             tr_loss, tr_acc, val_loss, val_acc = torch.stack(
                 [tr_loss, tr_acc, val_loss, val_acc]).tolist()
+            # The checkpoint and early-stop decisions below read it.
+            check_same_across(val_loss, self.device, "the validation loss")
             epoch_time = time.time() - te
             epoch_times.append(epoch_time)
 

@@ -9,20 +9,40 @@ early-stop loop of the full-graph ``Trainer``, so ``python -m
 primekg_rgcn_tpu_torch.train.cli --shard edge --n_devices 4`` is a whole
 training run. Validation is the full-graph one on the mesh's device
 (parameters are replicated, so it is exact).
+
+``maybe_initialize_distributed`` brings up ``torch.distributed`` for the
+CLI's ``--distributed``: one process a ``--process_id``, each driving its
+shards of a mesh that spans them (``parallel/mesh.py``). The backend rule:
+
+- ``nccl`` when the device is a card and each process on the host has one
+  of its own;
+- ``gloo`` on the CPU;
+- ``gloo`` when processes share a card: NCCL refuses a communicator two of
+  whose ranks sit on one device.
+
+The edge layout's ``ShardedTrainer`` runs across processes, each process
+stepping its own shards; the node layout runs in one process only
+(ROADMAP A10.4b).
 """
 
 from __future__ import annotations
 
+import atexit
+import datetime
 import logging
+import os
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
 from primekg_rgcn_tpu_torch.parallel import edge_shard, node_shard
-from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+from primekg_rgcn_tpu_torch.device import resolve_device
+from primekg_rgcn_tpu_torch.parallel.mesh import (make_mesh,
+                                                  refuse_across_processes)
 from primekg_rgcn_tpu_torch.train.loop import (Trainer, build_eval_epoch,
                                                edges_with_sentinel,
                                                make_optimizer)
@@ -45,7 +65,9 @@ class ShardedTrainer(Trainer):
     generator. The epoch's loss and accuracy weigh every batch by its
     candidate count, as the JAX package's sharded trainer does.
     Checkpoints, metrics, early stopping, resume and validation are the
-    ``Trainer``'s.
+    ``Trainer``'s. Across processes (the edge layout) every process runs
+    the epoch over the same batches, stepping its own shards, and
+    validates the replicated parameters itself.
     """
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -58,6 +80,8 @@ class ShardedTrainer(Trainer):
         self._setup(model_cfg, train_cfg, output_dir, device, args,
                     train_edges)
         self.mesh = make_mesh(n_devices, self.device)
+        if shard == "node":
+            refuse_across_processes(self.mesh, "the node-sharded trainer")
         n = self.mesh.n_shards
         if train_cfg.batch_size % n:
             raise ValueError(f"batch_size {train_cfg.batch_size} must divide "
@@ -102,3 +126,75 @@ class ShardedTrainer(Trainer):
                                   batch[0] if self.accum == 1 else batch,
                                   device_gen)
         return stats[0] / stats[2], stats[1] / stats[2]
+
+
+# Seconds that the rendezvous, and each collective, may wait for a peer
+# (jax.distributed.initialize's own default).
+DIST_TIMEOUT_S = 300
+
+
+def _destroy_process_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def maybe_initialize_distributed(coordinator_address: Optional[str] = None,
+                                 num_processes: Optional[int] = None,
+                                 process_id: Optional[int] = None, *,
+                                 device="cuda") -> bool:
+    """Multi-process runtime bring-up (``torch.distributed``), the
+    counterpart of the JAX package's ``maybe_initialize_distributed``.
+
+    ``coordinator_address`` is process 0's ``host:port``, with
+    ``num_processes`` and ``process_id``; without it the environment that
+    ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``) is read, as JAX detects its cluster. Returns True when more
+    than one process is live afterwards; a second call is a no-op. Where no
+    cluster is found, or the rendezvous fails (``DIST_TIMEOUT_S``), it warns
+    and returns False.
+
+    On a card each process first takes its own (``LOCAL_RANK``, else
+    ``process_id`` modulo the cards), before the group forms and before
+    anything touches CUDA. The backend follows the rule in the module
+    docstring; processes share a card when the host's process count
+    (``LOCAL_WORLD_SIZE``, else ``num_processes``) exceeds its cards. The
+    group is destroyed at exit, so that a process that raises closes its
+    connections instead of leaving its peers waiting.
+    """
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    env = os.environ
+    if coordinator_address:
+        if num_processes is None or process_id is None:
+            raise ValueError("--coordinator_address needs --num_processes "
+                             "and --process_id")
+        init_method = f"tcp://{coordinator_address}"
+        world, rank = int(num_processes), int(process_id)
+    elif all(k in env for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                                "RANK")):
+        init_method = "env://"
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+    else:
+        logger.warning("--distributed: no --coordinator_address and no "
+                       "torchrun environment (MASTER_ADDR, MASTER_PORT, "
+                       "WORLD_SIZE, RANK); continuing single-process")
+        return False
+    backend, where = "gloo", "cpu"
+    if resolve_device(device).type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank % cards)))
+        on_host = int(env.get("LOCAL_WORLD_SIZE", world))
+        backend = "nccl" if on_host <= cards else "gloo"
+        where = f"cuda:{torch.cuda.current_device()}"
+    try:
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    except dist.DistError as exc:
+        logger.warning("torch.distributed rendezvous at %s failed (%s); "
+                       "continuing single-process", init_method, exc)
+        return False
+    atexit.register(_destroy_process_group)
+    logger.info("torch.distributed: backend %s, process %d of %d on %s",
+                backend, rank, world, where)
+    return dist.get_world_size() > 1

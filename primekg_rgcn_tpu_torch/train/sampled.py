@@ -28,6 +28,15 @@ step's stream order: negatives, then sampling, then dropout, shard after
 shard in the data-parallel steps (JAX derives each device's streams with
 ``fold_in(key, device)`` instead). A test may hand a step its candidates,
 sampler draws and dropout masks, per shard in the data-parallel steps.
+
+Across processes (a mesh whose shards ``parallel/mesh.py`` splits over a
+process group) each process samples and scores only its own shards, but
+draws every shard's random numbers, another process's sampler uniforms
+and dropout mask by shape, so its generator stays where a one-process run
+leaves it. Each process backpropagates its own shards' loss sum; the
+replicated parameters' gradients are then summed across the processes,
+the slice gradients of the sharded table stay with their owners, and the
+trio (loss sum, correct, count) is summed across the processes.
 On one device the trainer runs the JAX trainer's ``lax.scan`` chunks as
 CUDA graphs of ``steps_per_scan`` steps (``train/graphs.py``); the
 data-parallel steps run eagerly. Either way the host reads the losses once
@@ -58,6 +67,8 @@ from primekg_rgcn_tpu_torch.models.rgcn import (Params, compute_dtype,
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
 from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather,
+                                                  all_reduce_,
+                                                  check_same_across,
                                                   make_mesh, make_mesh_2d,
                                                   psum, psum_scatter,
                                                   shard_groups)
@@ -148,6 +159,9 @@ def _sampler(csr, fanouts, mode: str, device, allow_ident: bool,
 
     sample.csr, sample.budgets, sample.use_combined = (csr, budgets,
                                                        use_combined)
+    sample.draw_shapes = lambda n_seeds: sampling.draw_shapes(
+        csr, n_seeds, sampled, mode, combined=use_combined,
+        allow_ident=allow_ident)
     return sample
 
 
@@ -224,7 +238,8 @@ def factored_slice_update(g: torch.Tensor, state: Dict[str, torch.Tensor],
                           *, axis_name: Optional[str],
                           row_valid: torch.Tensor, n_valid: int, lr: float,
                           decay_rate: float = 0.8, eps: float = 1e-30,
-                          clip_threshold: float = 1.0):
+                          clip_threshold: float = 1.0,
+                          mesh: Optional[Mesh] = None):
     """Adafactor update of a row-sliced [N, D] table: ``(update, new_state)``
     (``factored_slice_update`` in the JAX package).
 
@@ -238,14 +253,15 @@ def factored_slice_update(g: torch.Tensor, state: Dict[str, torch.Tensor],
     unpadded dense table for any slicing. ``row_valid`` (float32, g's shape
     without D) masks the padded tail rows out of every cross-row statistic
     and out of the update; ``n_valid`` is the true row count N. The
-    statistics are float32.
+    statistics are float32. With a ``mesh`` whose processes split the
+    slices, ``g`` holds this process's and the two sums run across them.
     """
     g = g.float()
     sliced = axis_name is not None
 
     def across(x):
         # One total, read by every slice.
-        return psum(x).expand_as(x) if sliced else x
+        return psum(x, mesh).expand_as(x) if sliced else x
 
     t = (state["count"] + 1).float()            # optax: count + 1
     decay = (1.0 - t ** (-decay_rate))[..., None]
@@ -313,11 +329,19 @@ class SplitOptimizer:
     [n, n_loc, D] (zero1, and zero3 with ``table_opt="sgd"``) or the
     factored adafactor statistics, a dict of tensors
     (:func:`factored_slice_init`). ``state_dict`` holds both, so checkpoints
-    and resume keep the per-slice state."""
+    and resume keep the per-slice state.
 
-    def __init__(self, rest: torch.optim.Optimizer, table):
+    ``mesh``: where the slices are split over processes (each holds those
+    of its shards, ``mesh.local``), ``state_dict`` gathers every process's
+    slices of the table state (its tensors of one or more axes, stacked
+    over the slices), so a checkpoint holds all n as on one process, and
+    ``load_state_dict`` keeps this process's."""
+
+    def __init__(self, rest: torch.optim.Optimizer, table,
+                 mesh: Optional[Mesh] = None):
         self.rest = rest
         self.table = table
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.rest.zero_grad(set_to_none=set_to_none)
@@ -328,16 +352,35 @@ class SplitOptimizer:
         table = (self.table.state_dict()
                  if isinstance(self.table, torch.optim.Optimizer)
                  else dict(self.table))
+        if self.mesh is not None:
+            table = _map_slices(table, lambda t: all_gather(t,
+                                                            mesh=self.mesh))
         return {"rest": self.rest.state_dict(), "table": table}
 
     def load_state_dict(self, state) -> None:
         self.rest.load_state_dict(state["rest"])
+        table = state["table"]
+        if self.mesh is not None:
+            own = self.mesh.local
+            table = _map_slices(table, lambda t: t[own.start:own.stop])
         if isinstance(self.table, torch.optim.Optimizer):
-            self.table.load_state_dict(state["table"])
+            self.table.load_state_dict(table)
         else:
             # In place: a captured step reads these tensors.
-            for k, v in state["table"].items():
+            for k, v in table.items():
                 self.table[k].copy_(v)
+
+
+def _map_slices(obj, fn):
+    """``obj`` with ``fn`` applied to every tensor of one or more axes (the
+    per-slice state; a 0-d tensor, such as adam's step, is shared)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj) if obj.dim() else obj
+    if isinstance(obj, dict):
+        return type(obj)((k, _map_slices(v, fn)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_slices(v, fn) for v in obj)
+    return obj
 
 
 def _assign_(table: Dict[str, torch.Tensor],
@@ -567,14 +610,34 @@ def build_sampled_eval_epoch(csr, val_edges: np.ndarray,
 # -- data-parallel steps over a mesh ------------------------------------------
 
 
+def _local(mesh: Mesh) -> Optional[range]:
+    """The shards this process holds, or None when it holds them all."""
+    return mesh.local if mesh.world > 1 else None
+
+
+def _recording(draw, drawn: list):
+    """``draw``, appending the shape of each call to ``drawn``."""
+    def recorded(shape):
+        drawn.append(tuple(shape))
+        return draw(shape)
+    return recorded
+
+
 def _draw_shards(pos_edges: torch.Tensor, n: int, model_cfg: ModelConfig,
                  train_cfg: TrainConfig, generator, sample, *, cands=None,
-                 draw=None, enc_mask=None, train: bool = True):
+                 draw=None, enc_mask=None, train: bool = True,
+                 local: Optional[range] = None):
     """Each shard's (candidates, sampled batch, dropout mask): shard i
     takes rows [i B/n, (i + 1) B/n) of ``pos_edges`` ([B, 3], or [B, 4]
     whose last column marks the real rows) and draws its negatives, its
     sampler uniforms and its dropout mask, shard after shard. ``cands``,
     ``draw`` and ``enc_mask`` are per-shard lists that replace the draws.
+
+    ``local``: the shards this process holds (all when None). Every
+    shard's numbers are drawn from ``generator`` in the same order; a shard
+    outside ``local`` is not sampled: its sampler uniforms and its mask are
+    drawn by shape (``sample.draw_shapes``) and dropped, and its entry is
+    None.
     """
     b = pos_edges.shape[0]
     if b % n:
@@ -587,37 +650,66 @@ def _draw_shards(pos_edges: torch.Tensor, n: int, model_cfg: ModelConfig,
             train_cfg.num_neg_samples,
             mask=pos[:, 3] > 0 if pos.shape[1] > 3 else None,
             generator=generator)
-        batch = sample(torch.cat([c[0], c[1]]).to(torch.int32),
-                       draw[i] if draw is not None
-                       else uniform_draw(generator, device))
+        seeds = torch.cat([c[0], c[1]]).to(torch.int32)
+        own_mask = train and model_cfg.dropout > 0.0 and enc_mask is None
+        shard_draw = draw[i] if draw is not None else uniform_draw(generator,
+                                                                   device)
+        if local is not None:
+            # What this shard draws from the generator, by shape.
+            shapes, rows = sample.draw_shapes(seeds.shape[0])
+            shapes = ([] if draw is not None else shapes) + (
+                [(rows, model_cfg.hidden_dim)] if own_mask else [])
+            if i not in local:
+                for shape in shapes:
+                    torch.rand(shape, generator=generator, device=device)
+                out.append(None)
+                continue
+            drawn = []
+            if draw is None:
+                shard_draw = _recording(shard_draw, drawn)
+        batch = sample(seeds, shard_draw)
         mask = None
         if train and model_cfg.dropout > 0.0:
             # The encoder's keep mask over layer 1's rows, drawn as
             # models/rgcn.dropout draws it.
+            shape = (batch.blocks[0].m_out, model_cfg.hidden_dim)
             mask = enc_mask[i] if enc_mask is not None else torch.rand(
-                (batch.blocks[0].m_out, model_cfg.hidden_dim),
-                generator=generator, device=device) < 1.0 - model_cfg.dropout
+                shape, generator=generator, device=device
+            ) < 1.0 - model_cfg.dropout
+            if local is not None and own_mask:
+                drawn.append(shape)
+        if local is not None and drawn != shapes:
+            raise RuntimeError(
+                f"shard {i} drew {drawn} where sampling.draw_shapes says "
+                f"{shapes}: the processes' generators would part")
         out.append((c, batch, mask))
     return out
 
 
 def _shard_stats(params: Params, shards, model_cfg: ModelConfig, *,
                  train: bool, x0s=None) -> torch.Tensor:
-    """[3] (loss_sum, correct, count) summed over the shards (their psum),
-    the loss sum differentiable."""
-    return psum([torch.stack(sampled_stats(
-        params, batch, cands, model_cfg, train=train, enc_mask=mask,
-        x0=None if x0s is None else x0s[i]))
-        for i, (cands, batch, mask) in enumerate(shards)])
+    """[3] (loss_sum, correct, count) summed over this process's shards
+    (their psum; None entries are another process's), the loss sum
+    differentiable."""
+    stats = []
+    for i, shard in enumerate(shards):
+        if shard is not None:
+            cands, batch, mask = shard
+            stats.append(torch.stack(sampled_stats(
+                params, batch, cands, model_cfg, train=train, enc_mask=mask,
+                x0=None if x0s is None else x0s[i])))
+    return psum(stats)
 
 
 def _backward_stats(params: Params, shards, model_cfg: ModelConfig, *,
-                    x0s=None) -> torch.Tensor:
+                    x0s=None, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Every shard's loss sum, added and backpropagated once (the psum of
-    the gradients). Returns the stats [3], detached."""
+    the gradients; across processes each backpropagates its own shards').
+    Returns the stats [3], detached and summed across ``mesh``'s
+    processes."""
     trio = _shard_stats(params, shards, model_cfg, train=True, x0s=x0s)
     trio[0].backward()
-    return trio.detach()
+    return psum([trio.detach()], mesh)
 
 
 def build_sampled_train_step_dp(csr, model_cfg: ModelConfig,
@@ -633,7 +725,8 @@ def build_sampled_train_step_dp(csr, model_cfg: ModelConfig,
     sums are backpropagated once, the gradients divided by the total
     candidate count, then ``apply_update`` (clip, then the optimizer step,
     ``step.init_optimizer(params)``: every parameter). The CSR and the
-    parameters are replicated. ``B % n`` raises.
+    parameters are replicated; across processes the gradients are summed
+    across them before the division. ``B % n`` raises.
     """
     sample = _sampler(csr, fanouts, mode, mesh.device, allow_ident=False)
 
@@ -642,13 +735,14 @@ def build_sampled_train_step_dp(csr, model_cfg: ModelConfig,
              enc_mask=None):
         shards = _draw_shards(pos_edges, mesh.n_shards, model_cfg, train_cfg,
                               generator, sample, cands=cands, draw=draw,
-                              enc_mask=enc_mask)
+                              enc_mask=enc_mask, local=_local(mesh))
         optimizer.zero_grad(set_to_none=True)
-        trio = _backward_stats(params, shards, model_cfg)
+        trio = _backward_stats(params, shards, model_cfg, mesh=mesh)
         total = trio[2].clamp(min=1.0)
-        for p in param_leaves(params):
-            if p.grad is not None:
-                p.grad.div_(total)
+        grads = [p.grad for p in param_leaves(params) if p.grad is not None]
+        all_reduce_(grads, mesh)
+        for g in grads:
+            g.div_(total)
         apply_update(optimizer, train_cfg)
         return trio[0] / total, trio[1] / total
 
@@ -672,32 +766,39 @@ def build_sampled_train_step_zero1(csr, model_cfg: ModelConfig,
     ``[:N]``). The other parameters are updated once. The optimizer
     (``step.init_optimizer(params)``) is a :class:`SplitOptimizer` whose
     ``table`` steps the slices stacked [n, n_loc, D], so its moments are
-    the per-slice ones, [n, n_loc, D].
+    the per-slice ones, [n, n_loc, D]. Across processes each holds the
+    slices of its own shards and their state, and the table is rebuilt
+    from every process's slices.
     """
     sample = _sampler(csr, fanouts, mode, mesh.device, allow_ident=False)
     n = mesh.n_shards
     n_nodes = model_cfg.num_nodes
     n_loc = -(-n_nodes // n)
+    # This process's slices hold the table's rows [lo, hi).
+    lo = mesh.local.start * n_loc
+    hi = max(min(mesh.local.stop * n_loc, n_nodes), lo)
 
     def init_optimizer(params: Params) -> SplitOptimizer:
         emb, rest = _split_emb(params)
-        slices = torch.zeros(n, n_loc, emb.shape[1], dtype=emb.dtype,
-                             device=emb.device)
+        slices = torch.zeros(len(mesh.local), n_loc, emb.shape[1],
+                             dtype=emb.dtype, device=emb.device)
         return SplitOptimizer(make_optimizer(train_cfg, rest),
-                              make_optimizer(train_cfg, [slices]))
+                              make_optimizer(train_cfg, [slices]),
+                              mesh=mesh)
 
     def step(params: Params, optimizer: SplitOptimizer,
              pos_edges: torch.Tensor, generator: torch.Generator, *,
              cands=None, draw=None, enc_mask=None):
         shards = _draw_shards(pos_edges, n, model_cfg, train_cfg, generator,
                               sample, cands=cands, draw=draw,
-                              enc_mask=enc_mask)
+                              enc_mask=enc_mask, local=_local(mesh))
         emb = params["encoder"]["node_emb"]
         optimizer.zero_grad(set_to_none=True)
         emb.grad = None
-        trio = _backward_stats(params, shards, model_cfg)
+        trio = _backward_stats(params, shards, model_cfg, mesh=mesh)
         total = trio[2].clamp(min=1.0)
         grads = [p.grad for p in param_leaves(params) if p.grad is not None]
+        all_reduce_(grads, mesh)
         for g in grads:
             g.div_(total)
         if train_cfg.grad_clip and train_cfg.grad_clip > 0:
@@ -707,11 +808,12 @@ def build_sampled_train_step_zero1(csr, model_cfg: ModelConfig,
         with torch.no_grad():
             # Each shard's row slice of the replicated table and of its
             # gradient; the pad rows stay zero.
-            all_gather(slices, tiled=True)[:n_nodes].copy_(emb)
+            d = slices.shape[-1]
+            slices.view(-1, d)[:hi - lo].copy_(emb[lo:hi])
             slices.grad = torch.zeros_like(slices)
-            all_gather(slices.grad, tiled=True)[:n_nodes].copy_(emb.grad)
+            slices.grad.view(-1, d)[:hi - lo].copy_(emb.grad[lo:hi])
             optimizer.table.step()
-            emb.copy_(all_gather(slices, tiled=True)[:n_nodes])
+            emb.copy_(all_gather(slices, tiled=True, mesh=mesh)[:n_nodes])
         optimizer.rest.step()
         return trio[0] / total, trio[1] / total
 
@@ -736,33 +838,40 @@ class ShardedRowFetch(torch.autograd.Function):
     ``data/sampling._sorted_accumulate`` (kernel B2 on the card). Each
     chunk is a frontier, sorted-unique, so its clipped local ids stay
     sorted, and the rows an owner does not hold add zeros.
+
+    ``apply(emb_dm, owned, loc_ids, mesh)``, with a ``mesh`` whose
+    processes split the tp group: ``emb_dm``, ``owned`` and ``loc_ids``
+    hold this process's k owners (the same shards are its requesters) and
+    the forward returns its requesters' rows [k, cap, D]; the
+    ``psum_scatter`` and the cotangents' ``all_gather`` run across the
+    processes, and each owner still sums all n requesters' chunks.
     """
 
     @staticmethod
-    def forward(ctx, emb_dm, owned, loc_ids):
+    def forward(ctx, emb_dm, owned, loc_ids, mesh=None):
         ctx.save_for_backward(owned, loc_ids)
-        ctx.n_loc, ctx.dtype = emb_dm.shape[1], emb_dm.dtype
+        ctx.n_loc, ctx.dtype, ctx.mesh = emb_dm.shape[1], emb_dm.dtype, mesh
         owner = torch.arange(emb_dm.shape[0], device=emb_dm.device)[:, None]
         contrib = torch.where(owned[..., None], emb_dm[owner, loc_ids.long()],
                               torch.zeros((), dtype=emb_dm.dtype,
                                           device=emb_dm.device))
-        return psum_scatter(contrib)
+        return psum_scatter(contrib, mesh)
 
     @staticmethod
     def backward(ctx, g_rows):
         owned, loc_ids = ctx.saved_tensors
-        n, cap = g_rows.shape[0], g_rows.shape[1]
+        cap = g_rows.shape[1]
         # psum_scatter's transpose: every owner sees every requester's rows.
-        g_all = all_gather(g_rows, tiled=True)
+        g_all = all_gather(g_rows, tiled=True, mesh=ctx.mesh)
         zero = torch.zeros((), dtype=g_all.dtype, device=g_all.device)
         slices = []
-        for o in range(n):
+        for o in range(owned.shape[0]):
             g_o = torch.where(owned[o][:, None], g_all, zero)
             parts = [sampling._sorted_accumulate(
                 g_o[r * cap:(r + 1) * cap], loc_ids[o, r * cap:(r + 1) * cap],
-                ctx.n_loc) for r in range(n)]
+                ctx.n_loc) for r in range(g_all.shape[0] // cap)]
             slices.append(psum(parts))
-        return torch.stack(slices).to(ctx.dtype), None, None
+        return torch.stack(slices).to(ctx.dtype), None, None, None
 
 
 def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
@@ -792,6 +901,14 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     validation of one [B, 4] batch, (loss_sum, correct, count). The flat
     n_dp * n_tp mesh gives the same parameters as the (n_dp, n_tp) one, up
     to summation order.
+
+    Across processes: on a 1-D mesh each process holds the slices of its
+    own shards, [n_tp / P, n_loc, D] (``step.owners``), the fetch runs
+    across the processes and the clip sums the slices' squared norms
+    across them; ``step.to_full`` and ``step.full_params`` gather the
+    slices, so every process calls them. On an (n_dp, n_tp) mesh each
+    process holds whole dp rows and the whole table, and only the dp sum
+    of the slice gradients crosses processes.
     """
     if table_opt not in ("sgd", "adafactor"):
         raise ValueError(f"unknown table_opt {table_opt!r}")
@@ -808,16 +925,25 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     n_nodes = model_cfg.num_nodes
     n_loc = -(-n_nodes // n_tp)
     pad_rows = n_tp * n_loc - n_nodes
+    # The mesh's axes that cross processes: a 1-D mesh's tp row, or the dp
+    # axis of a mesh whose processes hold whole rows.
+    tp_across = mesh if n_tp > len(mesh.local) else None
+    dp_across = mesh if mesh.world > 1 and mesh.n_dp > 1 else None
+    owners = mesh.local if tp_across is not None else range(n_tp)
     row_valid = (torch.arange(n_tp * n_loc, device=dev)
-                 < n_nodes).float().view(n_tp, n_loc)
-    offsets = torch.arange(n_tp, device=dev)[:, None] * n_loc
+                 < n_nodes).float().view(n_tp, n_loc)[owners.start:
+                                                      owners.stop]
+    offsets = torch.arange(owners.start, owners.stop,
+                           device=dev)[:, None] * n_loc
     ends = (offsets + n_loc).clamp(max=n_nodes)
 
     def to_sharded(emb_full: torch.Tensor) -> torch.Tensor:
-        return F.pad(emb_full, (0, 0, 0, pad_rows)).view(n_tp, n_loc, -1)
+        return F.pad(emb_full, (0, 0, 0, pad_rows)).view(
+            n_tp, n_loc, -1)[owners.start:owners.stop]
 
     def to_full(emb_dm: torch.Tensor) -> torch.Tensor:
-        return emb_dm.reshape(n_tp * n_loc, -1)[:n_nodes]
+        return all_gather(emb_dm, mesh=tp_across).reshape(
+            n_tp * n_loc, -1)[:n_nodes]
 
     def shard_params(params: Params) -> Params:
         """A new parameter dict whose table is a sharded copy of
@@ -827,60 +953,75 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
                           .requires_grad_(True))
 
     def full_params(params: Params) -> Params:
-        """``params`` with the table gathered whole, [N, D] (a view)."""
+        """``params`` with the table gathered whole, [N, D] (a view on one
+        process)."""
         emb, rest = _split_emb(params)
         return _merge_emb(rest, to_full(emb))
 
     def fetch(emb_dm: torch.Tensor, batches) -> torch.Tensor:
-        """One tp group's frontier rows, [n_tp, cap, D]. Sentinel ids and
-        pad rows are owned by nobody: their rows are zero."""
-        all_ids = all_gather([b.frontier for b in batches], tiled=True)
+        """One tp group's frontier rows, [n_tp, cap, D] (across processes
+        this process's requesters'). Sentinel ids and pad rows are owned
+        by nobody: their rows are zero."""
+        all_ids = all_gather([b.frontier for b in batches], tiled=True,
+                             mesh=tp_across)
         owned = (all_ids >= offsets) & (all_ids < ends)
         loc_ids = (all_ids - offsets).clamp(0, n_loc - 1).to(torch.int32)
-        return ShardedRowFetch.apply(emb_dm, owned, loc_ids)
+        return ShardedRowFetch.apply(emb_dm, owned, loc_ids, tp_across)
 
-    def fetch_all(replicas, shards) -> List[torch.Tensor]:
-        rows = []
+    def fetch_all(replicas, shards) -> List[Optional[torch.Tensor]]:
+        """Each shard's frontier rows, by flat index (None: another
+        process's)."""
+        rows: List[Optional[torch.Tensor]] = [None] * mesh.n_shards
         for emb_dm, group in zip(replicas, shard_groups(mesh)):
-            rows.extend(fetch(emb_dm, [shards[s][1] for s in group]))
+            for s, r in zip(group, fetch(emb_dm,
+                                         [shards[s][1] for s in group])):
+                rows[s] = r
         return rows
 
     def init_optimizer(params: Params) -> SplitOptimizer:
         emb_dm, rest = _split_emb(params)
         table = (factored_slice_init(n_loc, emb_dm.shape[-1], device=dev,
-                                     n_slices=n_tp) if factored
+                                     n_slices=len(owners)) if factored
                  else make_optimizer(train_cfg, [emb_dm]))
-        return SplitOptimizer(make_optimizer(train_cfg, rest), table)
+        return SplitOptimizer(make_optimizer(train_cfg, rest), table,
+                              mesh=tp_across)
 
     def step(params: Params, optimizer: SplitOptimizer,
              pos_edges: torch.Tensor, generator: torch.Generator, *,
              cands=None, draw=None, enc_mask=None):
         shards = _draw_shards(pos_edges, mesh.n_shards, model_cfg, train_cfg,
                               generator, sample, cands=cands, draw=draw,
-                              enc_mask=enc_mask)
+                              enc_mask=enc_mask, local=_local(mesh))
         emb_dm, rest = _split_emb(params)
         optimizer.zero_grad(set_to_none=True)
         # Each dp row's replica of the slices: a view of the one table with
         # a gradient of its own, that row's partial gradient.
         replicas = [emb_dm.detach().requires_grad_(True)
-                    for _ in range(mesh.n_dp)]
+                    for _ in shard_groups(mesh)]
         trio = _backward_stats(params, shards, model_cfg,
-                               x0s=fetch_all(replicas, shards))
+                               x0s=fetch_all(replicas, shards), mesh=mesh)
         total = trio[2].clamp(min=1.0)
-        g_emb = psum([r.grad / total for r in replicas])
+        g_emb = psum([r.grad / total for r in replicas], dp_across)
         rest_grads = [p.grad for p in param_leaves(rest) if p.grad is not None]
+        all_reduce_(rest_grads, mesh)
         for g in rest_grads:
             g.div_(total)
         if train_cfg.grad_clip and train_cfg.grad_clip > 0:
             # The slices partition the rows: their squared norms add up to
             # the dense table's.
-            clip_by_global_norm_([g_emb, *rest_grads], train_cfg.grad_clip)
+            if tp_across is None:
+                clip_by_global_norm_([g_emb, *rest_grads],
+                                     train_cfg.grad_clip)
+            else:
+                clip_by_global_norm_(rest_grads, train_cfg.grad_clip,
+                                     sharded=[g_emb], mesh=tp_across)
         emb_dm.grad = g_emb
         with torch.no_grad():
             if factored:
                 upd, state = factored_slice_update(
                     g_emb, optimizer.table, axis_name="tp",
-                    row_valid=row_valid, n_valid=n_nodes, lr=train_cfg.lr)
+                    row_valid=row_valid, n_valid=n_nodes, lr=train_cfg.lr,
+                    mesh=tp_across)
                 emb_dm.add_(upd.to(emb_dm.dtype))
                 optimizer.table.update(state)
             else:
@@ -891,18 +1032,20 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     def eval_batch(params: Params, pos_mask: torch.Tensor,
                    generator: torch.Generator, *, cands=None, draw=None):
         """[3] (loss_sum, correct, count) of one [B, 4] (head, tail, rel,
-        valid) batch, with the same sharded fetch and no dropout; add them
-        over the batches for exact epoch means."""
+        valid) batch, with the same sharded fetch and no dropout, summed
+        across processes; add them over the batches for exact epoch
+        means."""
         shards = _draw_shards(pos_mask, mesh.n_shards, model_cfg, train_cfg,
                               generator, sample, cands=cands, draw=draw,
-                              train=False)
+                              train=False, local=_local(mesh))
         emb_dm = params["encoder"]["node_emb"]
         with torch.no_grad():
-            return _shard_stats(
+            return psum([_shard_stats(
                 params, shards, model_cfg, train=False,
-                x0s=fetch_all([emb_dm] * mesh.n_dp, shards))
+                x0s=fetch_all([emb_dm] * len(shard_groups(mesh)), shards))],
+                mesh)
 
-    step.sample, step.mesh = sample, mesh
+    step.sample, step.mesh, step.owners = sample, mesh, owners
     step.init_optimizer = init_optimizer
     step.to_full, step.to_sharded = to_full, to_sharded
     step.shard_params, step.full_params = shard_params, full_params
@@ -1186,6 +1329,7 @@ class SampledTrainer(Trainer):
             tr_loss = float(np.mean(vals[0:2 * steps:2]))
             tr_acc = float(np.mean(vals[1:2 * steps:2]))
             val_loss, val_acc = vals[-2:]
+            check_same_across(val_loss, self.device, "the validation loss")
             epoch_time = time.time() - te
             epoch_times.append(epoch_time)
             for k, v in (("train_losses", tr_loss), ("val_losses", val_loss),

@@ -23,22 +23,31 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from primekg_rgcn_tpu_torch.parallel.mesh import process_group_size
+
 
 class MetricsLogger:
-    """Append-only JSONL metrics stream."""
+    """Append-only JSONL metrics stream. Across processes only process 0
+    opens the file (every process constructs a logger and logs; appends
+    from several would interleave torn lines)."""
 
     def __init__(self, path):
         self.path = Path(path)
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self._f = open(self.path, "a")
+        self._f = None
+        if process_group_size()[1] == 0:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self._f = open(self.path, "a")
 
     def log(self, event: str, **fields: Any) -> None:
+        if self._f is None:
+            return
         rec = {"event": event, "time": time.time(), **fields}
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def device_memory_stats(device) -> Dict[str, int]:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The sharded layouts' phases of ``chip_smoke.py`` alone, on one CUDA card.
 
-    python3 scripts/port_sharded_phases.py [node] [edge] [dp]
+    python3 scripts/port_sharded_phases.py [node] [edge] [dp] [dist]
 
-Run from the repository's root; no argument runs all three groups. It
+Run from the repository's root; no argument runs all four groups. It
 builds kernels B1, B2, B3 and B4 (and the C++ graph builder), then drives
 ``chip_smoke.py``'s own phase functions at their full sizes, the node and
 edge groups with fewer timed steps:
@@ -19,7 +19,10 @@ edge groups with fewer timed steps:
   the edge CLI;
 - dp: the data-parallel sampled steps (``sampled_dp_grad``, the fetch
   backward's B2 stream, ``sampled_dp_train``, ``sampled_dp_cli``) and
-  ``full_kg_zero3`` on config 4's graph, as in ``chip_smoke.py``.
+  ``full_kg_zero3`` on config 4's graph, as in ``chip_smoke.py``;
+- dist: ``--distributed`` (``phase_distributed``): the one-process NCCL
+  edge CLI against the plain one, and the edge and zero3 steps on two
+  processes of the one card against one process.
 
 Each phase prints its ``chip_smoke.py`` line, and a ``##`` line gives the
 seconds since the start: a quick check of these paths before a whole
@@ -62,8 +65,8 @@ def main():
         print(f"## {what} at {time.perf_counter() - t_start:.1f}s",
               flush=True)
 
-    groups = set(sys.argv[1:]) or {"node", "edge", "dp"}
-    if groups - {"node", "edge", "dp"}:
+    groups = set(sys.argv[1:]) or {"node", "edge", "dp", "dist"}
+    if groups - {"node", "edge", "dp", "dist"}:
         print(f"unknown groups {sorted(groups)}", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -113,38 +116,42 @@ def main():
             mark("sampled_dp_train")
             cs.phase_sampled_dp_cli(tmp)
             mark("sampled_dp_cli")
-        g3_cpu, edges3 = cs.phase_full_kg_graph(REPO)
-        g3 = g3_cpu.to(dev)
-        cfg3 = ModelConfig(num_nodes=g3.num_nodes,
-                           num_relations=g3.num_relations)
-        if "node" in groups:
-            psg3 = partition_nodes(g3_cpu, cs.N_SHARDS)
-            mark("full_kg_node_partition")
-            cs.phase_node_grad(g3, psg3, cfg3, edges3, dev,
-                               label="full_kg_node_grad")
-            mark("full_kg_node_grad")
-            cs.phase_node_train(psg3, cfg3, edges3, dev, tmp, steps=4,
-                                label="full_kg_node_train")
-            mark("full_kg_node_train")
-            kept = partition_nodes(g3_cpu, cs.N_SHARDS, uniform_caps=False)
-            cs.phase_node_train(kept, cfg3, edges3, dev, tmp, steps=4,
-                                label="full_kg_node_train_kept")
-            mark("full_kg_node_train_kept")
-            del kept
-            cs.phase_full_kg_node_serve(g3, psg3, dev)
-            mark("full_kg_node_serve")
-        if "edge" in groups:
-            cs.phase_edge_grad(g3, cfg3, edges3, dev,
-                               label="full_kg_edge_grad")
-            mark("full_kg_edge_grad")
-            cs.phase_edge_train(g3, cfg3, edges3, dev, tmp, steps=4,
-                                label="full_kg_edge_train")
-            mark("full_kg_edge_train")
-            cs.phase_edge_cli(tmp)
-            mark("edge_cli")
-        if "dp" in groups:
-            cs.phase_full_kg_zero3(g3, cfg3, edges3, dev, tmp)
-            mark("full_kg_zero3")
+        if "dist" in groups:
+            cs.phase_distributed(REPO, tmp, graph, cfg, edges, dev)
+            mark("distributed")
+        if groups & {"node", "edge", "dp"}:
+            g3_cpu, edges3 = cs.phase_full_kg_graph(REPO)
+            g3 = g3_cpu.to(dev)
+            cfg3 = ModelConfig(num_nodes=g3.num_nodes,
+                               num_relations=g3.num_relations)
+            if "node" in groups:
+                psg3 = partition_nodes(g3_cpu, cs.N_SHARDS)
+                mark("full_kg_node_partition")
+                cs.phase_node_grad(g3, psg3, cfg3, edges3, dev,
+                                   label="full_kg_node_grad")
+                mark("full_kg_node_grad")
+                cs.phase_node_train(psg3, cfg3, edges3, dev, tmp, steps=4,
+                                    label="full_kg_node_train")
+                mark("full_kg_node_train")
+                kept = partition_nodes(g3_cpu, cs.N_SHARDS, uniform_caps=False)
+                cs.phase_node_train(kept, cfg3, edges3, dev, tmp, steps=4,
+                                    label="full_kg_node_train_kept")
+                mark("full_kg_node_train_kept")
+                del kept
+                cs.phase_full_kg_node_serve(g3, psg3, dev)
+                mark("full_kg_node_serve")
+            if "edge" in groups:
+                cs.phase_edge_grad(g3, cfg3, edges3, dev,
+                                   label="full_kg_edge_grad")
+                mark("full_kg_edge_grad")
+                cs.phase_edge_train(g3, cfg3, edges3, dev, tmp, steps=4,
+                                    label="full_kg_edge_train")
+                mark("full_kg_edge_train")
+                cs.phase_edge_cli(tmp)
+                mark("edge_cli")
+            if "dp" in groups:
+                cs.phase_full_kg_zero3(g3, cfg3, edges3, dev, tmp)
+                mark("full_kg_zero3")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

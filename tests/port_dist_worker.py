@@ -1,0 +1,257 @@
+"""One process of a gloo group on the CPU, for
+tests/test_torch_port_distributed.py:
+
+    python tests/port_dist_worker.py <case> <rank> <world> <dir>
+
+The processes meet in a ``file://`` store under <dir>, run one case of the
+port across the group and save what the test compares in
+<dir>/<case>_<rank>.pt. The test runs the same functions in its own
+process, on a one-process mesh, for the reference. No JAX here: JAX's
+draws come in <dir>/given.pt.
+"""
+
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig  # noqa
+from primekg_rgcn_tpu_torch.data.graph import build_rel_graph  # noqa: E402
+from primekg_rgcn_tpu_torch.models.rgcn import (init_params,  # noqa: E402
+                                                param_leaves)
+from primekg_rgcn_tpu_torch.parallel import edge_shard  # noqa: E402
+from primekg_rgcn_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from primekg_rgcn_tpu_torch.train import sampled  # noqa: E402
+from primekg_rgcn_tpu_torch.train.loop import make_optimizer  # noqa: E402
+
+SHARDS = 4
+
+
+def flat(tree, prefix=""):
+    """A nested dict or list of tensors, flattened to {path: tensor}."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.detach().clone()}
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    out = {}
+    for k, v in items:
+        out.update(flat(v, f"{prefix}/{k}"))
+    return out
+
+
+# -- case "collectives" -------------------------------------------------------
+
+
+def collective_inputs():
+    """Four shards' integer-valued inputs (so every sum is exact) and each
+    shard's cotangent for every collective."""
+    rng = np.random.default_rng(0)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-8, 8, shape).astype(np.float32))
+
+    xs = [ints(6, 3) for _ in range(SHARDS)]
+    scatter_in = [ints(SHARDS * 2, 3) for _ in range(SHARDS)]
+    cots = {"psum": [ints(6, 3) for _ in range(SHARDS)],
+            "all_gather": [ints(SHARDS, 6, 3) for _ in range(SHARDS)],
+            "all_gather_tiled": [ints(SHARDS * 6, 3) for _ in range(SHARDS)],
+            "psum_scatter": [ints(2, 3) for _ in range(SHARDS)]}
+    return xs, scatter_in, cots
+
+
+def run_collectives(mesh):
+    """Each collective on this process's shards: its output and the
+    gradients of this process's inputs under the local loss, the sum over
+    its shards of <output, the shard's cotangent>."""
+    xs, scatter_in, cots = collective_inputs()
+    local = list(mesh.local)
+    out = {}
+
+    def leaves(src):
+        return [src[s].clone().requires_grad_(True) for s in local]
+
+    for name in ("psum", "all_gather", "all_gather_tiled"):
+        ins = leaves(xs)
+        y = (pmesh.psum(ins, mesh) if name == "psum"
+             else pmesh.all_gather(ins, tiled=name.endswith("tiled"),
+                                   mesh=mesh))
+        sum((y * cots[name][s]).sum() for s in local).backward()
+        out[name] = y.detach()
+        out[f"{name}_grad"] = torch.stack([x.grad for x in ins])
+    ins = leaves(scatter_in)
+    y = pmesh.psum_scatter(ins, mesh)
+    sum((y[j] * cots["psum_scatter"][s]).sum()
+        for j, s in enumerate(local)).backward()
+    out["psum_scatter"] = y.detach()
+    out["psum_scatter_grad"] = torch.stack([x.grad for x in ins])
+    return out
+
+
+def case_collectives(rank, world, d):
+    mesh = pmesh.make_mesh(SHARDS, "cpu")
+    out = run_collectives(mesh)
+    out["local"] = torch.tensor(list(mesh.local))
+    # all_reduce_: one buffer of two tensors, summed in place.
+    a = torch.full((2, 3), float(rank + 1))
+    b = torch.arange(4.0) * (rank + 1)
+    pmesh.all_reduce_([a, b], mesh)
+    out["all_reduce_"] = torch.cat([a.reshape(-1), b])
+    pmesh.check_same_across(1.5, "cpu", "a constant")
+    try:
+        pmesh.check_same_across(float(rank), "cpu", "the rank")
+        out["differing_raises"] = torch.tensor(False)
+    except RuntimeError:
+        out["differing_raises"] = torch.tensor(True)
+    out["groups_2x2"] = torch.tensor(
+        [list(g) for g in pmesh.shard_groups(pmesh.make_mesh_2d(2, 2,
+                                                                "cpu"))])
+    for name, make in (("row_split", lambda: pmesh.make_mesh_2d(1, 4, "cpu")),
+                       ("odd_shards", lambda: pmesh.make_mesh(3, "cpu"))):
+        try:
+            make()
+            out[name] = torch.tensor(False)
+        except ValueError:
+            out[name] = torch.tensor(True)
+    return out
+
+
+# -- case "steps": the data-parallel steps on the port's own generator --------
+
+# (name, layout, mesh shape, sampling mode, table rule)
+STEP_RUNS = [
+    ("dp", "dp", 4, "uniform", "sgd"),
+    ("zero1", "zero1", 4, "block", "sgd"),
+    ("zero3", "zero3", 4, "block", "sgd"),
+    ("zero3_2x2_adafactor", "zero3", (2, 2), "uniform", "adafactor"),
+    ("edge_accum2", "edge", 4, None, "sgd"),
+]
+
+
+def small_graph():
+    rng = np.random.default_rng(0)
+    n, r, e = 60, 3, 800
+    src, dst, rel = (rng.integers(0, n, e), rng.integers(0, n, e),
+                     rng.integers(0, r, e))
+    graph = build_rel_graph(src, dst, rel, n, r, bucket_pad_multiple=64)
+    return graph, np.stack([src, dst, rel], 1).astype(np.int64)
+
+
+def run_steps(layout, shape, mode, table_opt, *, steps=3, seed=9):
+    """``steps`` updates of one layout from the same parameters, batches
+    and generator seed, on a mesh that spans the live group (or one
+    process): losses, parameters and optimizer state (whole), the
+    generator's final state and the table's local shape."""
+    graph, edges = small_graph()
+    cfg = ModelConfig(num_nodes=60, num_relations=3, embedding_dim=8,
+                      hidden_dim=8, dropout=0.3)
+    tcfg = TrainConfig(batch_size=64, lr=1e-2, grad_clip=(
+        0.0 if table_opt == "adafactor" else 1.0))
+    mesh = (pmesh.make_mesh_2d(*shape, "cpu") if isinstance(shape, tuple)
+            else pmesh.make_mesh(shape, "cpu"))
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    losses = []
+    if layout == "edge":
+        step = edge_shard.build_sharded_train_step(
+            mesh, edge_shard.shard_rel_graph(graph, SHARDS), cfg, tcfg,
+            accum_steps=2)
+        opt = make_optimizer(tcfg, params)
+        for _ in range(steps):
+            batch = np.ones((2, 64, 4), np.int64)
+            batch[..., :3] = edges[rng.integers(0, len(edges), (2, 64))]
+            batch[1, 60:, 3] = 0            # padding rows
+            stats = step(params, opt, torch.from_numpy(batch), gen)
+            losses.append((stats[0] / stats[2]).item())
+        full = params
+    else:
+        build = getattr(sampled, f"build_sampled_train_step_{layout}")
+        kw = dict(table_opt=table_opt) if layout == "zero3" else {}
+        step = build(graph, cfg, tcfg, mesh, fanouts=(5, 3), mode=mode, **kw)
+        if layout == "zero3":
+            params = step.shard_params(params)
+        opt = step.init_optimizer(params)
+        for _ in range(steps):
+            pos = torch.from_numpy(edges[rng.integers(0, len(edges), 64)])
+            losses.append(step(params, opt, pos, gen)[0].item())
+        full = step.full_params(params) if layout == "zero3" else params
+    return {"losses": torch.tensor(losses, dtype=torch.float64),
+            "params": flat(full), "opt": flat(opt.state_dict()),
+            "gen": gen.get_state(),
+            "table_rows": torch.tensor(
+                params["encoder"]["node_emb"].shape[0])}
+
+
+def case_steps(rank, world, d):
+    return {name: run_steps(*run) for name, *run in STEP_RUNS}
+
+
+# -- case "given": zero3 on JAX's candidates, draws and masks -----------------
+
+
+class Replay:
+    """A sampler ``draw`` that hands out given uniforms in order."""
+
+    def __init__(self, arrays):
+        self.arrays = iter(arrays)
+
+    def __call__(self, shape):
+        u = next(self.arrays)
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"given {tuple(u.shape)}, drawn {shape}")
+        return u
+
+
+def case_given(rank, world, d):
+    given = torch.load(Path(d) / "given.pt", weights_only=False)
+    src, dst, rel = given["edges"].T
+    graph = build_rel_graph(src, dst, rel, given["num_nodes"],
+                            given["num_relations"], bucket_pad_multiple=64)
+    cfg = ModelConfig.from_dict(given["model_config"])
+    tcfg = TrainConfig(**given["train_config"])
+    step = sampled.build_sampled_train_step_zero3(
+        graph, cfg, tcfg, pmesh.make_mesh(SHARDS, "cpu"), fanouts=(4, 3),
+        mode="block")
+    params = given["params"]
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    params = step.shard_params(params)
+    opt = step.init_optimizer(params)
+    out = {"table_rows": torch.tensor(params["encoder"]["node_emb"].shape[0])}
+    for i, s in enumerate(given["steps"]):
+        loss, acc = step(params, opt, s["pos"], torch.Generator(),
+                         cands=s["cands"],
+                         draw=[Replay(u) for u in s["uniforms"]],
+                         enc_mask=s["masks"])
+        out[i] = {"loss": loss.item(), "acc": acc.item(),
+                  "params": flat(step.full_params(params)),
+                  "opt": flat(opt.state_dict())}
+    return out
+
+
+CASES = {"collectives": case_collectives, "steps": case_steps,
+         "given": case_given}
+
+
+def main():
+    case, rank, world, d = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+                            sys.argv[4])
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            world_size=world, rank=rank)
+    try:
+        out = CASES[case](rank, world, d)
+        torch.save(out, Path(d) / f"{case}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -158,3 +158,44 @@ def test_full_analysis_runs_without_sklearn_networkx_pandas_matplotlib(
     assert out["pngs"] == [] and out["loaded"] == []
     assert "matplotlib is not installed" in (
         tmp_path / "analysis" / "error_analysis.log").read_text()
+
+
+_BLOCKED_DRILL = r"""
+import json, sys
+for name in ("jax", "jaxlib", "flax", "optax", "primekg_rgcn_tpu"):
+    sys.modules[name] = None          # import raises ImportError
+sys.path[:0] = [sys.argv[1]]
+script, sys.argv = sys.argv[2], sys.argv[2:]
+import runpy
+runpy.run_path(script, run_name="__main__")
+print(json.dumps(sorted(m for m in sys.modules if m.startswith(
+    "primekg_rgcn_tpu_torch.train.multichip"))))
+"""
+
+
+def test_the_process_group_modules_and_the_drill_import_no_jax(tmp_path):
+    """The modules of the process-spanning mesh are in the walk; the
+    drill script and the test's worker import no JAX (scanned), and the
+    drill's solo run completes where no JAX can be imported."""
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("parallel.mesh", "train.multichip", "train.checkpoint",
+                 "utils.telemetry"):
+        assert f"primekg_rgcn_tpu_torch.{name}" in seen["names"]
+    assert seen["bad"] == []
+    scripts = [REPO / "scripts" / "port_multihost_drill.py",
+               REPO / "tests" / "port_dist_worker.py"]
+    offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+                 for p in scripts for m in FORBIDDEN.finditer(p.read_text())]
+    assert offenders == []
+    drill = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_DRILL, str(REPO),
+         str(scripts[0]), "solo", "1", str(tmp_path), "--device", "cpu"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert drill.returncode == 0, drill.stderr[-3000:]
+    assert "ckpt=ok" in drill.stdout
+    assert json.loads(drill.stdout.strip().splitlines()[-1]) == [
+        "primekg_rgcn_tpu_torch.train.multichip"]

@@ -88,7 +88,10 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
 14. kernel_b4: kernel B4 (``csrc/halo_exchange.cu``) against its plain
    version, bit for bit, two launches equal, at the node-sharded step's
    shapes (n = 4 shards, P = 7,736, D = 64 and 128, the real serve lists
-   of the ``bench.py`` graph) and on edge cases (n = 1, 2, 3 and 8, P = 1,
+   of the ``bench.py`` graph), there also in its form across two
+   processes (kernel_b4_local_pairs: each process's 2 x 2 pairs, one
+   launch over [2, P, D] views into views of full recv tensors, 16-byte
+   vectors), and on edge cases (n = 1, 2, 3 and 8, P = 1,
    D = 8, odd D in whole 16-byte units a pair or not, pairs that are not a
    multiple of the 16 KB tile below and past the L2, views offset by one
    element and by 4 bytes: the element-wise kernel); kernel, plain and
@@ -140,17 +143,23 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    --grad_clip 0 --val_sampled`` (2 epochs, then resumed for a third),
    each final model evaluated by ``evaluate.cli.main``.
 18c. the same layouts across processes (``--distributed``,
-   ``phase_distributed``), run last, after 27e: distributed_cli: ``train.cli --shard edge
-   --n_devices 4`` at scale 0.1 for 2 epochs as one process over NCCL
-   (``--distributed --num_processes 1``) and without ``--distributed``,
-   history and final parameters torch.equal, the backend printed.
-   distributed_steps: two processes on the one card (``python3
-   chip_smoke.py dist_child``; gloo, by the backend rule) run the edge
-   step and the zero3 block/slim step at full width, 4 shards, 3 steps
-   each from one saved state, against this process's run from it: losses
-   within rel 1e-5, parameters within rtol 2e-6, atol 2e-7; each
-   process's launches asserted a step (24 B1; 12 B2 and 4 B3) and its
-   zero3 table two of the four slices; which collective kinds gloo runs
+   ``phase_distributed``), run last, after 27e: distributed_cli: ``train.cli
+   --shard edge`` and ``--shard node``, ``--n_devices 4``, at scale 0.1
+   for 2 epochs, each as one process over NCCL (``--distributed
+   --num_processes 1``) and without ``--distributed``, history and final
+   parameters torch.equal, the backend printed. distributed_steps: two
+   processes on the one card (``python3 chip_smoke.py dist_child``; gloo,
+   by the backend rule) run the edge step, the node step (its halo
+   exchange B4 on each process's 2 x 2 pairs and an all-to-all between
+   the processes), the zero3 block/slim step and that step on a (1, 4)
+   mesh whose tp row the two processes split, at full width, 4 shards, 3
+   steps each from one saved state, against this process's run from it:
+   losses within rel 1e-5, parameters within rtol 2e-6, atol 2e-7; each
+   process's launches asserted a step (edge 24 B1; node 4 B4, 10 B2 and
+   its buckets' B1, the pair's summing to the one-process 60; zero3 12 B2
+   and 4 B3) and its zero3 table two of the four slices; the node
+   layout's sharded top-10 of 64 heads over the pair, ids equal to one
+   process's, scores within rtol 1e-5; which collective kinds gloo runs
    on CUDA tensors; two more processes (``nccl_shared_child``) put an
    NCCL communicator on the one card, which NCCL must refuse. step_ms is
    printed as mechanics, not speed. The children run at once, about a
@@ -2212,11 +2221,53 @@ def b4_shape_row(name, sends, **extra):
                 **b)
 
 
+def b4_local_pairs(name, sends, k):
+    """B4's form across processes on one exchange: each of the n / k
+    processes' k x k pairs of its own shards, one launch over contiguous
+    k-block views of the sends into views of full recv tensors (as
+    ``halo._across`` calls it), against the plain version of the same
+    pairs, bit for bit, and two launches equal, each of the sends' dtype's
+    variant. Returns the vector width each launch took."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import halo
+
+    bf16 = sends[0].dtype == torch.bfloat16
+    vecs = []
+    for lo in range(0, len(sends), k):
+        views = [s[lo:lo + k] for s in sends[lo:lo + k]]
+        reset_counts()
+        runs = []
+        for _ in range(2):
+            full = [torch.empty_like(sends[0]) for _ in range(k)]
+            halo.launch(views, [r[lo:lo + k] for r in full])
+            runs.append([r[lo:lo + k] for r in full])
+        want = halo.halo_exchange_plain(views)
+        torch.cuda.synchronize()
+        if (halo.halo_exchange.launches,
+                halo.halo_exchange.launches_bf16) != (2, 2 * bf16):
+            raise AssertionError(f"{name}: not 2 launches of its dtype's "
+                                 f"variant")
+        for o, (g, a, w) in enumerate(zip(*runs, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: process from {lo}, recv {o} "
+                                     f"differs from the plain version")
+            if not torch.equal(g, a):
+                raise AssertionError(f"{name}: process from {lo}, recv {o} "
+                                     f"differs between two launches")
+        _, p, d = views[0].shape
+        vecs.append(halo.vec_width(p, d, views[0].element_size(), [
+            t.data_ptr() for t in views + runs[0]]))
+    return vecs
+
+
 def phase_kernel_b4(psg, dev, dtype=None, label=None, cases=True):
     """Kernel B4 against its plain version on the card, exactly equal, two
     launches equal: at the node-sharded step's two shapes of ``psg`` (the
     real serve lists over random [n_loc + 1, D] tables, D = 64 and 128;
-    ``b4_shape_row``) and, with ``cases``, on edge cases: 1, 2, 3 and 8
+    ``b4_shape_row``), there also in its form across two processes
+    (``b4_local_pairs``: each process's 2 x 2 pairs, line
+    ``{label}_local_pairs``) and, with ``cases``, on edge cases: 1, 2, 3 and 8
     shards, one row, odd widths (whole 16-byte units a pair or not), a
     pair that is not a multiple of the 16 KB tile, an exchange past the L2
     whose pair is not a multiple of it either, sends offset by one
@@ -2236,10 +2287,17 @@ def phase_kernel_b4(psg, dev, dtype=None, label=None, cases=True):
     where = "full_kg" if label.startswith("full_kg") else "main_path"
     rows = []
     for d in (64, 128):
-        row = b4_shape_row(f"{where}/n{n}/P{p}/D{d}",
-                           b4_sends(psg, d, dtype, gen, dev), n=n, p=p, d=d)
+        sends = b4_sends(psg, d, dtype, gen, dev)
+        row = b4_shape_row(f"{where}/n{n}/P{p}/D{d}", sends, n=n, p=p, d=d)
         rows.append(row)
         emit(f"{label}_shape", **row)
+        if not cases:
+            continue
+        k = n // 2
+        emit(f"{label}_local_pairs", shape=row["shape"], processes=2,
+             pairs_a_process=k * k, view_shape=[k, p, d],
+             vec=b4_local_pairs(f"{label}_local_pairs/D{d}", sends, k),
+             max_abs_err=0, twice_equal=True)
     if not cases:
         return rows
 
@@ -5975,34 +6033,87 @@ def dist_state(cfg, edges, seed=5):
                              for p in pos]}
 
 
+DIST_TOPK_QUERIES = 64
+
+
+def node_process_launches(psg, local):
+    """A node step's launches in the process that holds the shards
+    ``local`` of the partition ``psg`` (:func:`node_step_launches` of its
+    buckets with real edges): B1 for each of them, B2 five times a shard,
+    B4 four times (its pairs, each layer, both ways)."""
+    own = slice(local.start, local.stop)
+    buckets = int((psg.rowptr_local[own, :, -1] > 0).sum()
+                  + (psg.rowptr_halo[own, :, -1] > 0).sum())
+    return node_step_launches(buckets, psg.uniform_caps, len(local))
+
+
+def dist_node_topk(mesh, psg, cfg, params):
+    """The node layout's sharded top-10 of DIST_TOPK_QUERIES heads under
+    relation 0: this process's shards encoded, the top-K over every
+    process's candidates. Returns its scores and ids on the host and the
+    launches of the encode and the top-K."""
+    import torch
+
+    from primekg_rgcn_tpu_torch.evaluate.sharded_ranking import (
+        build_sharded_topk)
+    from primekg_rgcn_tpu_torch.parallel.node_shard import (
+        build_node_sharded_forward)
+
+    heads = torch.arange(DIST_TOPK_QUERIES, device=mesh.device) * (
+        cfg.num_nodes // DIST_TOPK_QUERIES)
+    with torch.no_grad():
+        reset_counts()
+        emb_dm = build_node_sharded_forward(mesh, psg, cfg,
+                                            gather=False)(params)
+        scores, ids = build_sharded_topk(
+            mesh, emb_dm, params["decoder"]["rel_emb"], cfg.num_nodes,
+            10)(heads, torch.zeros_like(heads))
+        torch.cuda.synchronize()
+    return {"scores": scores.cpu(), "ids": ids.cpu(),
+            "shards": emb_dm.shape[0], "launches": read_counts()}
+
+
 def dist_runs(graph, cfg, state, dev):
-    """DIST_STEPS steps of the edge step and of the zero3 block step over
-    the slim pairs CSR, each from ``state``, over N_SHARDS shards on a mesh
-    that spans the live process group (or this one process): batch 1024,
-    fanouts 15/10, adam lr 1e-3, clip 1.0. Returns {layout: losses, whole
-    parameters after the last step (host), each step's launches and
-    host-clock ms, the table's local rows}."""
+    """DIST_STEPS steps of the edge step, the node step, the zero3 block
+    step over the slim pairs CSR and that zero3 step on a (1, N_SHARDS)
+    mesh (across processes its tp row is split over them), each from
+    ``state``, over N_SHARDS shards on a mesh that spans the live process
+    group (or this one process): batch 1024, fanouts 15/10, adam lr 1e-3,
+    clip 1.0. Returns {layout: losses, whole parameters after the last
+    step (host), each step's launches and host-clock ms, the table's local
+    rows, the launches expected a step}; "node" also holds the sharded
+    top-K on the state's parameters (``dist_node_topk``)."""
     import torch
 
     from primekg_rgcn_tpu_torch.config import TrainConfig
     from primekg_rgcn_tpu_torch.data.sampling import build_combined_csr
-    from primekg_rgcn_tpu_torch.parallel import edge_shard
-    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
+    from primekg_rgcn_tpu_torch.parallel import edge_shard, node_shard
+    from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
     from primekg_rgcn_tpu_torch.train import loop, sampled
 
     mesh = make_mesh(N_SHARDS, dev)
     tcfg = TrainConfig(batch_size=1024)
     csr = build_combined_csr(graph, slim=True, window_pairs=True)
-    edge_step = edge_shard.build_sharded_train_step(
-        mesh, edge_shard.shard_rel_graph(graph, N_SHARDS), cfg, tcfg)
-    zero3 = sampled.build_sampled_train_step_zero3(
-        csr, cfg, tcfg, mesh, fanouts=(15, 10), mode="block")
+    psg = node_shard.partition_nodes(graph, N_SHARDS)
+    steps = {
+        "edge": edge_shard.build_sharded_train_step(
+            mesh, edge_shard.shard_rel_graph(graph, N_SHARDS), cfg, tcfg),
+        "node": node_shard.build_node_sharded_train_step(mesh, psg, cfg,
+                                                         tcfg),
+        **{name: sampled.build_sampled_train_step_zero3(
+            csr, cfg, tcfg, m, fanouts=(15, 10), mode="block")
+           for name, m in (("zero3", mesh), ("zero3_1x4", make_mesh_2d(
+               1, N_SHARDS, dev)))}}
+    expected = {"node": node_process_launches(psg, mesh.local)}
     out = {}
-    for layout in ("edge", "zero3"):
+    for layout, step in steps.items():
+        zero3 = layout.startswith("zero3")
         params = fresh_params(_to(state["params"], dev))
-        if layout == "zero3":
-            params = zero3.shard_params(params)
-            opt = zero3.init_optimizer(params)
+        if layout == "node":
+            topk = dist_node_topk(mesh, psg, cfg, params)
+        if zero3:
+            params = step.shard_params(params)
+            opt = step.init_optimizer(params)
         else:
             opt = loop.make_optimizer(tcfg, params)
         gen = torch.Generator(dev).manual_seed(state["seed"])
@@ -6011,21 +6122,24 @@ def dist_runs(graph, cfg, state, dev):
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
-            if layout == "edge":
-                stats = edge_step(params, opt,
-                                  state["edge_batches"][i].to(dev), gen)
-                loss = (stats[0] / stats[2]).item()
+            if zero3:
+                loss = step(params, opt, state["positives"][i].to(dev),
+                            gen)[0].item()
             else:
-                loss = zero3(params, opt, state["positives"][i].to(dev),
-                             gen)[0].item()
+                stats = step(params, opt, state["edge_batches"][i].to(dev),
+                             gen)
+                loss = (stats[0] / stats[2]).item()
             ms.append((time.perf_counter() - t0) * 1e3)
             launches.append(read_counts())
             losses.append(loss)
-        full = zero3.full_params(params) if layout == "zero3" else params
+        full = step.full_params(params) if zero3 else params
         out[layout] = {
             "losses": losses, "launches": launches, "step_ms": ms,
             "params": {k: p.detach().cpu() for k, p in named_leaves(full)},
-            "table_rows": int(params["encoder"]["node_emb"].shape[0])}
+            "table_rows": int(params["encoder"]["node_emb"].shape[0]),
+            "expected": expected.get(layout)}
+        if layout == "node":
+            out[layout]["topk"] = topk
     return out
 
 
@@ -6120,34 +6234,44 @@ def nccl_shared_child(argv):
 
 # A step's launches in each of two processes: half the one-process counts
 # (its two shards' B1 chunks both ways; zero3's fetch backward, 2 owners x
-# 4 requesters, its shards' 2 dedup sums and 2 window fetches each).
+# 4 requesters, its shards' 2 dedup sums and 2 window fetches each, on
+# either mesh); the node step's are each process's own
+# (``node_process_launches``: 10 B2 and 4 B4, B1 for its buckets).
 DIST_LAUNCHES = {"edge": {"B1": 24, "B2": 0, "B3": 0, "B4": 0},
-                 "zero3": {"B1": 0, "B2": 8 + 4, "B3": 4, "B4": 0}}
+                 "zero3": {"B1": 0, "B2": 8 + 4, "B3": 4, "B4": 0},
+                 "zero3_1x4": {"B1": 0, "B2": 8 + 4, "B3": 4, "B4": 0}}
+DIST_LAYOUTS = ("edge", "node", "zero3", "zero3_1x4")
 
 
 def dist_compare(ref, ranks, want, ref_want):
     """Each process's ``dist_runs`` against the one-process ``ref``:
-    launches a step (``want``, and ``ref_want`` for the reference), the
-    zero3 table's local slices (half), losses within rel 1e-5 and whole
-    parameters within rtol 2e-6, atol 2e-7. Returns the figures by
-    layout."""
+    launches a step (``want``, and ``ref_want`` for the reference; the
+    node step's from its partition, 10 B2 and 4 B4 a process, and the
+    processes' B1 adding up to the reference's), the zero3 tables' local
+    slices (half), losses within rel 1e-5 and whole parameters within
+    rtol 2e-6, atol 2e-7. Returns the figures by layout."""
     import torch
 
     figures = {}
-    for layout in ("edge", "zero3"):
+    for layout in DIST_LAYOUTS:
         solo = ref[layout]
-        if solo["launches"] != [ref_want[layout]] * DIST_STEPS:
+        solo_want = solo["expected"] or ref_want[layout]
+        if solo["launches"] != [solo_want] * DIST_STEPS:
             raise AssertionError(f"distributed_steps/{layout}: one-process "
-                                 f"launches {solo['launches']}")
-        errs = []
+                                 f"launches {solo['launches']}, expected "
+                                 f"{solo_want} a step")
+        errs, per_process = [], []
         for r, run in enumerate(g[layout] for g in ranks):
-            if run["launches"] != [want[layout]] * DIST_STEPS:
+            run_want = run["expected"] or want[layout]
+            per_process.append(run_want)
+            if run["launches"] != [run_want] * DIST_STEPS:
                 raise AssertionError(
                     f"distributed_steps/{layout}: process {r} launched "
-                    f"{run['launches']}, expected {want[layout]} a step")
-            if layout == "zero3" and run["table_rows"] != N_SHARDS // 2:
-                raise AssertionError(f"distributed_steps/zero3: process {r} "
-                                     f"holds {run['table_rows']} slices")
+                    f"{run['launches']}, expected {run_want} a step")
+            if layout.startswith("zero3") and \
+                    run["table_rows"] != N_SHARDS // 2:
+                raise AssertionError(f"distributed_steps/{layout}: process "
+                                     f"{r} holds {run['table_rows']} slices")
             for a, b in zip(run["losses"], solo["losses"]):
                 if abs(a - b) > 1e-5 * abs(b):
                     raise AssertionError(
@@ -6159,10 +6283,18 @@ def dist_compare(ref, ranks, want, ref_want):
                     msg=lambda m, k=k: f"distributed_steps/{layout}/{k}: "
                                        f"{m}")
                 errs.append(float((run["params"][k] - want_p).abs().max()))
+        if layout == "node" and (
+                [c["B2"] for c in per_process] != [10, 10]
+                or [c["B4"] for c in per_process] != [4, 4]
+                or sum(c["B1"] for c in per_process) != solo_want["B1"]):
+            raise AssertionError(f"distributed_steps/node: per-process "
+                                 f"launches {per_process} against one "
+                                 f"process's {solo_want}")
         figures[layout] = {
             "losses": solo["losses"], "max_abs_err": max(errs),
-            "launches_per_process": want[layout],
-            "launches_one_process": ref_want[layout],
+            "launches_per_process": (per_process if layout == "node"
+                                     else want[layout]),
+            "launches_one_process": solo_want,
             "step_ms_per_process": [g[layout]["step_ms"] for g in ranks],
             "step_ms_one_process": solo["step_ms"]}
     return figures
@@ -6170,19 +6302,23 @@ def dist_compare(ref, ranks, want, ref_want):
 
 def phase_distributed(repo, tmp, graph, cfg, edges, dev):
     """``--distributed`` on the card (train/multichip, the process-spanning
-    mesh). distributed_cli: the edge CLI (``--shard edge --n_devices 4``,
-    scale 0.1, 2 epochs) as one process over NCCL (``--distributed
-    --num_processes 1``) and without ``--distributed``: history and final
-    parameters torch.equal. distributed_steps: two processes on the one
-    card (gloo, the backend rule) run the edge step and the zero3 block
-    step over the slim CSR, 4 shards, DIST_STEPS steps each from one saved
-    state (``dist_state``), against this process's run from it: losses
-    within rel 1e-5, parameters within rtol 2e-6, atol 2e-7 (the drill's);
-    each process's launches a step asserted, half the one-process counts
-    (edge 24 B1; zero3 8 fetch-backward + 4 dedup B2 and 4 B3), its table
-    two of the four slices. Two more processes put an NCCL communicator on
-    the one card, which NCCL must refuse. The children run at once, this
-    process's reference beside them. Returns the per-process launches."""
+    mesh). distributed_cli: the edge and the node CLI (``--shard edge|node
+    --n_devices 4``, scale 0.1, 2 epochs) each as one process over NCCL
+    (``--distributed --num_processes 1``) and without ``--distributed``:
+    history and final parameters torch.equal. distributed_steps: two
+    processes on the one card (gloo, the backend rule) run the edge step,
+    the node step, the zero3 block step over the slim CSR and that step on
+    a (1, 4) mesh whose tp row they split, 4 shards, DIST_STEPS steps each
+    from one saved state (``dist_state``), against this process's run from
+    it: losses within rel 1e-5, parameters within rtol 2e-6, atol 2e-7
+    (the drill's); each process's launches a step asserted (edge 24 B1;
+    node 4 B4, 10 B2 and the B1 of its buckets, the pair's adding up to
+    the one-process 60; zero3 8 fetch-backward + 4 dedup B2 and 4 B3), its
+    zero3 table two of the four slices; the node layout's sharded top-10
+    over the pair equal to one process's (``dist_topk_compare``). Two more
+    processes put an NCCL communicator on the one card, which NCCL must
+    refuse. The children run at once, this process's reference beside
+    them. Returns the per-process launches."""
     import torch
 
     state_path = tmp / "dist_state.pt"
@@ -6191,13 +6327,21 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
     cli = [sys.executable, "-m", "primekg_rgcn_tpu_torch.train.cli",
            "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
            "--shard", "edge", "--n_devices", str(N_SHARDS)]
-    cli_port, pair_port, nccl_port = free_port(), free_port(), free_port()
+    cli_node = [*cli[:-4], "--shard", "node", "--n_devices", str(N_SHARDS)]
+    cli_port, pair_port, nccl_port, node_port = (free_port()
+                                                  for _ in range(4))
     argvs = {
         "cli_plain": cli + ["--output_dir", str(tmp / "dist_cli_plain")],
         "cli_nccl": cli + ["--output_dir", str(tmp / "dist_cli_nccl"),
                            "--distributed", "--coordinator_address",
                            f"localhost:{cli_port}", "--num_processes", "1",
                            "--process_id", "0"],
+        "cli_node_plain": cli_node + ["--output_dir",
+                                      str(tmp / "dist_cli_node_plain")],
+        "cli_node_nccl": cli_node + [
+            "--output_dir", str(tmp / "dist_cli_node_nccl"), "--distributed",
+            "--coordinator_address", f"localhost:{node_port}",
+            "--num_processes", "1", "--process_id", "0"],
         **{f"steps_{r}": [sys.executable, "chip_smoke.py", "dist_child",
                           str(r), "2", str(pair_port), str(state_path),
                           str(out_path)] for r in range(2)},
@@ -6225,30 +6369,39 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
             raise AssertionError(f"distributed/{k}: exit {rc}: "
                                  f"{err[-4000:]}")
 
-    # (a) one process over NCCL through the CLI, bit for bit.
-    plain, nccl = (torch.load(tmp / d / "models" / "final_model.pt",
-                              weights_only=False)
-                   for d in ("dist_cli_plain", "dist_cli_nccl"))
-    if plain["history"] != nccl["history"] or any(
-            not torch.equal(plain["model_state_dict"][k],
-                            nccl["model_state_dict"][k])
-            for k in plain["model_state_dict"]):
-        raise AssertionError("distributed_cli: the one-process NCCL run "
-                             "differs from the run without --distributed")
-    backend_line = next((ln for ln in done["cli_nccl"][0].splitlines()
-                         if "torch.distributed: backend" in ln), "")
-    if "backend nccl, process 0 of 1" not in backend_line:
-        raise AssertionError(f"distributed_cli: backend line "
-                             f"{backend_line!r}")
+    # (a) one process over NCCL through the CLI, bit for bit, for each
+    # layout.
+    histories = {}
+    for layout, key in (("edge", "cli"), ("node", "cli_node")):
+        plain, nccl = (torch.load(tmp / f"dist_{key}_{d}" / "models" /
+                                  "final_model.pt", weights_only=False)
+                       for d in ("plain", "nccl"))
+        if plain["history"] != nccl["history"] or any(
+                not torch.equal(plain["model_state_dict"][k],
+                                nccl["model_state_dict"][k])
+                for k in plain["model_state_dict"]):
+            raise AssertionError(f"distributed_cli/{layout}: the one-process "
+                                 f"NCCL run differs from the run without "
+                                 f"--distributed")
+        backend_line = next((ln for ln in done[f"{key}_nccl"][0].splitlines()
+                             if "torch.distributed: backend" in ln), "")
+        if "backend nccl, process 0 of 1" not in backend_line:
+            raise AssertionError(f"distributed_cli/{layout}: backend line "
+                                 f"{backend_line!r}")
+        histories[layout] = nccl["history"]
     emit("distributed_cli", backend=backend_line.split(" - ")[-1],
-         history=nccl["history"], equal=True, seconds=seconds)
+         history=histories["edge"], node_history=histories["node"],
+         equal=True, seconds=seconds)
 
     # (b) two processes on the one card against this process.
     ranks = [torch.load(f"{out_path}.{r}", weights_only=False)
              for r in range(2)]
     figures = dist_compare(ref, [g["runs"] for g in ranks], DIST_LAUNCHES,
                            {"edge": {"B1": 48, "B2": 0, "B3": 0, "B4": 0},
-                            "zero3": dp_launches("zero3")})
+                            "zero3": dp_launches("zero3"),
+                            "zero3_1x4": dp_launches("zero3")})
+    topk = dist_topk_compare(ref["node"]["topk"],
+                             [g["runs"]["node"]["topk"] for g in ranks])
     nccl_shared = [json.loads(done[f"nccl_shared_{r}"][0].splitlines()[-1])
                    for r in range(2)]
     if any(n["accepted"] for n in nccl_shared):
@@ -6261,8 +6414,37 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
          step_ms_note="mechanics, not speed: two processes share one card "
                       "through gloo's host-staged transport, beside the "
                       "other children of this phase",
-         **figures)
+         node_topk=topk, **figures)
     return {k: v["launches_per_process"] for k, v in figures.items()}
+
+
+def dist_topk_compare(solo, ranks):
+    """The node layout's sharded top-K over the pair against one process's
+    (``dist_node_topk``): ids equal, scores within rtol 1e-5, each process
+    encoding its two shards (2 B4: one exchange a layer) and the B1
+    launches of the pair adding up to the one process's. Returns its
+    figures."""
+    import torch
+
+    for r, got in enumerate(ranks):
+        if not torch.equal(got["ids"], solo["ids"]):
+            raise AssertionError(f"distributed_steps/node_topk: process {r} "
+                                 f"ids differ from one process's")
+        torch.testing.assert_close(got["scores"], solo["scores"], rtol=1e-5,
+                                   atol=0)
+        if got["shards"] != N_SHARDS // 2 or got["launches"]["B4"] != 2:
+            raise AssertionError(f"distributed_steps/node_topk: process {r} "
+                                 f"encoded {got['shards']} shards with "
+                                 f"{got['launches']}")
+    if sum(g["launches"]["B1"] for g in ranks) != solo["launches"]["B1"]:
+        raise AssertionError("distributed_steps/node_topk: the pair's B1 "
+                             "launches do not add up to one process's")
+    return {"queries": DIST_TOPK_QUERIES, "k": solo["ids"].shape[1],
+            "ids_equal": True,
+            "max_abs_err": max(float((g["scores"] - solo["scores"]).abs()
+                                     .max()) for g in ranks),
+            "launches_per_process": [g["launches"] for g in ranks],
+            "launches_one_process": solo["launches"]}
 
 
 def main():
@@ -6896,6 +7078,8 @@ def main():
                              "edge_cli": edge_cli_counts["B1"],
                              "distributed_edge_per_process_step":
                                  dist_counts["edge"]["B1"],
+                             "distributed_node_per_process_step":
+                                 [c["B1"] for c in dist_counts["node"]],
                              "full_kg_node_train": {
                                  k: v[0]["B1"] for k, v in kg_node.items()},
                              "full_kg_node_serve": kg_nserve["B1"],
@@ -6993,6 +7177,8 @@ def main():
                                  for k, v in sampled_dp.items()},
             "sampled_dp_cli": {k: v["B2"] for k, v in dp_cli_counts.items()},
             "distributed_zero3_per_process_step": dist_counts["zero3"]["B2"],
+            "distributed_node_per_process_step": [
+                c["B2"] for c in dist_counts["node"]],
             "full_kg_zero3": kg_zero3["launches"]["B2"],
             "combined_agg": {k: v["launches"]["B2"]
                              for k, v in agg_runs.items()},
@@ -7128,6 +7314,8 @@ def main():
                              "full_kg_node_train": {
                                  k: v[0]["B4"] for k, v in kg_node.items()},
                              "full_kg_node_serve": kg_nserve["B4"],
+                             "distributed_node_per_process_step": [
+                                 c["B4"] for c in dist_counts["node"]],
                              **bench_paths("B4")},
         "launches_per_step": {"forward": 2, "backward": 2},
         "max_abs_err": 0,

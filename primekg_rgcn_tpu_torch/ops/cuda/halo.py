@@ -19,10 +19,24 @@ bytes). It is built with ``nvcc`` for
 ``sm_90a`` at first use into ``primekg_rgcn_tpu_torch/_build/`` and bound
 through ``ctypes`` (``ops/cuda/build.py``).
 
+Across processes (a ``parallel/mesh.Mesh`` whose shards are split over the
+processes of a ``torch.distributed`` group) each process passes its k
+shards' sends, each [n, P, D] over all n shards, and gets its k shards'
+recvs. The pairs whose two shards this process holds go through one launch
+of the kernel over the k x k pairs: the sends' and recvs' k-block slices of
+this process's shards are contiguous [k, P, D] views, which the kernel
+takes as it takes whole tensors, 16-byte path included. The other pairs go
+through one ``parallel/mesh.all_to_all`` over a packed [P_w - 1, k, k, P,
+D] buffer (P_w processes), packed and unpacked by plain copies: the
+communication's staging, as XLA's ``all_to_all`` stages the JAX default
+``--halo_impl xla``. Every process joins the exchange, even when its sends
+are all padding.
+
 ``HaloExchange`` is the differentiable form, the counterpart of the
 ``jax.custom_vjp`` around the TPU kernel: the exchange permutes blocks, so
 its transpose is the same exchange applied to the gradients, and the
-backward launches the kernel too.
+backward launches the kernel too (and, across processes, the
+all-to-all).
 """
 
 from __future__ import annotations
@@ -30,12 +44,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import operator
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, call_on_stream,
                                                    check_rc)
+from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, all_to_all, spans
 
 # The kernel's parameter block holds this many send and recv pointers.
 MAX_SHARDS = 64
@@ -69,10 +84,10 @@ def step_offsets(n: int) -> List[int]:
             for kind, i in halo_schedule(n) if kind != "wait"]
 
 
-def _check(sends: Sequence[torch.Tensor]) -> None:
-    n = len(sends)
-    if not 1 <= n <= MAX_SHARDS:
-        raise ValueError(f"need 1 to {MAX_SHARDS} shards, got {n}")
+def _check(sends: Sequence[torch.Tensor], n: int) -> None:
+    if not 1 <= len(sends) <= n <= MAX_SHARDS:
+        raise ValueError(f"need 1 to {MAX_SHARDS} shards, got {len(sends)} "
+                         f"of {n}")
     shape, dtype, device = sends[0].shape, sends[0].dtype, sends[0].device
     for s in sends:
         if s.dtype not in PAYLOAD_DTYPES or s.dim() != 3 or s.shape[0] != n:
@@ -89,6 +104,33 @@ def _check(sends: Sequence[torch.Tensor]) -> None:
             raise ValueError("sends must be contiguous")
 
 
+def _pairs_plain(sends: Sequence[torch.Tensor],
+                 recvs: Sequence[torch.Tensor]) -> None:
+    """The plain exchange written into ``recvs``: ``recv[o][d] =
+    send[d][o]`` over the len(sends) shards given."""
+    for o, r in enumerate(recvs):
+        torch.stack([s[o] for s in sends], out=r)
+
+
+def _across(sends: Sequence[torch.Tensor], mesh: Mesh,
+            pairs: Callable) -> List[torch.Tensor]:
+    """The exchange of this process's k shards over a ``mesh`` that spans
+    processes: ``pairs(send_views, recv_views)`` writes the k x k pairs
+    inside the process, the all-to-all brings the others."""
+    k, lo, world = len(sends), mesh.local.start, mesh.world
+    recvs = [torch.empty_like(sends[0]) for _ in range(k)]
+    pairs([s[lo:lo + k] for s in sends], [r[lo:lo + k] for r in recvs])
+    others = [q for q in range(world) if q != mesh.rank]
+    # Block b (to process q = others[b]) holds send[i][q k + j] at [i, j].
+    packed = torch.stack([s[q * k:(q + 1) * k] for q in others
+                          for s in sends])
+    got = all_to_all(packed.view(world - 1, k, *packed.shape[1:]), mesh)
+    for b, q in enumerate(others):
+        for j, r in enumerate(recvs):
+            r[q * k:(q + 1) * k].copy_(got[b, :, j])
+    return recvs
+
+
 def halo_exchange_plain(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Plain PyTorch version: ``recv[o] = stack([send[d][o] for d])``
     (autograd differentiates it)."""
@@ -96,27 +138,38 @@ def halo_exchange_plain(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [torch.stack([sends[d][o] for d in range(n)]) for o in range(n)]
 
 
-def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def halo_exchange(sends: Sequence[torch.Tensor],
+                  mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """Exchange the shards' halo rows: ``recv[o][d] = sends[d][o]``.
 
     Args:
         sends: one [n, P, D] contiguous tensor per shard, float32 or
             bfloat16, all of one shape and dtype and on one device.
+        mesh: where its shards are split over processes, ``sends`` are
+            this process's (``mesh.local``), still [n, P, D] over the n
+            shards, and so are the recvs returned; every process calls.
 
-    Returns the n recv tensors, each of its own allocation. On CPU tensors
+    Returns the recv tensors, each of its own allocation. On CPU tensors
     this runs the plain version; on CUDA tensors it launches the kernel or
-    raises. It records no gradient: differentiate through
-    ``HaloExchange.apply``.
+    raises (across processes: over the pairs inside this process, and the
+    all-to-all for the rest). It records no gradient: differentiate
+    through ``HaloExchange.apply``.
     """
-    _check(sends)
+    _check(sends, mesh.n_shards if spans(mesh) else len(sends))
+    if spans(mesh) and len(sends) != len(mesh.local):
+        raise ValueError(f"this process holds {len(mesh.local)} shards, got "
+                         f"{len(sends)} sends")
     if torch.is_grad_enabled() and any(s.requires_grad for s in sends):
         raise ValueError("halo_exchange records no gradient; differentiate "
                          "through HaloExchange.apply")
     dev = sends[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if spans(mesh):
+        return _across(sends, mesh,
+                       _pairs_plain if dev.type == "cpu" else launch)
     if dev.type == "cpu":
         return halo_exchange_plain(sends)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     return launch(sends)
 
 
@@ -138,14 +191,22 @@ def _offsets(n: int):
     return (ctypes.c_int * n)(*step_offsets(n))
 
 
-def launch(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def launch(sends: Sequence[torch.Tensor],
+           recvs: Optional[Sequence[torch.Tensor]] = None
+           ) -> List[torch.Tensor]:
     """Launch the kernel on CUDA tensors that ``halo_exchange`` has
     checked, the entry of their dtype; counts the launch (and a bf16 one).
-    16-byte vectors where ``vec_width`` allows them, else one element a
-    thread."""
+    Writes into ``recvs`` (contiguous, the sends' shape and dtype: views
+    of larger tensors are welcome) or new tensors. 16-byte vectors where
+    ``vec_width`` allows them, else one element a thread."""
     s0 = sends[0]
     n, p, d = s0.shape
-    recvs = [torch.empty_like(s0) for _ in range(n)]
+    if recvs is None:
+        recvs = [torch.empty_like(s0) for _ in range(n)]
+    elif any(r.shape != s0.shape or r.dtype != s0.dtype or
+             not r.is_contiguous() for r in recvs):
+        raise ValueError("recvs must be contiguous, of the sends' shape and "
+                         "dtype")
     if p * d == 0:
         return recvs
     ptrs = [s.data_ptr() for s in sends] + [r.data_ptr() for r in recvs]
@@ -167,18 +228,23 @@ halo_exchange.launches_bf16 = 0
 
 
 class HaloExchange(torch.autograd.Function):
-    """``halo_exchange`` with its gradient: ``HaloExchange.apply(*sends)``
-    returns the n recv tensors. The gradient of ``send[d][o]`` is that of
-    ``recv[o][d]``, so the backward is the same exchange over the recv
-    gradients (an output without a gradient contributes zeros). On the CPU
-    both directions run the plain version, on the card both launch the
-    kernel (and count)."""
+    """``halo_exchange`` with its gradient: ``HaloExchange.apply(*sends)``,
+    or ``HaloExchange.apply(mesh, *sends)`` across processes, returns the
+    recv tensors. The gradient of ``send[d][o]`` is that of ``recv[o][d]``,
+    so the backward is the same exchange over the recv gradients (an
+    output without a gradient contributes zeros). On the CPU both
+    directions run the plain version, on the card both launch the kernel
+    (and count)."""
 
     @staticmethod
-    def forward(ctx, *sends: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(ctx, *args) -> Tuple[torch.Tensor, ...]:
+        mesh = args[0] if isinstance(args[0], Mesh) else None
+        sends = args if mesh is None else args[1:]
+        ctx.mesh = mesh
         ctx.set_materialize_grads(True)
-        return tuple(halo_exchange(sends))
+        return tuple(halo_exchange(sends, mesh))
 
     @staticmethod
     def backward(ctx, *grads: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        return tuple(halo_exchange([g.contiguous() for g in grads]))
+        out = tuple(halo_exchange([g.contiguous() for g in grads], ctx.mesh))
+        return out if ctx.mesh is None else (None, *out)

@@ -20,27 +20,35 @@ flat shards [p n/P, (p + 1) n/P), all on its own device, the JAX order in
 which process p holds the global devices from p n/P. ``n_shards`` stays
 the global count and P must divide it. A collective given ``mesh=`` a mesh
 that spans processes reduces or gathers the caller's shards locally, then
-across the processes; without it, or on one process, it is the local loop
-alone. The caller says which axis crosses processes: a 2-D mesh keeps each
-tp row inside one process, so only its dp axis does.
+across that mesh's processes (``Mesh.group``: the default group, or a
+sub-group); without it, or on one process, it is the local loop alone. The
+caller says which axis crosses processes (``Mesh.tp_axis``,
+``Mesh.dp_axis``): a 2-D mesh whose processes hold whole tp rows crosses
+them on its dp axis only; one whose tp rows are split over processes has a
+sub-group for each row and for each column of processes, which every
+process creates, in one order.
 
-Every cross-process collective is one ``dist.all_reduce``, the one kind
-that NCCL and gloo share on CUDA and CPU tensors alike: an all-gather is
-the sum of the processes' blocks, each zero-padded to the whole and placed
-at its rank, and a psum_scatter is a sum of which each process keeps its
-own block. Both move P times the bytes of a native collective, and the sum
-is exact (one process contributes each element). Each has an autograd
-form, for a differentiable path whose loss each process takes over its own
-shards: the backward of a psum is a psum, of an all-gather a psum_scatter
-and of a psum_scatter an all-gather, as the transposes in ``shard_map``.
-Placing the shards on several cards in one process waits for a machine
-with several (``ROADMAP.md``).
+Every reduction and gather across processes is one ``dist.all_reduce``,
+the one kind that NCCL and gloo share on CUDA and CPU tensors alike: an
+all-gather is the sum of the processes' blocks, each zero-padded to the
+whole and placed at its rank, and a psum_scatter is a sum of which each
+process keeps its own block. Both move P times the bytes of a native
+collective, and the sum is exact (one process contributes each element).
+The exchange between pairs of processes is one ``dist.all_to_all_single``
+(:func:`all_to_all`), which both backends run on both kinds of tensor: a
+halo exchange moves O(boundary) bytes a pair, and an all-reduce form would
+send every process P times that. Each collective has an autograd form, for
+a differentiable path whose loss each process takes over its own shards:
+the backward of a psum is a psum, of an all-gather a psum_scatter and of a
+psum_scatter an all-gather, as the transposes in ``shard_map``; an
+all-to-all is its own transpose. Placing the shards on several cards in
+one process waits for a machine with several (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -62,13 +70,21 @@ class Mesh:
     """``n_shards`` shards, all on ``device``: ``n_dp`` rows of ``n_tp``
     shards, shard ``d * n_tp + t`` at (d, t); a 1-D mesh has ``n_dp`` 1.
     Over ``world`` processes, this one (``rank``) holds the flat shards
-    ``local``."""
+    ``local``; its collectives run over ``group`` (None: the default
+    group). ``row`` and ``column`` are set where the tp rows are split
+    over processes: the meshes of this process's tp row (whose ``local``
+    are the row's tp indices this process holds) and of its column of
+    processes, each over a sub-group."""
 
     n_shards: int
     device: torch.device
     n_dp: int = 1
     world: int = 1
     rank: int = 0
+    group: Any = field(default=None, compare=False, repr=False)
+    row: Optional["Mesh"] = field(default=None, compare=False, repr=False)
+    column: Optional["Mesh"] = field(default=None, compare=False,
+                                     repr=False)
 
     @property
     def n_tp(self) -> int:
@@ -79,6 +95,24 @@ class Mesh:
         """The flat indices of the shards this process holds."""
         k = self.n_shards // self.world
         return range(self.rank * k, (self.rank + 1) * k)
+
+    @property
+    def tp_axis(self) -> Optional["Mesh"]:
+        """The mesh that a collective over this process's tp row takes:
+        None when the row lies inside the process, else the 1-D mesh
+        itself or the split row's."""
+        if self.n_tp <= len(self.local):
+            return None
+        return self.row or self
+
+    @property
+    def dp_axis(self) -> Optional["Mesh"]:
+        """The mesh that a sum over the dp rows takes across processes:
+        None on one process or one row, the whole mesh where processes
+        hold whole rows, else this process's column of processes."""
+        if self.world == 1 or self.n_dp == 1:
+            return None
+        return self.column or self
 
 
 def _mesh_device(n: int, device) -> torch.device:
@@ -117,42 +151,48 @@ def make_mesh_2d(n_dp: int, n_tp: int, device="cuda") -> Mesh:
     """An (n_dp, n_tp) mesh on ``device``, row-major as the JAX
     ``make_mesh_2d``: the n_tp shards of a row form one tp group (the
     table's axis), the n_dp rows the data-parallel replicas. Fewer than 2
-    shards raise. In a process group each process holds whole rows, so the
-    process count must divide n_dp; a row split over processes raises."""
+    shards raise. In a process group of P processes (P dividing n_dp n_tp)
+    each process holds k = n_dp n_tp / P consecutive shards: whole rows,
+    or a part of one row. Where rows are split, every process creates one
+    sub-group for each row and one for each column of processes (those
+    that hold the same tp indices), in one order, and the mesh carries its
+    own (``row``, ``column``); a k that would put parts of two rows in one
+    process raises."""
     n_dp, n_tp = int(n_dp), int(n_tp)
     if n_dp < 1 or n_tp < 1:
         raise ValueError(f"mesh axes must be >= 1, got ({n_dp}, {n_tp})")
-    world, rank = _processes(n_dp * n_tp)
-    if n_dp % world:
+    n = n_dp * n_tp
+    world, rank = _processes(n)
+    dev = _mesh_device(n, device)
+    k = n // world
+    if k % n_tp == 0:
+        return Mesh(n, dev, n_dp, world, rank)
+    if n_tp % k:
         raise ValueError(
-            f"an ({n_dp}, {n_tp}) mesh over {world} processes would split "
-            f"its tp rows over processes; supported are whole dp rows a "
-            f"process (the process count dividing n_dp = --dp_pods), or a "
-            f"1-D mesh (no --dp_pods)")
-    return Mesh(n_dp * n_tp, _mesh_device(n_dp * n_tp, device), n_dp,
-                world, rank)
+            f"an ({n_dp}, {n_tp}) mesh over {world} processes gives each "
+            f"{k} shards, parts of two tp rows; a process's shards must be "
+            f"whole rows or lie in one row (k a multiple or a divisor of "
+            f"n_tp)")
+    m = n_tp // k                        # processes a row
+    rows = [dist.new_group(list(range(d * m, (d + 1) * m)))
+            for d in range(n_dp)]
+    columns = [dist.new_group(list(range(c, world, m))) for c in range(m)]
+    row = Mesh(n_tp, dev, 1, m, rank % m, rows[rank // m])
+    column = Mesh(n_dp * k, dev, n_dp, n_dp, rank // m, columns[rank % m])
+    return Mesh(n, dev, n_dp, world, rank, row=row, column=column)
 
 
-def refuse_across_processes(mesh: Mesh, what: str) -> None:
-    """Raise for a layout that runs in one process only."""
-    if mesh.world > 1:
-        raise ValueError(
-            f"{what} across {mesh.world} processes is not ported (ROADMAP "
-            f"A10.4b: the node layout, its halo exchange and the sharded "
-            f"evaluator run in one process); train across processes with "
-            f"--shard edge, or --sample_fanouts with --shard")
+# -- across processes: all-reduces, and one all-to-all ------------------------
 
 
-# -- across processes: every collective is one all-reduce ---------------------
-
-
-def _spans(mesh: Optional[Mesh]) -> bool:
+def spans(mesh: Optional[Mesh]) -> bool:
+    """True when ``mesh`` splits its shards over processes."""
     return mesh is not None and mesh.world > 1
 
 
-def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=mesh.group)
     return out
 
 
@@ -160,24 +200,37 @@ def _gather_blocks(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every process's [k, ...] block, rank-major: [P k, ...]."""
     buf = x.new_zeros(mesh.world, *x.shape)
     buf[mesh.rank] = x
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=mesh.group)
     return buf.view(mesh.world * x.shape[0], *x.shape[1:])
 
 
 def _keep_block(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum over processes of [P c, ...], this process's block [c, ...]."""
     c = x.shape[0] // mesh.world
-    return _all_reduce(x)[mesh.rank * c:(mesh.rank + 1) * c]
+    return _all_reduce(x, mesh)[mesh.rank * c:(mesh.rank + 1) * c]
+
+
+def _exchange_blocks(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``dist.all_to_all_single`` of [P - 1, ...] blocks, one for each
+    other process in rank order; this process's own split is empty."""
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    blk = x[0].numel()
+    splits = [0 if q == mesh.rank else blk for q in range(mesh.world)]
+    dist.all_to_all_single(out.view(-1), x.view(-1), splits, splits,
+                           group=mesh.group)
+    return out
 
 
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        return _all_reduce(x)
+        ctx.mesh = mesh
+        return _all_reduce(x, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g), None
+        return _all_reduce(g, ctx.mesh), None
 
 
 class _AllGather(torch.autograd.Function):
@@ -202,6 +255,31 @@ class _PSumScatter(torch.autograd.Function):
         return _gather_blocks(g, ctx.mesh), None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _exchange_blocks(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange_blocks(g, ctx.mesh), None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The exchange between every pair of ``mesh``'s processes: ``x`` [P -
+    1, ...] holds a block for each other process, in rank order, and the
+    result [P - 1, ...] the block each of them sent this one, in the same
+    order. This process's own block never leaves it: the caller keeps it.
+    One ``dist.all_to_all_single``, which every process calls with blocks
+    of one shape. Its transpose is the same exchange, so the gradient runs
+    it too."""
+    if x.shape[0] != mesh.world - 1 or mesh.world < 2:
+        raise ValueError(f"all_to_all over {mesh.world} processes takes "
+                         f"{mesh.world - 1} blocks, got {x.shape[0]}")
+    return _AllToAll.apply(x, mesh)
+
+
 def psum(xs: Shards, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Sum over the shards: the one total every shard reads. The shards are
     added in order, one after the other; with a ``mesh`` that spans
@@ -210,7 +288,7 @@ def psum(xs: Shards, mesh: Optional[Mesh] = None) -> torch.Tensor:
     total = xs[0]
     for x in xs[1:]:
         total = total + x
-    return _PSum.apply(total, mesh) if _spans(mesh) else total
+    return _PSum.apply(total, mesh) if spans(mesh) else total
 
 
 def all_gather(xs: Shards, tiled: bool = False,
@@ -223,7 +301,7 @@ def all_gather(xs: Shards, tiled: bool = False,
         out = xs.reshape(-1, *xs.shape[2:]) if tiled else xs
     else:
         out = torch.cat(list(xs)) if tiled else torch.stack(list(xs))
-    return _AllGather.apply(out, mesh) if _spans(mesh) else out
+    return _AllGather.apply(out, mesh) if spans(mesh) else out
 
 
 def psum_scatter(xs: Shards, mesh: Optional[Mesh] = None) -> torch.Tensor:
@@ -232,7 +310,7 @@ def psum_scatter(xs: Shards, mesh: Optional[Mesh] = None) -> torch.Tensor:
     1) * k). Returns them stacked [n, k, ...]; with a ``mesh`` that spans
     processes, ``xs`` are this process's shards' contributions and the
     result its shards' rows."""
-    if _spans(mesh):
+    if spans(mesh):
         local = psum(xs)
         n = len(xs) * mesh.world
         if local.shape[0] % n:
@@ -254,14 +332,14 @@ def all_reduce_(tensors: Sequence[torch.Tensor],
     """Sum each tensor across the processes of ``mesh``, in place (no-op on
     one process): one all-reduce a dtype, over the tensors flattened in
     order. Every process passes the same tensors in the same order."""
-    if not _spans(mesh):
+    if not spans(mesh):
         return
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=mesh.group)
         for t, v in zip(group, flat.split([t.numel() for t in group])):
             t.copy_(v.view_as(t))
 
@@ -282,7 +360,8 @@ def check_same_across(value: float, device, what: str) -> None:
 def shard_groups(mesh: Mesh) -> List[range]:
     """The flat shard indices of each tp group (one row of the mesh) that
     this process holds: every row on one process; across processes its
-    own rows, or its part of a 1-D mesh's one row."""
+    own rows, or its part of a row split over processes (a 1-D mesh's one
+    row among them)."""
     local = mesh.local
     groups = [range(max(d * mesh.n_tp, local.start),
                     min((d + 1) * mesh.n_tp, local.stop))

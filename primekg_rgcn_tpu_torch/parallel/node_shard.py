@@ -34,6 +34,14 @@ cotangent to bf16 first (``ROADMAP.md``, queue C).
 
 All shards of a mesh live on one device (``parallel/mesh.py``): a sharded
 function is a loop over the shards and the collectives are plain functions.
+Across processes (a mesh whose shards are split over a ``torch.distributed``
+group) each process keeps the operands of its own shards (``mesh.local``)
+and loops over them; the halo exchange joins the processes (B4 on the pairs
+inside each, an all-to-all between them), the endpoint fetch and the stats
+sum across them, and the replicated parameters' gradients are summed
+across them before the update. Every process draws every shard's
+candidates and dropout masks from its generator, in shard order, and keeps
+its own, so the generators stay those of the one-process run.
 
 Two relation loops, as in the JAX layer. A partition without
 ``uniform_caps`` (the default below 16 relations) runs the unrolled loop,
@@ -58,15 +66,15 @@ import torch
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph, edge_arrays_from_graph
 from primekg_rgcn_tpu_torch.models.rgcn import (Params, compute_dtype,
-                                                dropout)
+                                                dropout, param_leaves)
 from primekg_rgcn_tpu_torch.ops.cuda.dense_segment_sum import \
     dense_sorted_segment_sum
 from primekg_rgcn_tpu_torch.ops.cuda.halo import HaloExchange
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import (
     AggOp, aggregate, materialize_relation_weights, promote_matmul)
-from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather, psum,
-                                                  refuse_across_processes)
+from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather,
+                                                  all_reduce_, psum, spans)
 from primekg_rgcn_tpu_torch.train.loop import Candidates, apply_update
 from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
                                                        candidate_batch)
@@ -303,8 +311,10 @@ class ShardOps(NamedTuple):
     halo: List[Optional[AggOp]]
 
 
-def build_shard_ops(sg: NodeShardedGraph, device=None) -> List[ShardOps]:
-    """Per-shard operands on ``device`` (default: the partition's). Each
+def build_shard_ops(sg: NodeShardedGraph, device=None,
+                    shards: Optional[Sequence[int]] = None) -> List[ShardOps]:
+    """Per-shard operands on ``device`` (default: the partition's), of
+    ``shards`` (default: every shard), in their order. Each
     group's real edges are packed into one array (its buckets' slices), so
     only they reach the device: a ``uniform_caps`` partition pads every
     bucket to the largest one's capacity (1.6M edges at config 3), which
@@ -336,7 +346,7 @@ def build_shard_ops(sg: NodeShardedGraph, device=None) -> List[ShardOps]:
                     sg.t_rowptr_local, sg.offsets_local),
         halo=group(d, sg.src_halo, sg.t_dst_halo, sg.rowptr_halo,
                    sg.t_rowptr_halo, sg.offsets_halo))
-        for d in range(sg.n_devices)]
+        for d in (range(sg.n_devices) if shards is None else shards)]
 
 
 def _sort_ids(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -386,8 +396,13 @@ def _take(table: torch.Tensor, ids: torch.Tensor,
     return TakeRows.apply(table, ids, sort)
 
 
-def exchange(sends: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The differentiable halo exchange: ``recv[o][d] = sends[d][o]``."""
+def exchange(sends: List[torch.Tensor],
+             mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
+    """The differentiable halo exchange: ``recv[o][d] = sends[d][o]``; with
+    a ``mesh`` that spans processes, between this process's shards and
+    every other's."""
+    if spans(mesh):
+        return list(HaloExchange.apply(mesh, *sends))
     return list(HaloExchange.apply(*sends))
 
 
@@ -522,10 +537,13 @@ def _scan(out, table, ops, inv_deg, w_rel, n_loc, aggregate_first, agg_fn):
 def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
                        sg: NodeShardedGraph, shard_ops: Sequence[ShardOps],
                        *, agg_fn=aggregate, exchange_fn=exchange,
-                       compute_dtype: torch.dtype = torch.float32
-                       ) -> List[torch.Tensor]:
+                       compute_dtype: torch.dtype = torch.float32,
+                       mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """One RGCN layer over every shard: ``xs[d]`` is shard d's float32
     [n_loc, Din] rows; returns the shards' float32 [n_loc, Dout] outputs.
+    With a ``mesh`` that spans processes, ``xs`` and ``shard_ops`` are
+    this process's shards' (``mesh.local``) and the exchange is
+    ``exchange_fn(sends, mesh)``.
     The rows, weights and ``inv_deg`` are converted to ``compute_dtype``
     first, so a bf16 layer exchanges and aggregates bf16 rows.
 
@@ -539,7 +557,7 @@ def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
     ``exchange_fn(sends)`` the exchange (default: ``HaloExchange``, kernel
     B4 both ways on the card). Only a reference passes the plain versions.
     """
-    n, n_loc = sg.n_devices, sg.n_loc
+    n, n_loc = len(xs), sg.n_loc
     w_rel = materialize_relation_weights(layer_params).to(compute_dtype)
     w_root = layer_params["w_root"].to(compute_dtype)
     bias = layer_params["bias"].to(compute_dtype)
@@ -548,8 +566,10 @@ def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
     x_pads = [torch.cat([x, x.new_zeros(1, din)]) for x in xs]
 
     # 1) the exchange: shard d sends rows x_pad[d][serve[d][o]] to peer o.
-    recvs = exchange_fn([_take(x_pads[d], shard_ops[d].serve,
-                               shard_ops[d].serve_sort) for d in range(n)])
+    sends = [_take(x_pads[d], shard_ops[d].serve, shard_ops[d].serve_sort)
+             for d in range(n)]
+    recvs = (exchange_fn(sends, mesh) if spans(mesh)
+             else exchange_fn(sends))
 
     aggregate_first = din <= dout
     fold = _scan if sg.uniform_caps else _accumulate
@@ -565,6 +585,11 @@ def node_sharded_layer(layer_params, xs: Sequence[torch.Tensor],
         out = fold(out, halo_table, shard_ops[d].halo, inv_deg, w_rel,
                    n_loc, aggregate_first, agg_fn)
         outs.append(out.float())
+    if spans(mesh) and all(op is None for so in shard_ops for op in so.halo):
+        # No halo edge here: a zero term keeps the exchange in this
+        # process's graph, since its backward is a collective that every
+        # process joins.
+        outs[0] = outs[0] + 0.0 * recvs[0].sum().float()
     return outs
 
 
@@ -573,38 +598,49 @@ def sharded_encoder(params: Params, sg: NodeShardedGraph,
                     train: bool = False,
                     generator: Optional[torch.Generator] = None,
                     masks: Optional[Sequence[torch.Tensor]] = None,
-                    agg_fn=aggregate,
-                    exchange_fn=exchange) -> List[torch.Tensor]:
+                    agg_fn=aggregate, exchange_fn=exchange,
+                    mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """The encoder over the shards: each shard's slice of the (replicated)
     embedding table -> conv1 -> ReLU -> dropout -> conv2; returns the
     shards' [n_loc, hidden] rows. With ``train``, each shard's dropout mask
     is drawn from ``generator`` in shard order, or given as ``masks[d]``.
-    Both layers run in ``cfg.compute_dtype``."""
+    Both layers run in ``cfg.compute_dtype``. With a ``mesh`` that spans
+    processes, ``shard_ops`` are this process's shards' and so are the
+    rows returned; every shard's mask is drawn, and only its own kept."""
     enc = params["encoder"]
     emb = enc["node_emb"]
     cdt = compute_dtype(cfg)
     n, n_loc = sg.n_devices, sg.n_loc
+    local = mesh.local if spans(mesh) else range(n)
     pad = n * n_loc - cfg.num_nodes
     if pad:
         emb = torch.cat([emb, emb.new_zeros(pad, emb.shape[1])])
-    xs = list(emb.view(n, n_loc, -1).unbind(0))
-    xs = node_sharded_layer(enc["conv1"], xs, sg, shard_ops, agg_fn=agg_fn,
-                            exchange_fn=exchange_fn, compute_dtype=cdt)
+    xs = list(emb.view(n, n_loc, -1)[local.start:local.stop].unbind(0))
+    kw = dict(agg_fn=agg_fn, exchange_fn=exchange_fn, compute_dtype=cdt,
+              mesh=mesh)
+    xs = node_sharded_layer(enc["conv1"], xs, sg, shard_ops, **kw)
     xs = [torch.relu(x) for x in xs]
     if train and cfg.dropout > 0.0:
-        xs = [dropout(x, cfg.dropout, generator=generator,
-                      mask=None if masks is None else masks[d])
-              for d, x in enumerate(xs)]
-    return node_sharded_layer(enc["conv2"], xs, sg, shard_ops, agg_fn=agg_fn,
-                              exchange_fn=exchange_fn, compute_dtype=cdt)
+        kept = []
+        for d in range(n):
+            if d not in local:
+                if masks is None:   # another process's mask, by shape
+                    torch.rand(xs[0].shape, generator=generator,
+                               device=xs[0].device)
+                continue
+            kept.append(dropout(xs[d - local.start], cfg.dropout,
+                                generator=generator,
+                                mask=None if masks is None else masks[d]))
+        xs = kept
+    return node_sharded_layer(enc["conv2"], xs, sg, shard_ops, **kw)
 
 
 def _on_mesh(mesh: Mesh, sg: NodeShardedGraph) -> List[ShardOps]:
-    refuse_across_processes(mesh, "the node layout")
+    """The operands of this process's shards on the mesh's device."""
     if sg.n_devices != mesh.n_shards:
         raise ValueError(f"partition has {sg.n_devices} shards, mesh "
                          f"{mesh.n_shards}")
-    return build_shard_ops(sg, mesh.device)
+    return build_shard_ops(sg, mesh.device, mesh.local)
 
 
 def build_node_sharded_forward(mesh: Mesh, sg: NodeShardedGraph,
@@ -614,31 +650,36 @@ def build_node_sharded_forward(mesh: Mesh, sg: NodeShardedGraph,
 
     gather=True returns the [N, hidden] output; gather=False the
     shard-major [n, n_loc, hidden] tensor, the input of
-    ``evaluate/sharded_ranking.build_sharded_topk``.
+    ``evaluate/sharded_ranking.build_sharded_topk``. Across processes
+    every process calls it: gather=True returns the whole output on each,
+    gather=False the process's own shards, [k, n_loc, hidden].
     """
     ops = _on_mesh(mesh, sg)
 
     def encode(params: Params) -> torch.Tensor:
-        xs = sharded_encoder(params, sg, ops, model_cfg)
+        xs = sharded_encoder(params, sg, ops, model_cfg, mesh=mesh)
         if not gather:
             return torch.stack(xs)
-        return torch.cat(xs)[:sg.num_nodes]
+        return all_gather(xs, mesh=mesh).flatten(0, 1)[:sg.num_nodes]
 
     return encode
 
 
 def _fetch(x_pads: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
-           n_loc: int) -> List[torch.Tensor]:
+           n_loc: int, local: range,
+           mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """Endpoint rows for every shard's request list: all-gather the ids,
     each shard serves its owner-masked local rows (the zero row elsewhere),
-    psum; shard d keeps row block d. Nothing builds the full table."""
-    all_ids = all_gather(ids)                      # [n, C]
+    psum; shard d keeps row block d. Nothing builds the full table.
+    ``x_pads`` and ``ids`` are the shards ``local``'s; with a ``mesh`` that
+    spans processes the gather and the psum run across them."""
+    all_ids = all_gather(ids, mesh=mesh)           # [n, C]
     owner = all_ids // n_loc
     rows = [_take(x_pad, torch.where(owner == my, all_ids - my * n_loc,
                                      n_loc))
-            for my, x_pad in enumerate(x_pads)]    # each [n, C, H]
-    full = psum(rows)
-    return list(full.unbind(0))
+            for my, x_pad in zip(local, x_pads)]   # each [n, C, H]
+    full = psum(rows, mesh)
+    return list(full[local.start:local.stop].unbind(0))
 
 
 def build_node_sharded_train_step(mesh: Mesh, sg: NodeShardedGraph,
@@ -659,40 +700,54 @@ def build_node_sharded_train_step(mesh: Mesh, sg: NodeShardedGraph,
     then the optimizer). No decoder dropout, as in the JAX step. Both
     return [loss_sum, correct, count] summed over the shards, on the
     device (the step's mean loss is ``loss_sum / count``).
+
+    Across processes ``draw`` draws every shard's candidates and keeps its
+    own (None for another process's); ``update`` reads the candidates of
+    its own shards (``cands`` indexed by shard), each process
+    backpropagates its shards' loss sum over the global count, the
+    replicated parameters' gradients are summed across the processes
+    before ``apply_update``, and the stats returned are the global ones.
     """
     ops = _on_mesh(mesh, sg)
     n, n_loc = mesh.n_shards, sg.n_loc
+    local = mesh.local
 
-    def draw(batch: torch.Tensor,
-             generator: Optional[torch.Generator]) -> List[Candidates]:
+    def draw(batch: torch.Tensor, generator: Optional[torch.Generator]
+             ) -> List[Optional[Candidates]]:
         b = batch.shape[0]
         if b % n:
             raise ValueError(f"batch {b} must divide by the {n}-shard mesh")
-        return [candidate_batch(p[:, 0], p[:, 1], p[:, 2], sg.num_nodes,
-                                train_cfg.num_neg_samples, mask=p[:, 3],
-                                generator=generator)
-                for p in batch.view(n, b // n, 4)]
+        return [c if d in local else None for d, c in enumerate(
+                    candidate_batch(p[:, 0], p[:, 1], p[:, 2], sg.num_nodes,
+                                    train_cfg.num_neg_samples, mask=p[:, 3],
+                                    generator=generator)
+                    for p in batch.view(n, b // n, 4))]
 
     def update(params: Params, optimizer: torch.optim.Optimizer,
-               cands: Sequence[Candidates], *,
+               cands: Sequence[Optional[Candidates]], *,
                generator: Optional[torch.Generator] = None,
                enc_masks: Optional[Sequence[torch.Tensor]] = None
                ) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         xs = sharded_encoder(params, sg, ops, model_cfg, train=True,
                              generator=generator, masks=enc_masks,
-                             agg_fn=agg_fn, exchange_fn=exchange_fn)
+                             agg_fn=agg_fn, exchange_fn=exchange_fn,
+                             mesh=mesh)
         x_pads = [torch.cat([x, x.new_zeros(1, x.shape[1])]) for x in xs]
-        he = _fetch(x_pads, [c[0] for c in cands], n_loc)
-        te = _fetch(x_pads, [c[1] for c in cands], n_loc)
+        mine = [cands[d] for d in local]
+        he = _fetch(x_pads, [c[0] for c in mine], n_loc, local, mesh)
+        te = _fetch(x_pads, [c[1] for c in mine], n_loc, local, mesh)
         rel_table = params["decoder"]["rel_emb"]
-        stats = torch.stack([
+        own = torch.stack([
             torch.stack(bce_stats(
                 distmult_score(h, t, _take(rel_table, c[2])), c[3], c[4]))
-            for h, t, c in zip(he, te, cands)]).sum(0)
-        (stats[0] / stats[2].clamp(min=1.0)).backward()
+            for h, t, c in zip(he, te, mine)]).sum(0)
+        stats = psum([own.detach()], mesh)
+        (own[0] / stats[2].clamp(min=1.0)).backward()
+        all_reduce_([p.grad for p in param_leaves(params)
+                     if p.grad is not None], mesh)
         apply_update(optimizer, train_cfg)
-        return stats.detach()
+        return stats
 
     def step(params: Params, optimizer: torch.optim.Optimizer,
              batch: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -40,10 +40,10 @@ meet at --coordinator_address (process 0's host:port; without it the
 ``torchrun`` environment), the mesh's --n_devices shards split over them
 (``train/multichip.maybe_initialize_distributed``: NCCL on cards of their
 own, gloo on the CPU or on a shared card). Across processes it trains
---shard edge, or --sample_fanouts with --shard (dp, --zero1, --zero3,
---dp_pods, --table_opt); any other layout raises, --shard node naming
-ROADMAP A10.4b. Process 0 alone writes the checkpoints, metrics.jsonl,
-training.log and the synthetic splits.
+--shard edge or --shard node, or --sample_fanouts with --shard (dp,
+--zero1, --zero3, --dp_pods whose tp rows may span processes,
+--table_opt); a layout without a mesh raises. Process 0 alone writes the
+checkpoints, metrics.jsonl, training.log and the synthetic splits.
 """
 
 from __future__ import annotations
@@ -273,16 +273,11 @@ def _check_across_processes(args, world: int) -> None:
     it would train alone in each of them."""
     if world == 1:
         return
-    if args.shard == "node" and not args.sample_fanouts:
-        raise ValueError(
-            f"--shard node across {world} processes is not ported (ROADMAP "
-            f"A10.4b: the node layout and its halo exchange run in one "
-            f"process); use --shard edge, or --sample_fanouts with --shard")
     if args.shard == "none":
         raise ValueError(
             f"--num_processes {world} trains a mesh that spans the "
-            f"processes: pass --shard edge, or --sample_fanouts with "
-            f"--shard (each process would otherwise train alone)")
+            f"processes: pass --shard edge or node, or --sample_fanouts "
+            f"with --shard (each process would otherwise train alone)")
 
 
 def main(argv=None):

@@ -20,9 +20,9 @@ shards of a mesh that spans them (``parallel/mesh.py``). The backend rule:
 - ``gloo`` when processes share a card: NCCL refuses a communicator two of
   whose ranks sit on one device.
 
-The edge layout's ``ShardedTrainer`` runs across processes, each process
-stepping its own shards; the node layout runs in one process only
-(ROADMAP A10.4b).
+Both layouts' ``ShardedTrainer`` run across processes, each process
+stepping its own shards (the node layout's halo exchange joining them
+through an all-to-all).
 """
 
 from __future__ import annotations
@@ -41,8 +41,7 @@ from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
 from primekg_rgcn_tpu_torch.parallel import edge_shard, node_shard
 from primekg_rgcn_tpu_torch.device import resolve_device
-from primekg_rgcn_tpu_torch.parallel.mesh import (make_mesh,
-                                                  refuse_across_processes)
+from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh
 from primekg_rgcn_tpu_torch.train.loop import (Trainer, build_eval_epoch,
                                                edges_with_sentinel,
                                                make_optimizer)
@@ -65,9 +64,9 @@ class ShardedTrainer(Trainer):
     generator. The epoch's loss and accuracy weigh every batch by its
     candidate count, as the JAX package's sharded trainer does.
     Checkpoints, metrics, early stopping, resume and validation are the
-    ``Trainer``'s. Across processes (the edge layout) every process runs
-    the epoch over the same batches, stepping its own shards, and
-    validates the replicated parameters itself.
+    ``Trainer``'s. Across processes (either layout) every process runs the
+    epoch over the same batches, stepping its own shards, and validates
+    the replicated parameters itself; process 0 alone writes.
     """
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -80,8 +79,6 @@ class ShardedTrainer(Trainer):
         self._setup(model_cfg, train_cfg, output_dir, device, args,
                     train_edges)
         self.mesh = make_mesh(n_devices, self.device)
-        if shard == "node":
-            refuse_across_processes(self.mesh, "the node-sharded trainer")
         n = self.mesh.n_shards
         if train_cfg.batch_size % n:
             raise ValueError(f"batch_size {train_cfg.batch_size} must divide "

@@ -902,13 +902,16 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     n_dp * n_tp mesh gives the same parameters as the (n_dp, n_tp) one, up
     to summation order.
 
-    Across processes: on a 1-D mesh each process holds the slices of its
-    own shards, [n_tp / P, n_loc, D] (``step.owners``), the fetch runs
-    across the processes and the clip sums the slices' squared norms
-    across them; ``step.to_full`` and ``step.full_params`` gather the
-    slices, so every process calls them. On an (n_dp, n_tp) mesh each
-    process holds whole dp rows and the whole table, and only the dp sum
-    of the slice gradients crosses processes.
+    Across processes: where a tp row is split over them (a 1-D mesh, or
+    an (n_dp, n_tp) mesh with more processes than rows) each process
+    holds the slices of its own shards' tp indices, [k, n_loc, D]
+    (``step.owners``), the fetch runs across the row's processes
+    (``mesh.tp_axis``) and the clip sums the slices' squared norms across
+    them; ``step.to_full`` and ``step.full_params`` gather the slices, so
+    every process calls them. The dp sum of the slice gradients runs
+    across the processes that hold the same slices (``mesh.dp_axis``); a
+    process that holds whole dp rows holds the whole table, and then only
+    that sum crosses processes.
     """
     if table_opt not in ("sgd", "adafactor"):
         raise ValueError(f"unknown table_opt {table_opt!r}")
@@ -925,11 +928,10 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     n_nodes = model_cfg.num_nodes
     n_loc = -(-n_nodes // n_tp)
     pad_rows = n_tp * n_loc - n_nodes
-    # The mesh's axes that cross processes: a 1-D mesh's tp row, or the dp
-    # axis of a mesh whose processes hold whole rows.
-    tp_across = mesh if n_tp > len(mesh.local) else None
-    dp_across = mesh if mesh.world > 1 and mesh.n_dp > 1 else None
-    owners = mesh.local if tp_across is not None else range(n_tp)
+    # The mesh's axes that cross processes: a tp row split over them (a
+    # 1-D mesh's one row among them), the dp axis of several rows.
+    tp_across, dp_across = mesh.tp_axis, mesh.dp_axis
+    owners = tp_across.local if tp_across is not None else range(n_tp)
     row_valid = (torch.arange(n_tp * n_loc, device=dev)
                  < n_nodes).float().view(n_tp, n_loc)[owners.start:
                                                       owners.stop]

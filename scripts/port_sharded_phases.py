@@ -20,9 +20,12 @@ edge groups with fewer timed steps:
 - dp: the data-parallel sampled steps (``sampled_dp_grad``, the fetch
   backward's B2 stream, ``sampled_dp_train``, ``sampled_dp_cli``) and
   ``full_kg_zero3`` on config 4's graph, as in ``chip_smoke.py``;
-- dist: ``--distributed`` (``phase_distributed``): the one-process NCCL
-  edge CLI against the plain one, and the edge and zero3 steps on two
-  processes of the one card against one process.
+- dist: kernel B4 at the node step's shapes, float32 and bf16, with its
+  form across two processes (each process's pairs) and its edge cases
+  (``phase_kernel_b4``), then ``--distributed`` (``phase_distributed``):
+  the one-process NCCL edge and node CLIs against the plain ones, and the
+  edge, node and zero3 steps (zero3 also on a (1, 4) mesh split over the
+  processes) on two processes of the one card against one process.
 
 Each phase prints its ``chip_smoke.py`` line, and a ``##`` line gives the
 seconds since the start: a quick check of these paths before a whole
@@ -117,6 +120,10 @@ def main():
             cs.phase_sampled_dp_cli(tmp)
             mark("sampled_dp_cli")
         if "dist" in groups:
+            psg = partition_nodes(graph, cs.N_SHARDS)
+            for dtype in (torch.float32, torch.bfloat16):
+                cs.phase_kernel_b4(psg, dev, dtype)
+            mark("kernel_b4")
             cs.phase_distributed(REPO, tmp, graph, cfg, edges, dev)
             mark("distributed")
         if groups & {"node", "edge", "dp"}:

@@ -1,5 +1,6 @@
 """One process of a gloo group on the CPU, for
-tests/test_torch_port_distributed.py:
+tests/test_torch_port_distributed.py and
+tests/test_torch_port_node_distributed.py:
 
     python tests/port_dist_worker.py <case> <rank> <world> <dir>
 
@@ -23,10 +24,13 @@ import torch.distributed as dist  # noqa: E402
 
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig  # noqa
 from primekg_rgcn_tpu_torch.data.graph import build_rel_graph  # noqa: E402
+from primekg_rgcn_tpu_torch.evaluate import sharded_ranking  # noqa: E402
 from primekg_rgcn_tpu_torch.models.rgcn import (init_params,  # noqa: E402
                                                 param_leaves)
+from primekg_rgcn_tpu_torch.ops.cuda import halo  # noqa: E402
 from primekg_rgcn_tpu_torch.parallel import edge_shard  # noqa: E402
 from primekg_rgcn_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from primekg_rgcn_tpu_torch.parallel import node_shard  # noqa: E402
 from primekg_rgcn_tpu_torch.train import sampled  # noqa: E402
 from primekg_rgcn_tpu_torch.train.loop import make_optimizer  # noqa: E402
 
@@ -108,16 +112,19 @@ def case_collectives(rank, world, d):
         out["differing_raises"] = torch.tensor(False)
     except RuntimeError:
         out["differing_raises"] = torch.tensor(True)
-    out["groups_2x2"] = torch.tensor(
-        [list(g) for g in pmesh.shard_groups(pmesh.make_mesh_2d(2, 2,
-                                                                "cpu"))])
-    for name, make in (("row_split", lambda: pmesh.make_mesh_2d(1, 4, "cpu")),
-                       ("odd_shards", lambda: pmesh.make_mesh(3, "cpu"))):
-        try:
-            make()
-            out[name] = torch.tensor(False)
-        except ValueError:
-            out[name] = torch.tensor(True)
+    for name, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
+        m = pmesh.make_mesh_2d(*shape, "cpu")
+        out[f"groups_{name}"] = torch.tensor(
+            [list(g) for g in pmesh.shard_groups(m)])
+        # (world, rank, local) of each axis that crosses processes.
+        out[f"axes_{name}"] = [
+            None if a is None else (a.world, a.rank, list(a.local))
+            for a in (m.tp_axis, m.dp_axis)]
+    try:
+        pmesh.make_mesh(3, "cpu")
+        out["odd_shards"] = torch.tensor(False)
+    except ValueError:
+        out["odd_shards"] = torch.tensor(True)
     return out
 
 
@@ -237,8 +244,160 @@ def case_given(rank, world, d):
     return out
 
 
+# -- cases "node" and "node4": the node layout, and zero3 on split rows ------
+
+# (shards, processes) of the exchanges
+EXCHANGES = [(4, 2), (8, 2), (8, 4)]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# zero3 on meshes whose tp rows are split over the processes, by world
+# size: (name, layout, mesh shape, sampling mode, table rule)
+SPLIT_RUNS = {2: [("zero3_1x4", "zero3", (1, 4), "block", "sgd")],
+              4: [("zero3_2x2", "zero3", (2, 2), "block", "sgd"),
+                  ("zero3_2x2_adafactor", "zero3", (2, 2), "uniform",
+                   "adafactor")]}
+
+
+def exchange_inputs(n, dtype):
+    """``n`` shards' sends [n, 5, 8] and each recv's cotangent, small
+    integers (exact in bf16)."""
+    rng = np.random.default_rng(n)
+
+    def ints():
+        return torch.from_numpy(rng.integers(-64, 64, (n, 5, 8)).astype(
+            np.float32)).to(dtype)
+
+    return [ints() for _ in range(n)], [ints() for _ in range(n)]
+
+
+def run_exchange(n, dtype, mesh=None):
+    """The differentiable exchange of this process's shards over ``mesh``
+    (without one: every shard through the plain version): the recvs and
+    the sends' gradients under the sum over its shards of <recv,
+    cotangent>."""
+    sends, cots = exchange_inputs(n, dtype)
+    local = range(n) if mesh is None else mesh.local
+    leaves = [sends[d].clone().requires_grad_(True) for d in local]
+    recvs = (halo.halo_exchange_plain(leaves) if mesh is None
+             else halo.HaloExchange.apply(mesh, *leaves))
+    sum((r * cots[d]).sum() for r, d in zip(recvs, local)).backward()
+    return {"recv": torch.stack([r.detach() for r in recvs]),
+            "grad": torch.stack([x.grad for x in leaves])}
+
+
+def fresh(tree):
+    """A copy of a nested dict of tensors, each a leaf that requires grad."""
+    if isinstance(tree, dict):
+        return {k: fresh(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
+def run_node(given, *, steps=3, seed=4):
+    """The node layout over 4 shards on a mesh that spans the live group
+    (or one process), from the handed-over graph, parameters, candidates
+    and table: the encode at both ``uniform_caps`` (this process's shards
+    and, gathered, the whole), one SGD update on the given candidates,
+    ``steps`` adam steps with dropout on the port's generator, the sharded
+    top-K, ranks and scores."""
+    src, dst, rel = given["edges"].T
+    graph = build_rel_graph(src, dst, rel, given["num_nodes"],
+                            given["num_relations"], bucket_pad_multiple=64)
+    cfg = ModelConfig.from_dict(given["model_config"])
+    mesh = pmesh.make_mesh(SHARDS, "cpu")
+    local = mesh.local
+    out = {}
+    with torch.no_grad():
+        for u in (False, True):
+            psg = node_shard.partition_nodes(graph, SHARDS, uniform_caps=u)
+            out[f"encode_{u}"] = node_shard.build_node_sharded_forward(
+                mesh, psg, cfg, gather=False)(given["params"])
+            out[f"gathered_{u}"] = node_shard.build_node_sharded_forward(
+                mesh, psg, cfg)(given["params"])
+    psg = node_shard.partition_nodes(graph, SHARDS)
+
+    tcfg = TrainConfig(batch_size=64, lr=1e-2, optimizer="sgd",
+                       grad_clip=0.0)
+    step = node_shard.build_node_sharded_train_step(mesh, psg, cfg, tcfg)
+    params = fresh(given["params"])
+    stats = step.update(params, make_optimizer(tcfg, params),
+                        given["cands"])
+    out["update"] = {"stats": stats, "params": flat(params)}
+
+    dcfg = ModelConfig.from_dict({**given["model_config"], "dropout": 0.3})
+    tcfg = TrainConfig(batch_size=64, lr=1e-2)
+    step = node_shard.build_node_sharded_train_step(mesh, psg, dcfg, tcfg)
+    params = fresh(given["params"])
+    opt = make_optimizer(tcfg, params)
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    edges = given["edges"]
+    losses = []
+    for _ in range(steps):
+        batch = np.ones((64, 4), np.int64)
+        batch[:, :3] = edges[rng.integers(0, len(edges), 64)]
+        batch[60:, 3] = 0                   # padding rows
+        stats = step(params, opt, torch.from_numpy(batch), gen)
+        losses.append((stats[0] / stats[2]).item())
+    out["steps"] = {"losses": torch.tensor(losses, dtype=torch.float64),
+                    "params": flat(params), "opt": flat(opt.state_dict()),
+                    "gen": gen.get_state()}
+
+    # A graph whose second half of the nodes has only in-shard in-edges:
+    # the second process's shards have no halo edge, and yet it joins
+    # every exchange, its backward too.
+    keep = (dst < 48) | (src // 24 == dst // 24)
+    inner = node_shard.partition_nodes(build_rel_graph(
+        src[keep], dst[keep], rel[keep], given["num_nodes"],
+        given["num_relations"], bucket_pad_multiple=64), SHARDS)
+    out["no_halo_shards"] = [
+        d for d in range(SHARDS) if int(inner.rowptr_halo[d, :, -1].sum()) == 0]
+    tcfg = TrainConfig(batch_size=64, lr=1e-2, optimizer="sgd",
+                       grad_clip=0.0)
+    step = node_shard.build_node_sharded_train_step(mesh, inner, cfg, tcfg)
+    params = fresh(given["params"])
+    stats = step.update(params, make_optimizer(tcfg, params),
+                        given["cands"])
+    out["no_halo"] = {"stats": stats, "params": flat(params)}
+
+    t = given["topk"]
+    emb_dm = t["emb"][local.start:local.stop]
+    topk = sharded_ranking.build_sharded_topk(
+        mesh, emb_dm, t["rel"], t["num_nodes"], t["k"])(t["heads"],
+                                                         t["rels"])
+    rank, score = sharded_ranking.build_sharded_eval_from_sharded(
+        mesh, emb_dm, t["rel"], t["num_nodes"])
+    full = t["emb"].reshape(-1, t["emb"].shape[-1])[:t["num_nodes"]]
+    out["topk"] = {
+        "scores": topk[0], "ids": topk[1],
+        "rank": rank(t["heads"], t["rels"], t["tails"]),
+        "score": score(t["heads"], t["tails"], t["rels"]),
+        "ranker": sharded_ranking.build_sharded_ranker(mesh, full, t["rel"])(
+            t["heads"], t["rels"], t["tails"])}
+    return out
+
+
+def _node_cases(world, d):
+    out = {}
+    for n, w in EXCHANGES:
+        if w == world:
+            mesh = pmesh.make_mesh(n, "cpu")
+            for name, dtype in DTYPES.items():
+                out[f"exchange_{n}_{name}"] = run_exchange(n, dtype, mesh)
+    for name, *spec in SPLIT_RUNS[world]:
+        out[name] = run_steps(*spec)
+    return out
+
+
+def case_node(rank, world, d):
+    given = torch.load(Path(d) / "given.pt", weights_only=False)
+    return {**_node_cases(world, d), **run_node(given)}
+
+
+def case_node4(rank, world, d):
+    return _node_cases(world, d)
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
-         "given": case_given}
+         "given": case_given, "node": case_node, "node4": case_node4}
 
 
 def main():

@@ -6,7 +6,8 @@ JAX package.
 - (1) The mesh collectives and their autograd forms at 2 processes
   (``tests/port_dist_worker.py``) against the one-process mesh, output
   and gradient, exactly (integer inputs); ``all_reduce_``,
-  ``check_same_across``, the 2-D mesh's groups and the meshes that raise.
+  ``check_same_across``, the 2-D meshes' groups and axes (whole rows a
+  process, and a row split over processes) and the mesh that raises.
 - (2) The 2-process zero3 block step against the JAX one-process 4-device
   ``build_sampled_train_step_zero3`` for two steps on the same parameters
   and draws (the JAX candidates, sampler uniforms and masks handed over),
@@ -25,8 +26,9 @@ JAX package.
   atol 2e-6, and the generator's state equal (every process draws every
   shard's numbers).
 - (6) ``--num_processes 2`` with no peer raises within its rendezvous
-  timeout; (7) ``--shard node`` under 2 processes raises, naming ROADMAP
-  A10.4b, and so does any layout without a mesh.
+  timeout; (7) any layout without a mesh raises under 2 processes (the
+  node layout across processes is tests/test_torch_port_node_distributed.
+  py's).
 
 Every child has its own timeout and every sibling is killed in
 ``finally``; workers meet in ``file://`` stores, the CLI and the drill at
@@ -135,10 +137,15 @@ def test_all_reduce_check_and_process_meshes(collectives):
     for r, got in enumerate(ranks):
         assert torch.equal(got["all_reduce_"], want)
         assert bool(got["differing_raises"])
-        # Whole rows a process on (2, 2); a row split, or 3 shards over 2
-        # processes, raises.
+        # Whole rows a process on (2, 2): only the dp axis crosses
+        # processes. (1, 4) splits its row: the row's sub-group is both
+        # processes, and this one holds tp indices 2r, 2r + 1. 3 shards
+        # over 2 processes raise.
         assert got["groups_2x2"].tolist() == [[2 * r, 2 * r + 1]]
-        assert bool(got["row_split"]) and bool(got["odd_shards"])
+        assert got["axes_2x2"] == [None, (2, r, [2 * r, 2 * r + 1])]
+        assert got["groups_1x4"].tolist() == [[2 * r, 2 * r + 1]]
+        assert got["axes_1x4"] == [(2, r, [2 * r, 2 * r + 1]), None]
+        assert bool(got["odd_shards"])
 
 
 # -- (2) zero3 across processes against the JAX step --------------------------
@@ -314,29 +321,17 @@ def test_two_processes_without_a_peer_raise(tmp_path):
     assert "did not yield a multi-process runtime" in err
 
 
-def test_node_layout_on_two_processes_raises(tmp_path):
-    port = free_port()
-    res = spawn([CLI + [
-        "--shard", "node", "--distributed", "--coordinator_address",
-        f"localhost:{port}", "--num_processes", "2", "--process_id", str(i),
-        "--output_dir", str(tmp_path / f"mh{i}")] for i in range(2)],
-        tmp_path)
-    for rc, _, err in res:
-        assert rc != 0
-        assert "ROADMAP A10.4b" in err
-    assert not (tmp_path / "mh0").exists()
-
-
 @pytest.mark.parametrize("extra,match", [
     ([], "each process would otherwise train alone"),
     (["--sample_fanouts", "4", "3"], "each process would otherwise train"),
     (["--shard", "node", "--sample_fanouts", "4", "3"], None),
     (["--shard", "edge"], None),
-], ids=["one_device", "one_device_sampled", "sampled_node", "edge"])
+    (["--shard", "node"], None),
+], ids=["one_device", "one_device_sampled", "sampled_node", "edge", "node"])
 def test_which_layouts_train_across_processes(extra, match):
     """The rule the CLI applies once the group is up: a layout without a
-    mesh would train alone in each process; the sampled steps take either
-    --shard."""
+    mesh would train alone in each process; either --shard trains, with
+    or without --sample_fanouts."""
     from primekg_rgcn_tpu_torch.train import cli
 
     args = cli.parse_args(["--device", "cpu"] + extra)

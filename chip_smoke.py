@@ -246,6 +246,18 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    pushed cache (2 B2) against the plain versions; ``train.cli
    --sample_fanouts 15 10 --sparse_emb --cache_layer1`` at scale 0.1 for
    2 epochs, then ``evaluate.cli`` on its model.
+27b'. jax_checkpoint (after sampled_cache): JAX checkpoints on the
+   ``bench.py`` graph (``train/checkpoint.save_jax`` / ``load``): a
+   ``Trainer`` 3 updates in, saved as a ``.pt`` and, from the same state,
+   as a JAX checkpoint; two fresh trainers resumed from them, parameters
+   and adam state ``torch.equal`` to the trained one's and to each other
+   after one more update (12 B1, by the wrapper and in a trace);
+   ``predict_cli`` and ``evaluate.cli`` on the JAX stem equal to the
+   ``.pt``'s (6 B1 an encode); ``torch_interop`` export then import bit
+   for bit; block-mode ``SampledTrainer`` resumes over the slim CSR, dense
+   adam (2 B2, 2 B3 a step) and ``--sparse_emb --cache_layer1`` (2 B2,
+   1 B3), equal before and after one step; the files' MB and the write
+   and read seconds beside the card.
 27c. BASELINE config 5 (``bench/suite.py:175-272``): rmat10m_graph:
    ``native.rmat_native(10M, 100M, 50, seed=0)``, ``build_rel_graph``
    and ``build_combined_csr`` (slim packed), each timed with the host's
@@ -5039,9 +5051,13 @@ KERNEL_NAMES = {"B1": "gather_segment_sum_kernel",
 
 # Marker kernels around a profiled run: ``torch.cuda._sleep``'s
 # ``spin_kernel``, which the port never launches, MARKS before and MARKS
-# after, each followed by a synchronise.
+# after, each followed by a synchronise. A trace on the card's machine can
+# drop its first records, never a last one: all 8 head markers of an
+# earlier MARKS and the run's first B1 in each of three traces of one
+# run, and with 32 up to all 32 and no counted kernel. MARKS stays well
+# above that, so that what a trace drops falls among the head markers.
 MARKER_KERNEL = "spin_kernel"
-MARKS = 8
+MARKS = 32
 
 
 def profiled(fn, prof_dir):
@@ -6447,6 +6463,239 @@ def dist_topk_compare(solo, ranks):
             "launches_one_process": solo["launches"]}
 
 
+# -- JAX checkpoints on the card -----------------------------------------------
+
+
+def trainer_state(t):
+    """Copies of a trainer's parameters and optimizer-state tensors, by
+    name (``run_state`` without the generator, which a JAX checkpoint
+    cannot carry)."""
+    state = run_state(t.params, t.optimizer, t.device_gen)
+    del state["generator"]
+    return state
+
+
+def same_states(label, *trainers):
+    """Every trainer's parameters and optimizer state ``torch.equal`` to
+    the first's."""
+    want = trainer_state(trainers[0])
+    for t in trainers[1:]:
+        got = trainer_state(t)
+        bad = sorted(set(want) ^ set(got)) or differing(want, got)
+        if bad:
+            raise AssertionError(f"jax_checkpoint/{label}: {bad[:8]} differ")
+    return len(want)
+
+
+def phase_jax_checkpoint(raw, graph, cfg, edges, dev, tmp):
+    """JAX checkpoints on the card (``train/checkpoint.save_jax`` and
+    ``load``, ``train/flax_msgpack.py``), at the ``bench.py`` configuration
+    (the graph above, 64 -> 128 -> 128, batch 1024, adam); the files are
+    the port's own ``save_jax`` output, which the CPU tests tie to flax
+    byte for byte. A ``Trainer`` takes 3 updates and saves a ``.pt`` and,
+    from the same state, a JAX checkpoint; two fresh trainers resume, one
+    from each: parameters and adam state (``exp_avg``, ``exp_avg_sq``,
+    ``step``) ``torch.equal`` to the trained one's, and again after one
+    more update in each on the same batch and generator (12 B1, counted
+    by the wrapper and in a trace). ``predict_cli`` and ``evaluate.cli`` on
+    the JAX stem give the ``.pt``'s top-K ids and scores and metrics
+    exactly, 6 B1 an encode; ``torch_interop export`` then ``import`` keep
+    the parameters bit for bit. Then the one-device block-mode
+    ``SampledTrainer`` over the slim CSR (config 5's layout, so that block
+    windows go through B3), dense adam and ``--sparse_emb --cache_layer1``:
+    2 steps, both files, two resumes equal to the trained state, one step
+    each equal (2 B2 and 2 B3 a dense step; the cached step's one hop, 2
+    B2 and 1 B3). Prints the files' MB and the write and read seconds
+    beside the card (mechanics, not a speed claim). Returns the launches
+    by path and kernel."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.data import artifacts, sampling, synthetic
+    from primekg_rgcn_tpu_torch.evaluate import cli as eval_cli
+    from primekg_rgcn_tpu_torch.evaluate import predict_cli
+    from primekg_rgcn_tpu_torch.train import checkpoint, loop, torch_interop
+    from primekg_rgcn_tpu_torch.train.sampled import SampledTrainer
+
+    t_phase = time.perf_counter()
+    tmp = tmp / "jax_checkpoint"
+    data = tmp / "data"
+    data.mkdir(parents=True)
+    artifacts.save_split_npz(data / "full_graph.npz", {
+        "edge_index": edges[:, :2].T, "edge_type": edges[:, 2],
+        "num_nodes": cfg.num_nodes, "num_relations": cfg.num_relations})
+    artifacts.save_split_npz(data / "test_data.npz", heldout_test_split(raw))
+    artifacts.save_mappings(data / "mappings.json",
+                            synthetic.synthetic_mappings(raw))
+    rng = np.random.default_rng(0)
+    edges_dev = torch.from_numpy(edges.astype(np.int64)).to(dev)
+    counts = {"B1": {}, "B2": {}, "B3": {}}
+    figures = {}
+
+    def both_files(t, name):
+        """``t`` saved as a .pt and as a JAX checkpoint; the JAX write and
+        read timed."""
+        checkpoint.save(tmp / f"{name}.pt", t._checkpoint_payload())
+        payload = t.jax_checkpoint_payload()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_jax(tmp / name, payload)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = checkpoint.load(tmp / name, device=dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        for k, v in named_leaves(t._saved_params()):
+            got = dict(named_leaves(loaded["params"]))[k]
+            if not torch.equal(got, v.detach()):
+                raise AssertionError(f"jax_checkpoint/{name}: {k} read back "
+                                     f"differs")
+        figures[name] = dict(
+            msgpack_mb=(tmp / f"{name}.msgpack").stat().st_size / 2 ** 20,
+            pt_mb=(tmp / f"{name}.pt").stat().st_size / 2 ** 20,
+            write_s=write_s, read_s=read_s)
+
+    # -- the full-graph Trainer --------------------------------------------
+    tcfg = TrainConfig(batch_size=1024, epochs=2, restrict_final="off")
+
+    def trainer(name):
+        return loop.Trainer(cfg, tcfg, graph, graph, edges, edges[:4096],
+                            tmp / name, device=dev)
+
+    edges_pad = loop.edges_with_sentinel(edges, dev)
+
+    def batch():
+        return torch.from_numpy(rng.integers(0, len(edges), (1, 1024))).to(dev)
+
+    trained = trainer("trained")
+    for _ in range(3):
+        loop.train_step(trained.params, trained.optimizer, graph, edges_pad,
+                        batch(), cfg, tcfg, generator=trained.device_gen)
+    trained.epoch = 1
+    both_files(trained, "model")
+    from_pt, from_jax = trainer("from_pt"), trainer("from_jax")
+    from_pt.resume(tmp / "model.pt")
+    from_jax.resume(tmp / "model")
+    n_state = same_states("trainer_resume", trained, from_pt, from_jax)
+    bi = batch()
+
+    def update(t):
+        loop.train_step(t.params, t.optimizer, graph, edges_pad, bi, cfg,
+                        tcfg, generator=torch.Generator(dev).manual_seed(11))
+
+    update(from_pt)
+    reset_counts()
+    traced, _, _ = profiled(lambda: update(from_jax), tmp / "update_trace")
+    wrapper = read_counts()
+    whole = profiled.last_span["markers"] == 2 * MARKS
+    if wrapper["B1"] != 12 or (whole and traced["B1"] != 12):
+        raise AssertionError(f"jax_checkpoint: a resumed update launched "
+                             f"{wrapper} (trace {traced}), expected 12 B1")
+    same_states("trainer_update", from_pt, from_jax)
+    counts["B1"]["resumed_update"] = wrapper["B1"]
+    counts["B1"]["resumed_update_trace"] = traced["B1"]
+
+    # -- serving, evaluation and the interop CLI from the JAX stem ----------
+    tr = raw["type_ranges"]
+    heads = [tr[k][0] for k in ("disease", "drug", "gene/protein")]
+    served = {}
+    for model in ("model.pt", "model"):
+        reset_counts()
+        served[model] = predict_cli.main([
+            "--model_path", str(tmp / model), "--data_dir", str(data),
+            "--heads", *map(str, heads), "--relation", "1", "--topk", "10",
+            "--device", dev.type])
+        counts["B1"][f"serve_{model}"] = read_counts()["B1"]
+    if served["model"] != served["model.pt"] or \
+            counts["B1"]["serve_model"] != 6:
+        raise AssertionError(f"jax_checkpoint/serve: the JAX stem's top-K "
+                             f"differs from the .pt's or launched "
+                             f"{counts['B1']['serve_model']} B1")
+    metrics = {}
+    for model in ("model.pt", "model"):
+        reset_counts()
+        metrics[model] = eval_cli.main([
+            "--model_path", str(tmp / model), "--data_dir", str(data),
+            "--output_dir", str(tmp / ("eval_pt" if model.endswith(".pt")
+                                       else "eval_jax")), "--device",
+            dev.type])
+        counts["B1"][f"eval_{model}"] = read_counts()["B1"]
+    # The dumps compare NaN with NaN as equal.
+    if json.dumps(metrics["model"]) != json.dumps(metrics["model.pt"]) or \
+            counts["B1"]["eval_model"] != 6:
+        raise AssertionError("jax_checkpoint/eval: the JAX stem's metrics "
+                             "differ from the .pt's")
+    torch_interop.main(["export", str(tmp / "model"),
+                        str(tmp / "exported.pt")])
+    torch_interop.main(["import", str(tmp / "exported.pt"),
+                        str(tmp / "imported")])
+    back = dict(named_leaves(checkpoint.load(tmp / "imported")["params"]))
+    for k, v in named_leaves(trained.params):
+        if not torch.equal(back[k], v.detach().cpu()):
+            raise AssertionError(f"jax_checkpoint/interop: {k} changed")
+
+    # -- the one-device block-mode sampled trainer, slim CSR ----------------
+    configs = {
+        "block": ({}, dict(optimizer="adam", lr=0.01, grad_clip=1.0),
+                  {"B2": 2, "B3": 2}),
+        "block_cache": (dict(sparse_emb=True, cache_layer1=True),
+                        dict(optimizer="sgd", lr=0.5, grad_clip=0.0),
+                        {"B2": 2, "B3": 1})}
+    slim_bytes = sampling.SLIM_TABLE_BYTES
+    sampling.SLIM_TABLE_BYTES = 0
+    try:
+        for name, (kw, opt, want) in configs.items():
+            stcfg = TrainConfig(batch_size=1024, epochs=2, **opt)
+
+            def sampled_trainer(label):
+                return SampledTrainer(
+                    cfg, stcfg, graph, graph, edges, edges[:4096],
+                    tmp / f"{name}_{label}", fanouts=(15, 10), mode="block",
+                    device=dev, **kw)
+
+            def step(t, gen):
+                pos = edges_dev[torch.from_numpy(
+                    rng.integers(0, len(edges), 1024)).to(dev)]
+                t.step_fn(t.params, t.optimizer, pos, gen)
+
+            s_trained = sampled_trainer("trained")
+            if s_trained.step_fn.csr.packed is None:
+                raise AssertionError(f"jax_checkpoint/{name}: not the slim "
+                                     f"CSR")
+            for _ in range(2):
+                step(s_trained, s_trained.device_gen)
+            s_trained.epoch = 1
+            both_files(s_trained, name)
+            s_pt, s_jax = sampled_trainer("from_pt"), sampled_trainer(
+                "from_jax")
+            s_pt.resume(tmp / f"{name}.pt")
+            s_jax.resume(tmp / f"{name}.msgpack")
+            same_states(f"{name}_resume", s_trained, s_pt, s_jax)
+            state = rng.bit_generator.state
+            step(s_pt, torch.Generator(dev).manual_seed(13))
+            rng.bit_generator.state = state
+            reset_counts()
+            step(s_jax, torch.Generator(dev).manual_seed(13))
+            got = read_counts()
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"jax_checkpoint/{name}: a resumed step "
+                                     f"launched {got}, expected {want}")
+            same_states(f"{name}_step", s_pt, s_jax)
+            for k in want:
+                counts[k][name] = got[k]
+            del s_trained, s_pt, s_jax
+    finally:
+        sampling.SLIM_TABLE_BYTES = slim_bytes
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    emit("jax_checkpoint", files=figures, trainer_state_tensors=n_state,
+         launches=counts, seconds=time.perf_counter() - t_phase,
+         card=smi.stdout.strip())
+    return counts
+
+
 def main():
     import torch
 
@@ -7000,6 +7249,9 @@ def main():
         # -- the layer-1 cache on the bench.py graph ------------------------
         cache_counts, cache_err = phase_sampled_cache(graph, cfg, edges, dev,
                                                       Path(tmp))
+        # -- JAX checkpoints on the bench.py graph --------------------------
+        jax_counts = phase_jax_checkpoint(raw, graph, cfg, edges, dev,
+                                          Path(tmp))
 
         # -- BASELINE config 5: R-MAT, 10M nodes, 100M edges, 50 relations --
         ccsr5, edges5 = phase_rmat10m_graph(dev)
@@ -7086,6 +7338,7 @@ def main():
                              "full_kg_edge_train": kg_edge_counts["B1"],
                              "sampled_cache": {k: v["B1"] for k, v in
                                                cache_counts.items()},
+                             "jax_checkpoint": jax_counts["B1"],
                              **bench_paths("B1")},
         "launches_per_step_in_graphs": {
             "train_graphed": train_graphed["default"][
@@ -7183,6 +7436,7 @@ def main():
             "combined_agg": {k: v["launches"]["B2"]
                              for k, v in agg_runs.items()},
             "sampled_cache": {k: v["B2"] for k, v in cache_counts.items()},
+            "jax_checkpoint": jax_counts["B2"],
             **bench_paths("B2"),
             "rmat10m_sampled": {k: v["launches"]["B2"]
                                 for k, v in rmat10m.items()}},
@@ -7270,6 +7524,7 @@ def main():
                                  for k, v in sampled_dp.items()},
             "distributed_zero3_per_process_step": dist_counts["zero3"]["B3"],
             "full_kg_zero3": kg_zero3["launches"]["B3"],
+            "jax_checkpoint": jax_counts["B3"],
             "rmat10m_sampled": {k: v["launches"]["B3"]
                                 for k, v in rmat10m.items()}},
         "launches_per_step_in_graphs": {

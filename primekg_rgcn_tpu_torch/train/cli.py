@@ -93,7 +93,8 @@ def parse_args(argv=None):
                    help="layer compute dtype (default float32, or with "
                         "--resume the checkpoint's)")
     p.add_argument("--resume", default=None,
-                   help="checkpoint (.pt) to resume from")
+                   help="checkpoint to resume from: a .pt, or a JAX "
+                        "checkpoint (its stem, stem.msgpack or stem.json)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on a PrimeKG-statistics synthetic graph")
     p.add_argument("--synthetic_scale", type=float, default=1.0)
@@ -332,8 +333,8 @@ def main(argv=None):
             if args.resume:
                 from primekg_rgcn_tpu_torch.train import checkpoint
 
-                args.compute_dtype = checkpoint.load(
-                    args.resume)["model_config"]["compute_dtype"]
+                args.compute_dtype = checkpoint.stored_model_config(
+                    args.resume)["compute_dtype"]
         model_cfg = ModelConfig(
             num_nodes=num_nodes, num_relations=num_relations,
             embedding_dim=args.embedding_dim, hidden_dim=args.hidden_dim,

@@ -456,7 +456,10 @@ class Trainer:
     ``models/final_model.pt`` at the end. The best and periodic ones are
     written by a background thread (``checkpoint.AsyncSaver``) from a host
     copy taken at the call; the final one is written at once, after the
-    pending writes. Each epoch appends one event to ``metrics.jsonl``.
+    pending writes. ``resume`` also takes a checkpoint of the JAX package,
+    and ``jax_checkpoint_payload`` gives the state in its layout
+    (``checkpoint.save_jax``). Each epoch appends one event to
+    ``metrics.jsonl``.
 
     Across processes every process runs this loop and calls each save (the
     snapshot may gather shards); process 0 alone writes the files. The
@@ -556,7 +559,36 @@ class Trainer:
                                   f"checkpoint_epoch_{self.epoch}.pt",
                                   payload)
 
+    def jax_checkpoint_payload(self) -> Dict[str, Any]:
+        """This trainer's state as :func:`checkpoint.save_jax` takes it:
+        what the JAX trainer of the same layout saves (parameters,
+        optimizer state and step; epoch, best values, history and the
+        configs), without ``rng_key``, which no torch generator can
+        make. ``step`` is the count that the optimizer state keeps (adam,
+        the factored table rule), else 0. Across processes every process
+        calls it (the sharded leaves are gathered)."""
+        opt_state = ckpt_lib.optimizer_state_to_jax(
+            self.optimizer, self.params, self.train_cfg)
+        return {
+            "state": {"params": self._saved_params(),
+                      "opt_state": opt_state,
+                      "step": torch.tensor(ckpt_lib.jax_step(opt_state),
+                                           dtype=torch.int32)},
+            "epoch": self.epoch,
+            "best_val_loss": self.best_val_loss,
+            "best_val_acc": self.best_val_acc,
+            "history": self.history,
+            "model_config": self.model_cfg.to_dict(),
+            "train_config": self.train_cfg.to_dict(),
+        }
+
     def resume(self, path) -> None:
+        """Continue from a ``.pt`` checkpoint or a JAX one (its stem,
+        ``.msgpack`` or ``.json``): parameters, optimizer state, epoch, best
+        values and history. A JAX file's optimizer state is mapped by path
+        (``checkpoint.optimizer_state_from_jax``); its ``rng_key`` cannot
+        carry over, so both generators are seeded from its
+        ``train_config`` seed and its epoch, the same on every resume."""
         payload = ckpt_lib.load(path, device=self.device)
         stored = payload["model_config"]["compute_dtype"]
         if stored != self.model_cfg.compute_dtype:
@@ -564,17 +596,36 @@ class Trainer:
                 f"{path} was trained with compute_dtype {stored!r}, this "
                 f"trainer runs {self.model_cfg.compute_dtype!r}")
         self._restore_params(payload["params"])
-        self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        from_jax = "opt_state" in payload
+        self.optimizer.load_state_dict(
+            ckpt_lib.optimizer_state_from_jax(
+                self.optimizer, payload["opt_state"], self.params)
+            if from_jax else payload["optimizer_state_dict"])
         if self.graphs is not None:
             # The loaded state is new tensors: capture again.
             self.graphs.reset()
         self.epoch = payload["epoch"]
         self.best_val_loss = payload["best_val_loss"]
         self.best_val_acc = payload["best_val_acc"]
-        self.history = payload["history"]
+        # A JAX sampled run keeps two of the four lists.
+        history = {k: [] for k in self.history}
+        history.update({k: list(v)
+                        for k, v in payload.get("history", {}).items()})
+        self.history = history
         if "rng_state" in payload:
             self.host_gen.set_state(payload["rng_state"])
             self.device_gen.set_state(payload["device_rng_state"])
+        elif from_jax:
+            seed = int(payload["train_config"].get("seed",
+                                                   self.train_cfg.seed))
+            self.host_gen.manual_seed(int(np.random.SeedSequence(
+                [seed, int(self.epoch)]).generate_state(1, np.uint64)[0]))
+            self.device_gen.manual_seed(
+                int(torch.randint(2 ** 62, (1,), generator=self.host_gen)))
+            logger.info(
+                "%s is a JAX checkpoint: its jax.random stream (rng_key) "
+                "does not carry over; the generators are seeded from seed "
+                "%d and epoch %d", path, seed, self.epoch)
 
     def _saved_params(self) -> Params:
         """The parameters a checkpoint holds (the live ones)."""

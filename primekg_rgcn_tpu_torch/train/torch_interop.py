@@ -12,9 +12,13 @@ as PyG's RGCNConv keeps its weights:
     decoder.relation_embeddings.weight [R, d_h]
 
 Both layouts use x @ W conventions, so tensors map without transposition.
-The JAX package writes the same layout, so a model trained there serves
-here after ``python -m primekg_rgcn_tpu.train.torch_interop export ckpt
-out.pt``.
+The JAX package exports the same layout. Its own checkpoints
+(``stem.msgpack`` + ``stem.json``) load directly (``train/checkpoint``);
+:func:`main` converts between the two layouts, as the JAX module's CLI
+does, with no JAX installed::
+
+    python -m primekg_rgcn_tpu_torch.train.torch_interop import ref.pt out_ckpt
+    python -m primekg_rgcn_tpu_torch.train.torch_interop export ckpt out.pt
 
 The configuration is rebuilt from the parameter shapes and the ``args``
 namespace, and its ``compute_dtype`` from the file's ``model_config`` dict
@@ -154,3 +158,50 @@ def params_from_jax(tree: Dict[str, Any], *, device="cpu") -> Params:
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device=device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, dtype=np.float32, copy=True)).to(device)
+
+
+def main(argv=None):
+    """CLI: convert a reference ``.pt`` into a JAX checkpoint (``import``:
+    the parameters with a fresh optimizer state, adam ``count`` 0 and zero
+    moments of ``TrainConfig()``'s chain, as the JAX ``import`` writes
+    them) or a JAX checkpoint (or a ``.pt``) into a reference ``.pt``
+    (``export``: the parameters, ``args``, ``model_config`` and
+    ``{"epoch": ...}``)."""
+    from primekg_rgcn_tpu_torch.config import TrainConfig
+    from primekg_rgcn_tpu_torch.train import checkpoint
+    from primekg_rgcn_tpu_torch.train.loop import make_optimizer
+
+    p = argparse.ArgumentParser(description="Torch checkpoint interop")
+    p.add_argument("mode", choices=["import", "export"])
+    p.add_argument("src")
+    p.add_argument("dst")
+    args = p.parse_args(argv)
+
+    if args.mode == "import":
+        params, cfg, meta = load_reference_pt(args.src)
+        train_cfg = TrainConfig()
+        opt_state = checkpoint.optimizer_state_to_jax(
+            make_optimizer(train_cfg, params), params, train_cfg)
+        checkpoint.save_jax(args.dst, {
+            "state": {"params": params, "opt_state": opt_state,
+                      "step": torch.zeros((), dtype=torch.int32)},
+            "epoch": meta.get("epoch", 0),
+            "best_val_loss": meta.get("best_val_loss", float("inf")),
+            "best_val_acc": meta.get("best_val_acc", 0.0),
+            "history": {"train_losses": [], "val_losses": [],
+                        "train_accs": [], "val_accs": []},
+            "model_config": cfg.to_dict(),
+            "train_config": train_cfg.to_dict(),
+        })
+        print(f"imported {args.src} -> {args.dst} "
+              f"({cfg.num_nodes} nodes, {cfg.num_relations} relations)")
+    else:
+        payload = checkpoint.load(args.src)
+        save_reference_pt(payload["params"],
+                          ModelConfig.from_dict(payload["model_config"]),
+                          args.dst, {"epoch": payload.get("epoch", 0)})
+        print(f"exported {args.src} -> {args.dst}")
+
+
+if __name__ == "__main__":
+    main()

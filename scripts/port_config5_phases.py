@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The phases that ``chip_smoke.py`` runs last, alone, on one CUDA card.
 
-    python3 scripts/port_config5_phases.py [agg] [cache] [rmat]
+    python3 scripts/port_config5_phases.py [agg] [cache] [jax] [rmat]
 
-Run from the repository's root; no argument runs all three groups. It
+Run from the repository's root; no argument runs all four groups. It
 builds kernels B1, B2 and B3 (and the C++ graph builder), then drives
 ``chip_smoke.py``'s own phase functions at their full sizes:
 
@@ -12,6 +12,9 @@ builds kernels B1, B2 and B3 (and the C++ graph builder), then drives
   reductions;
 - cache: ``sampled_cache``, the layer-1 cache on the ``bench.py`` graph
   (warm start, one cached step against the plain versions, the CLI);
+- jax: ``jax_checkpoint``, JAX checkpoints on the ``bench.py`` graph
+  (``.pt`` and JAX resumes equal, serving, evaluation, the interop CLI,
+  the block-mode sampled resumes);
 - rmat: BASELINE config 5 (``rmat10m_graph``, ``rmat10m_grad`` with B2 on
   its two streams, B3 at its block and block4 windows, ``rmat10m_sampled``
   and ``rmat10m_cache``).
@@ -54,8 +57,8 @@ def main():
         print(f"## {what} at {time.perf_counter() - t_start:.1f}s",
               flush=True)
 
-    groups = set(sys.argv[1:]) or {"agg", "cache", "rmat"}
-    if groups - {"agg", "cache", "rmat"}:
+    groups = set(sys.argv[1:]) or {"agg", "cache", "jax", "rmat"}
+    if groups - {"agg", "cache", "jax", "rmat"}:
         print(f"unknown groups {sorted(groups)}", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -76,7 +79,7 @@ def main():
             cs.phase_combined_agg(g3, cfg3, edges3, dev, tmp)
             mark("combined_agg")
             del g3, g3_cpu, edges3
-        if "cache" in groups:
+        if groups & {"cache", "jax"}:
             raw = synthetic.primekg_like(seed=0, scale=1.0)
             su, du, ru = synthetic.bidirect(raw["src"], raw["dst"],
                                             raw["rel"])
@@ -84,9 +87,13 @@ def main():
                 "edge_index": np.stack([su, du]), "edge_type": ru,
                 "num_nodes": raw["num_nodes"], "num_relations": 3}).to(dev)
             cfg = ModelConfig(num_nodes=graph.num_nodes, num_relations=3)
-            cs.phase_sampled_cache(graph, cfg, np.stack([su, du, ru], 1),
-                                   dev, tmp)
-            mark("sampled_cache")
+            edges = np.stack([su, du, ru], 1)
+            if "cache" in groups:
+                cs.phase_sampled_cache(graph, cfg, edges, dev, tmp)
+                mark("sampled_cache")
+            if "jax" in groups:
+                cs.phase_jax_checkpoint(raw, graph, cfg, edges, dev, tmp)
+                mark("jax_checkpoint")
             del graph
         if "rmat" in groups:
             ccsr, edges = cs.phase_rmat10m_graph(dev)

@@ -396,8 +396,44 @@ def case_node4(rank, world, d):
     return _node_cases(world, d)
 
 
+# -- case "jax_resume": zero3 resumed from a JAX checkpoint ------------------
+
+
+def case_jax_resume(rank, world, d):
+    """A 4-shard zero3 trainer over the live group (or one process)
+    resumed from the JAX checkpoint that <dir>/given.pt names, then two
+    steps on its own generator: losses, the full parameters, the gathered
+    optimizer state, and this process's resumed table moments."""
+    given = torch.load(Path(d) / "given.pt", weights_only=False)
+    edges = given["edges"]
+    cfg = ModelConfig.from_dict(given["model_config"])
+    graph = build_rel_graph(*edges.T, cfg.num_nodes, cfg.num_relations,
+                            bucket_pad_multiple=64)
+    t = sampled.SampledTrainer(
+        cfg, TrainConfig.from_dict(given["train_config"]), graph, graph,
+        edges, edges[:60], Path(d) / f"out_{world}_{rank}", fanouts=(4, 3),
+        mode="uniform", n_devices=SHARDS, zero3=True, device="cpu")
+    t.resume(given["stem"])
+    table = t.optimizer.table
+    out = {"table_rows": torch.tensor(t.params["encoder"]["node_emb"]
+                                      .shape[0]),
+           "resumed_mu": table.state[table.param_groups[0]["params"][0]][
+               "exp_avg"].clone()}
+    gen = torch.Generator().manual_seed(5)
+    rng = np.random.default_rng(5)
+    losses = []
+    for _ in range(2):
+        pos = torch.from_numpy(edges[rng.integers(0, len(edges), 24)])
+        losses.append(t.step_fn(t.params, t.optimizer, pos, gen)[0].item())
+    out.update(losses=np.array(losses),
+               params=flat(t.step_fn.full_params(t.params)),
+               opt=flat(t.optimizer.state_dict()))
+    return out
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
-         "given": case_given, "node": case_node, "node4": case_node4}
+         "given": case_given, "node": case_node, "node4": case_node4,
+         "jax_resume": case_jax_resume}
 
 
 def main():

@@ -1,5 +1,7 @@
 """The port stands alone: no module of it, and no line of chip_smoke.py,
-imports jax or the JAX package; and no module of it imports pandas,
+imports jax, flax, optax, msgpack or the JAX package (a JAX checkpoint
+loads, and ``torch_interop export`` runs, where none of them can be
+imported); and no module of it imports pandas,
 sklearn, networkx or matplotlib when it is imported, so that the port runs
 where none of them is installed (matplotlib and networkx are imported
 inside the plotting functions only). The whole analysis suite runs on the
@@ -16,7 +18,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "primekg_rgcn_tpu_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|primekg_rgcn_tpu)(?![\w])",
+    r"^\s*(?:import|from)\s+"
+    r"(?:jax|jaxlib|flax|optax|msgpack|primekg_rgcn_tpu)(?![\w])",
     re.MULTILINE)
 
 _PROBE = r"""
@@ -27,7 +30,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "primekg_rgcn_tpu"))
+                                    "msgpack", "primekg_rgcn_tpu"))
 absent = sorted({m.split(".")[0] for m in sys.modules} & {
     "pandas", "sklearn", "matplotlib", "networkx"})
 print(json.dumps({"modules": len(names), "names": names, "bad": bad,
@@ -199,3 +202,58 @@ def test_the_process_group_modules_and_the_drill_import_no_jax(tmp_path):
     assert "ckpt=ok" in drill.stdout
     assert json.loads(drill.stdout.strip().splitlines()[-1]) == [
         "primekg_rgcn_tpu_torch.train.multichip"]
+
+
+_BLOCKED_JAX_CHECKPOINT = r"""
+import json, sys
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "primekg_rgcn_tpu"):
+    sys.modules[name] = None          # import raises ImportError
+sys.path[:0] = [sys.argv[1]]
+from primekg_rgcn_tpu_torch.train import checkpoint, torch_interop
+payload = checkpoint.load(sys.argv[2] + ".json")
+torch_interop.main(["export", sys.argv[2], sys.argv[3]])
+print(json.dumps({"epoch": payload["epoch"], "step": payload["step"],
+                  "count": int(payload["opt_state"]["1"]["count"]),
+                  "loaded": sorted(m for m in ("jax", "flax", "optax",
+                                               "msgpack")
+                                   if sys.modules.get(m) is not None)}))
+"""
+
+
+def test_a_jax_checkpoint_loads_and_exports_without_jax_or_msgpack(
+        tmp_path):
+    """The JAX package writes a checkpoint here; a process where jax,
+    flax, optax and msgpack cannot be imported loads it and converts it
+    with the port's ``torch_interop export``, as the card's machine
+    must."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu.config import ModelConfig, TrainConfig
+    from primekg_rgcn_tpu.models.rgcn import init_params
+    from primekg_rgcn_tpu.train import checkpoint as jckpt
+    from primekg_rgcn_tpu.train.loop import TrainState, make_optimizer
+
+    cfg = ModelConfig(num_nodes=40, num_relations=2, embedding_dim=8,
+                      hidden_dim=8)
+    params = init_params(jax.random.PRNGKey(0), cfg)
+    state = TrainState(params, make_optimizer(TrainConfig()).init(params),
+                       jnp.asarray(3, jnp.int32))
+    jckpt.save(tmp_path / "ckpt", {
+        "state": state, "epoch": 2, "model_config": cfg.to_dict(),
+        "train_config": TrainConfig().to_dict()})
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_JAX_CHECKPOINT, str(REPO),
+         str(tmp_path / "ckpt"), str(tmp_path / "out.pt")], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "epoch": 2, "step": 3, "count": 0, "loaded": []}
+    out = torch.load(tmp_path / "out.pt", weights_only=False)
+    assert out["epoch"] == 2
+    assert torch.equal(out["model_state_dict"][
+        "encoder.node_embeddings.weight"],
+        torch.from_numpy(np.array(params["encoder"]["node_emb"])))

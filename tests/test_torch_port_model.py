@@ -130,6 +130,8 @@ def test_reference_pt_round_trip_and_jax_export(tmp_path, bases):
 
 
 def test_checkpoint_rejects_jax_native_format(tmp_path):
+    """A JAX checkpoint loads whole (tests/test_torch_port_jax_checkpoint.
+    py); one whose .msgpack is missing is refused, naming it."""
     (tmp_path / "ckpt.json").write_text("{}")
-    with pytest.raises(ValueError, match="torch_interop export"):
+    with pytest.raises(FileNotFoundError, match=r"ckpt\.msgpack"):
         pckpt.load(tmp_path / "ckpt")

@@ -5999,6 +5999,69 @@ def phase_pod_scale(repo):
     return node, zero3
 
 
+def phase_ici_roofline(repo, tmp):
+    """``python -m primekg_rgcn_tpu_torch.bench.ici_roofline`` as a child
+    over the report that ``phase_bench_suite`` wrote (``tmp /
+    bench_report_torch.json``), at the NVLink rate: it merges its
+    ``ici-roofline`` row there, its graphs at full scale. The layouts whose
+    rows the suite measured (``SMOKE_SUITE_ROWS``: config 1's and config
+    3's) are projected, config 5's read "not measured" (no
+    ``sampled-10m-15-10`` row), asserted. One line: each layout's
+    efficiencies at 2, 4 and 8 cards, the verdicts."""
+    out = tmp / "bench_report_torch.json"
+    _, seconds = run_child(
+        "ici_roofline", [sys.executable, "-m",
+                         "primekg_rgcn_tpu_torch.bench.ici_roofline",
+                         "--out", str(out), "--rates", "nvlink"], repo,
+        timeout=600)
+    proj = json.loads(out.read_text())["results"]["ici-roofline"]
+    rows = {c: v["nvlink"] for c, v in proj["configs"].items()}
+    if set(rows["rmat-10m"].values()) != {"not measured"}:
+        raise AssertionError(f"ici_roofline: config 5 {rows['rmat-10m']}")
+    for c in ("primekg-northstar", "primekg-full"):
+        if "not measured" in rows[c].values():
+            raise AssertionError(f"ici_roofline: {c} {rows[c]}")
+    emit("ici_roofline", seconds=seconds,
+         rate_bytes_per_s=proj["link_oneway_bytes_per_s"]["nvlink"],
+         measured_on=proj["measured_on"], summary=proj["summary"]["nvlink"],
+         graphs={c: v["graph"] for c, v in proj["configs"].items()},
+         rows={c: {lay: (r if r == "not measured" else {
+             "t1_ms": r["t1_ms"], **{n: {k: r[n][k] for k in (
+                 "ici_mb", "t_ici_ms", "eff_overlapped", "eff_serial",
+                 "verdict_80pct")} for n in ("2", "4", "8")}})
+             for lay, r in v.items()} for c, v in rows.items()})
+    return proj
+
+
+def phase_psum_probe(reps=20):
+    """``bench/psum_probe.run_probe`` on the card: one process with a
+    2-shard mesh (``local``), one process through the bring-up (NCCL,
+    ``group_1``) and two processes sharing the card (gloo, ``group_2``),
+    each of its probes equal to its closed form. One line a setting: each
+    probe's median host and device ms."""
+    from primekg_rgcn_tpu_torch.bench import psum_probe
+
+    t0 = time.perf_counter()
+    rows = psum_probe.run_probe(device="cuda", processes=(1, 2), reps=reps)
+    seconds = time.perf_counter() - t0
+    want = {"local": (1, None), "group_1": (1, "nccl"),
+            "group_2": (2, "gloo")}
+    if [r["setting"] for r in rows] != list(want):
+        raise AssertionError(f"psum_probe: settings {rows}")
+    for row in rows:
+        if (row["processes"], row["backend"]) != want[row["setting"]]:
+            raise AssertionError(f"psum_probe/{row['setting']}: "
+                                 f"{row['processes']} processes, backend "
+                                 f"{row['backend']}")
+        for name, probe in row["probes"].items():
+            if probe["value"] != probe["closed_form"]:
+                raise AssertionError(f"psum_probe/{row['setting']}/{name}: "
+                                     f"{probe['value']}, closed form "
+                                     f"{probe['closed_form']}")
+        emit("psum_probe", seconds=seconds, **row)
+    return rows
+
+
 # -- the edge layout and the data-parallel sampled steps across processes --
 
 DIST_STEPS = 3
@@ -6089,16 +6152,39 @@ def dist_node_topk(mesh, psg, cfg, params):
             "shards": emb_dm.shape[0], "launches": read_counts()}
 
 
-def dist_runs(graph, cfg, state, dev):
-    """DIST_STEPS steps of the edge step, the node step, the zero3 block
-    step over the slim pairs CSR and that zero3 step on a (1, N_SHARDS)
-    mesh (across processes its tp row is split over them), each from
-    ``state``, over N_SHARDS shards on a mesh that spans the live process
-    group (or this one process): batch 1024, fanouts 15/10, adam lr 1e-3,
-    clip 1.0. Returns {layout: losses, whole parameters after the last
-    step (host), each step's launches and host-clock ms, the table's local
-    rows, the launches expected a step}; "node" also holds the sharded
-    top-K on the state's parameters (``dist_node_topk``)."""
+# The zero3 meshes of the distributed phase by layout: a flat shard count
+# or (n_dp, n_tp). (3, 2) over two processes gives each a whole tp row and
+# half of the next; (2, 3) over three gives process 1 the end of row 0 and
+# the start of row 1.
+DIST_MESHES = {"zero3": N_SHARDS, "zero3_1x4": (1, N_SHARDS),
+               "zero3_3x2": (3, 2), "zero3_2x3": (2, 3)}
+# The layouts each group of processes runs, by its size.
+DIST_GROUPS = {2: ("edge", "node", "zero3", "zero3_1x4", "zero3_3x2"),
+               3: ("zero3_2x3",)}
+DIST_LAYOUTS = DIST_GROUPS[2] + DIST_GROUPS[3]
+
+
+def zero3_process_launches(mesh):
+    """A zero3 block step's launches over a slim CSR in the process that
+    holds ``mesh.local``: each of its k shards owns a slice whose fetch
+    backward sums its tp row's n_tp requesters' chunks (B2 n_tp times),
+    sums its two dedup backwards (B2 twice) and fetches its two layers'
+    windows (B3 twice)."""
+    k = len(mesh.local)
+    return {"B1": 0, "B2": k * mesh.n_tp + 2 * k, "B3": 2 * k, "B4": 0}
+
+
+def dist_runs(graph, cfg, state, dev, layouts=DIST_LAYOUTS):
+    """DIST_STEPS steps of each of ``layouts`` from ``state``, on meshes
+    that span the live process group (or this one process): the edge step
+    and the node step over N_SHARDS shards, the zero3 block step over the
+    slim pairs CSR on each of DIST_MESHES (batch 1024, or its largest
+    multiple of the shard count), fanouts 15/10, adam lr 1e-3, clip 1.0.
+    Returns {layout: losses, whole parameters after the last step (host),
+    each step's launches and host-clock ms, the table's local rows, the
+    launches expected a step (the node step's from its partition, zero3's
+    from its mesh)}; "node" also holds the sharded top-K on the state's
+    parameters (``dist_node_topk``)."""
     import torch
 
     from primekg_rgcn_tpu_torch.config import TrainConfig
@@ -6107,22 +6193,29 @@ def dist_runs(graph, cfg, state, dev):
     from primekg_rgcn_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
     from primekg_rgcn_tpu_torch.train import loop, sampled
 
-    mesh = make_mesh(N_SHARDS, dev)
     tcfg = TrainConfig(batch_size=1024)
-    csr = build_combined_csr(graph, slim=True, window_pairs=True)
-    psg = node_shard.partition_nodes(graph, N_SHARDS)
-    steps = {
-        "edge": edge_shard.build_sharded_train_step(
-            mesh, edge_shard.shard_rel_graph(graph, N_SHARDS), cfg, tcfg),
-        "node": node_shard.build_node_sharded_train_step(mesh, psg, cfg,
-                                                         tcfg),
-        **{name: sampled.build_sampled_train_step_zero3(
-            csr, cfg, tcfg, m, fanouts=(15, 10), mode="block")
-           for name, m in (("zero3", mesh), ("zero3_1x4", make_mesh_2d(
-               1, N_SHARDS, dev)))}}
-    expected = {"node": node_process_launches(psg, mesh.local)}
     out = {}
-    for layout, step in steps.items():
+    for layout in layouts:
+        expected = None
+        if layout in ("edge", "node"):
+            mesh = make_mesh(N_SHARDS, dev)
+            if layout == "edge":
+                step = edge_shard.build_sharded_train_step(
+                    mesh, edge_shard.shard_rel_graph(graph, N_SHARDS), cfg,
+                    tcfg)
+            else:
+                psg = node_shard.partition_nodes(graph, N_SHARDS)
+                step = node_shard.build_node_sharded_train_step(
+                    mesh, psg, cfg, tcfg)
+                expected = node_process_launches(psg, mesh.local)
+        else:
+            shape = DIST_MESHES[layout]
+            mesh = (make_mesh_2d(*shape, dev) if isinstance(shape, tuple)
+                    else make_mesh(shape, dev))
+            csr = build_combined_csr(graph, slim=True, window_pairs=True)
+            step = sampled.build_sampled_train_step_zero3(
+                csr, cfg, tcfg, mesh, fanouts=(15, 10), mode="block")
+            expected = zero3_process_launches(mesh)
         zero3 = layout.startswith("zero3")
         params = fresh_params(_to(state["params"], dev))
         if layout == "node":
@@ -6139,8 +6232,9 @@ def dist_runs(graph, cfg, state, dev):
             reset_counts()
             t0 = time.perf_counter()
             if zero3:
-                loss = step(params, opt, state["positives"][i].to(dev),
-                            gen)[0].item()
+                pos = state["positives"][i]
+                pos = pos[:len(pos) // mesh.n_shards * mesh.n_shards]
+                loss = step(params, opt, pos.to(dev), gen)[0].item()
             else:
                 stats = step(params, opt, state["edge_batches"][i].to(dev),
                              gen)
@@ -6153,9 +6247,10 @@ def dist_runs(graph, cfg, state, dev):
             "losses": losses, "launches": launches, "step_ms": ms,
             "params": {k: p.detach().cpu() for k, p in named_leaves(full)},
             "table_rows": int(params["encoder"]["node_emb"].shape[0]),
-            "expected": expected.get(layout)}
+            "expected": expected}
         if layout == "node":
             out[layout]["topk"] = topk
+        del step, params, opt
     return out
 
 
@@ -6197,11 +6292,12 @@ def collective_kinds(dev):
 
 
 def dist_child(argv):
-    """One process of the distributed phase's pair on the card: ``rank
-    world port state out``. It meets its peer through
+    """One process of one of the distributed phase's groups on the card:
+    ``rank world port state out``. It meets its peers through
     ``maybe_initialize_distributed`` (the backend rule), runs ``dist_runs``
-    from the saved state, then reads which collective kinds its backend has
-    on CUDA tensors, and saves all of it to ``out.<rank>``."""
+    of its group's layouts (``DIST_GROUPS[world]``) from the saved state,
+    then reads which collective kinds its backend has on CUDA tensors, and
+    saves all of it to ``out.<rank>``."""
     import torch
     import torch.distributed as dist
 
@@ -6217,7 +6313,7 @@ def dist_child(argv):
     dev = torch.device("cuda")
     graph, cfg, _ = bench_graph()
     state = torch.load(state_path, weights_only=False)
-    runs = dist_runs(graph.to(dev), cfg, state, dev)
+    runs = dist_runs(graph.to(dev), cfg, state, dev, DIST_GROUPS[world])
     torch.save({"backend": dist.get_backend(), "runs": runs,
                 "device": torch.cuda.current_device(),
                 "kinds": collective_kinds(dev)}, f"{out_path}.{rank}")
@@ -6248,46 +6344,52 @@ def nccl_shared_child(argv):
     return 0
 
 
-# A step's launches in each of two processes: half the one-process counts
-# (its two shards' B1 chunks both ways; zero3's fetch backward, 2 owners x
-# 4 requesters, its shards' 2 dedup sums and 2 window fetches each, on
-# either mesh); the node step's are each process's own
-# (``node_process_launches``: 10 B2 and 4 B4, B1 for its buckets).
-DIST_LAUNCHES = {"edge": {"B1": 24, "B2": 0, "B3": 0, "B4": 0},
-                 "zero3": {"B1": 0, "B2": 8 + 4, "B3": 4, "B4": 0},
-                 "zero3_1x4": {"B1": 0, "B2": 8 + 4, "B3": 4, "B4": 0}}
-DIST_LAYOUTS = ("edge", "node", "zero3", "zero3_1x4")
+# The edge step's launches a step in each of two processes: half the
+# one-process 48 (its two shards' B1 chunks both ways). The node and zero3
+# steps' come from ``dist_runs`` (``expected``).
+DIST_EDGE_LAUNCHES = {1: {"B1": 48, "B2": 0, "B3": 0, "B4": 0},
+                      2: {"B1": 24, "B2": 0, "B3": 0, "B4": 0}}
 
 
-def dist_compare(ref, ranks, want, ref_want):
-    """Each process's ``dist_runs`` against the one-process ``ref``:
-    launches a step (``want``, and ``ref_want`` for the reference; the
-    node step's from its partition, 10 B2 and 4 B4 a process, and the
-    processes' B1 adding up to the reference's), the zero3 tables' local
-    slices (half), losses within rel 1e-5 and whole parameters within
-    rtol 2e-6, atol 2e-7. Returns the figures by layout."""
+def dist_compare(ref, ranks, layouts):
+    """Each process's ``dist_runs`` against the one-process ``ref``, for
+    ``layouts``: launches a step (the edge step's ``DIST_EDGE_LAUNCHES``;
+    the node step's from its partition, 10 B2 and 4 B4 a process, and the
+    processes' B1 adding up to the reference's; zero3's from its mesh), the
+    zero3 tables' local slices (``table_slices``: a split row's own), losses
+    within rel 1e-5 and whole parameters within rtol 2e-6, atol 2e-7.
+    Returns the figures by layout."""
     import torch
 
+    from primekg_rgcn_tpu_torch.parallel.mesh import Mesh, table_slices
+
+    world = len(ranks)
     figures = {}
-    for layout in DIST_LAYOUTS:
+    for layout in layouts:
         solo = ref[layout]
-        solo_want = solo["expected"] or ref_want[layout]
+        solo_want = solo["expected"] or DIST_EDGE_LAUNCHES[1]
         if solo["launches"] != [solo_want] * DIST_STEPS:
             raise AssertionError(f"distributed_steps/{layout}: one-process "
                                  f"launches {solo['launches']}, expected "
                                  f"{solo_want} a step")
         errs, per_process = [], []
         for r, run in enumerate(g[layout] for g in ranks):
-            run_want = run["expected"] or want[layout]
+            run_want = run["expected"] or DIST_EDGE_LAUNCHES[world]
             per_process.append(run_want)
             if run["launches"] != [run_want] * DIST_STEPS:
                 raise AssertionError(
                     f"distributed_steps/{layout}: process {r} launched "
                     f"{run['launches']}, expected {run_want} a step")
-            if layout.startswith("zero3") and \
-                    run["table_rows"] != N_SHARDS // 2:
-                raise AssertionError(f"distributed_steps/{layout}: process "
-                                     f"{r} holds {run['table_rows']} slices")
+            if layout.startswith("zero3"):
+                shape = DIST_MESHES[layout]
+                n_dp, n = ((shape[0], shape[0] * shape[1])
+                           if isinstance(shape, tuple) else (1, shape))
+                held = table_slices(Mesh(n, torch.device("cpu"), n_dp,
+                                         world, r), by_tp=True).held
+                if run["table_rows"] != len(held):
+                    raise AssertionError(
+                        f"distributed_steps/{layout}: process {r} holds "
+                        f"{run['table_rows']} slices, not {held}")
             for a, b in zip(run["losses"], solo["losses"]):
                 if abs(a - b) > 1e-5 * abs(b):
                     raise AssertionError(
@@ -6307,9 +6409,10 @@ def dist_compare(ref, ranks, want, ref_want):
                                  f"launches {per_process} against one "
                                  f"process's {solo_want}")
         figures[layout] = {
+            "processes": world, "mesh": DIST_MESHES.get(layout, N_SHARDS),
             "losses": solo["losses"], "max_abs_err": max(errs),
             "launches_per_process": (per_process if layout == "node"
-                                     else want[layout]),
+                                     else per_process[0]),
             "launches_one_process": solo_want,
             "step_ms_per_process": [g[layout]["step_ms"] for g in ranks],
             "step_ms_one_process": solo["step_ms"]}
@@ -6323,18 +6426,21 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
     (``--distributed --num_processes 1``) and without ``--distributed``:
     history and final parameters torch.equal. distributed_steps: two
     processes on the one card (gloo, the backend rule) run the edge step,
-    the node step, the zero3 block step over the slim CSR and that step on
-    a (1, 4) mesh whose tp row they split, 4 shards, DIST_STEPS steps each
-    from one saved state (``dist_state``), against this process's run from
-    it: losses within rel 1e-5, parameters within rtol 2e-6, atol 2e-7
-    (the drill's); each process's launches a step asserted (edge 24 B1;
-    node 4 B4, 10 B2 and the B1 of its buckets, the pair's adding up to
-    the one-process 60; zero3 8 fetch-backward + 4 dedup B2 and 4 B3), its
-    zero3 table two of the four slices; the node layout's sharded top-10
-    over the pair equal to one process's (``dist_topk_compare``). Two more
+    the node step, the zero3 block step over the slim CSR, that step on a
+    (1, 4) mesh whose tp row they split and on a (3, 2) mesh (a row and a
+    half each); three more run it on a (2, 3) mesh, whose middle process
+    holds parts of both rows. Each runs DIST_STEPS steps from one saved
+    state (``dist_state``), against this process's run from it: losses
+    within rel 1e-5, parameters within rtol 2e-6, atol 2e-7 (the drill's);
+    each process's launches a step asserted (edge 24 B1; node 4 B4, 10 B2
+    and the B1 of its buckets, the pair's adding up to the one-process 60;
+    zero3 ``zero3_process_launches``: 8 fetch-backward + 4 dedup B2 and 4
+    B3 at 4 shards, 12 B2 and 6 B3 on (3, 2), 10 B2 and 4 B3 on (2, 3)),
+    its zero3 table its own slices; the node layout's sharded top-10 over
+    the pair equal to one process's (``dist_topk_compare``). Two more
     processes put an NCCL communicator on the one card, which NCCL must
     refuse. The children run at once, this process's reference beside
-    them. Returns the per-process launches."""
+    them. Returns the per-process launches by layout."""
     import torch
 
     state_path = tmp / "dist_state.pt"
@@ -6344,8 +6450,8 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
            "--synthetic", "--synthetic_scale", "0.1", "--epochs", "2",
            "--shard", "edge", "--n_devices", str(N_SHARDS)]
     cli_node = [*cli[:-4], "--shard", "node", "--n_devices", str(N_SHARDS)]
-    cli_port, pair_port, nccl_port, node_port = (free_port()
-                                                  for _ in range(4))
+    cli_port, pair_port, nccl_port, node_port, trio_port = (
+        free_port() for _ in range(5))
     argvs = {
         "cli_plain": cli + ["--output_dir", str(tmp / "dist_cli_plain")],
         "cli_nccl": cli + ["--output_dir", str(tmp / "dist_cli_nccl"),
@@ -6361,6 +6467,9 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
         **{f"steps_{r}": [sys.executable, "chip_smoke.py", "dist_child",
                           str(r), "2", str(pair_port), str(state_path),
                           str(out_path)] for r in range(2)},
+        **{f"steps3_{r}": [sys.executable, "chip_smoke.py", "dist_child",
+                           str(r), "3", str(trio_port), str(state_path),
+                           f"{out_path}3"] for r in range(3)},
         **{f"nccl_shared_{r}": [sys.executable, "chip_smoke.py",
                                 "nccl_shared_child", str(r), str(nccl_port)]
            for r in range(2)}}
@@ -6409,13 +6518,14 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
          history=histories["edge"], node_history=histories["node"],
          equal=True, seconds=seconds)
 
-    # (b) two processes on the one card against this process.
+    # (b) two and three processes on the one card against this process.
     ranks = [torch.load(f"{out_path}.{r}", weights_only=False)
              for r in range(2)]
-    figures = dist_compare(ref, [g["runs"] for g in ranks], DIST_LAUNCHES,
-                           {"edge": {"B1": 48, "B2": 0, "B3": 0, "B4": 0},
-                            "zero3": dp_launches("zero3"),
-                            "zero3_1x4": dp_launches("zero3")})
+    trio = [torch.load(f"{out_path}3.{r}", weights_only=False)
+            for r in range(3)]
+    figures = dist_compare(ref, [g["runs"] for g in ranks], DIST_GROUPS[2])
+    figures.update(dist_compare(ref, [g["runs"] for g in trio],
+                                DIST_GROUPS[3]))
     topk = dist_topk_compare(ref["node"]["topk"],
                              [g["runs"]["node"]["topk"] for g in ranks])
     nccl_shared = [json.loads(done[f"nccl_shared_{r}"][0].splitlines()[-1])
@@ -6423,8 +6533,11 @@ def phase_distributed(repo, tmp, graph, cfg, edges, dev):
     if any(n["accepted"] for n in nccl_shared):
         raise AssertionError(f"distributed_steps: NCCL accepted two ranks "
                              f"on one card: {nccl_shared}")
+    if trio[0]["backend"] != ranks[0]["backend"]:
+        raise AssertionError(f"distributed_steps: backends "
+                             f"{ranks[0]['backend']}, {trio[0]['backend']}")
     emit("distributed_steps", backend=ranks[0]["backend"],
-         devices=[g["device"] for g in ranks], steps=DIST_STEPS,
+         devices=[g["device"] for g in ranks + trio], steps=DIST_STEPS,
          collective_kinds_on_cuda=ranks[0]["kinds"],
          nccl_shared_card=nccl_shared[0]["error"], seconds=seconds,
          step_ms_note="mechanics, not speed: two processes share one card "
@@ -7269,7 +7382,8 @@ def main():
 
         # -- the bench modules: the suite (a child), two of its rows traced,
         # the config-3 and restricted-layer probes, the scaling harness,
-        # config 5 at pod scale (a child) -----------------------------------
+        # the link roofline over the suite's report (a child), config 5 at
+        # pod scale (children), the collectives' probe (children) -----------
         suite_rows = phase_bench_suite(repo, Path(tmp), SMOKE_SUITE_ROWS)
         bench_traces = phase_bench_traces(Path(tmp), suite_rows)
         probe_counts = phase_bench_probes()
@@ -7277,9 +7391,11 @@ def main():
             lay: {k: sum(r["launches"][k] for r in rows.values())
                   for k in ("B1", "B2", "B4")}
             for lay, rows in phase_bench_scaling()["layouts"].items()}
+        phase_ici_roofline(repo, Path(tmp))
         pod_node, pod_zero3 = phase_pod_scale(repo)
         pod_counts = {"node": pod_node["launches"],
                       **{r["mode"]: r["launches"] for r in pod_zero3}}
+        phase_psum_probe()
 
         # -- the edge and sampled layouts across processes (--distributed),
         # last: its children share the card with this process --------------
@@ -7430,6 +7546,9 @@ def main():
                                  for k, v in sampled_dp.items()},
             "sampled_dp_cli": {k: v["B2"] for k, v in dp_cli_counts.items()},
             "distributed_zero3_per_process_step": dist_counts["zero3"]["B2"],
+            "distributed_zero3_2d_per_process_step": {
+                k: dist_counts[k]["B2"] for k in ("zero3_3x2",
+                                                  "zero3_2x3")},
             "distributed_node_per_process_step": [
                 c["B2"] for c in dist_counts["node"]],
             "full_kg_zero3": kg_zero3["launches"]["B2"],
@@ -7523,6 +7642,9 @@ def main():
             "sampled_dp_train": {k: v["launches"]["B3"]
                                  for k, v in sampled_dp.items()},
             "distributed_zero3_per_process_step": dist_counts["zero3"]["B3"],
+            "distributed_zero3_2d_per_process_step": {
+                k: dist_counts[k]["B3"] for k in ("zero3_3x2",
+                                                  "zero3_2x3")},
             "full_kg_zero3": kg_zero3["launches"]["B3"],
             "jax_checkpoint": jax_counts["B3"],
             "rmat10m_sampled": {k: v["launches"]["B3"]

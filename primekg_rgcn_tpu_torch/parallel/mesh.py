@@ -20,13 +20,12 @@ flat shards [p n/P, (p + 1) n/P), all on its own device, the JAX order in
 which process p holds the global devices from p n/P. ``n_shards`` stays
 the global count and P must divide it. A collective given ``mesh=`` a mesh
 that spans processes reduces or gathers the caller's shards locally, then
-across that mesh's processes (``Mesh.group``: the default group, or a
-sub-group); without it, or on one process, it is the local loop alone. The
-caller says which axis crosses processes (``Mesh.tp_axis``,
-``Mesh.dp_axis``): a 2-D mesh whose processes hold whole tp rows crosses
-them on its dp axis only; one whose tp rows are split over processes has a
-sub-group for each row and for each column of processes, which every
-process creates, in one order.
+across that mesh's processes (``Mesh.group``: the default group); without
+it, or on one process, it is the local loop alone. A 2-D mesh takes any
+P that divides n: a process may hold whole tp rows, a part of one row, or
+parts of two or more rows (its k shards straddle a row boundary). The zero steps' row slices of the table (:class:`Slices`,
+:func:`table_slices`) say which slices a process holds and which of them
+it counts, so that a gather or a sum over the slices takes each once.
 
 Every reduction and gather across processes is one ``dist.all_reduce``,
 the one kind that NCCL and gloo share on CUDA and CPU tensors alike: an
@@ -34,8 +33,14 @@ all-gather is the sum of the processes' blocks, each zero-padded to the
 whole and placed at its rank, and a psum_scatter is a sum of which each
 process keeps its own block. Both move P times the bytes of a native
 collective, and the sum is exact (one process contributes each element).
-The exchange between pairs of processes is one ``dist.all_to_all_single``
-(:func:`all_to_all`), which both backends run on both kinds of tensor: a
+A sum over some of the processes (a tp row, or a column of slices, of a
+2-D mesh whose rows they split) is the same: one all-reduce over every
+process of a buffer stacked by row or by slice, each process writing
+what it holds and zeros elsewhere. No sub-group is created, so no two
+processes can meet in their groups in different orders; the cost is the
+whole buffer's bytes on every process. The exchange between pairs of
+processes is one ``dist.all_to_all_single`` (:func:`all_to_all`), which
+both backends run on both kinds of tensor: a
 halo exchange moves O(boundary) bytes a pair, and an all-reduce form would
 send every process P times that. Each collective has an autograd form, for
 a differentiable path whose loss each process takes over its own shards:
@@ -71,10 +76,7 @@ class Mesh:
     shards, shard ``d * n_tp + t`` at (d, t); a 1-D mesh has ``n_dp`` 1.
     Over ``world`` processes, this one (``rank``) holds the flat shards
     ``local``; its collectives run over ``group`` (None: the default
-    group). ``row`` and ``column`` are set where the tp rows are split
-    over processes: the meshes of this process's tp row (whose ``local``
-    are the row's tp indices this process holds) and of its column of
-    processes, each over a sub-group."""
+    group)."""
 
     n_shards: int
     device: torch.device
@@ -82,9 +84,6 @@ class Mesh:
     world: int = 1
     rank: int = 0
     group: Any = field(default=None, compare=False, repr=False)
-    row: Optional["Mesh"] = field(default=None, compare=False, repr=False)
-    column: Optional["Mesh"] = field(default=None, compare=False,
-                                     repr=False)
 
     @property
     def n_tp(self) -> int:
@@ -97,22 +96,10 @@ class Mesh:
         return range(self.rank * k, (self.rank + 1) * k)
 
     @property
-    def tp_axis(self) -> Optional["Mesh"]:
-        """The mesh that a collective over this process's tp row takes:
-        None when the row lies inside the process, else the 1-D mesh
-        itself or the split row's."""
-        if self.n_tp <= len(self.local):
-            return None
-        return self.row or self
-
-    @property
-    def dp_axis(self) -> Optional["Mesh"]:
-        """The mesh that a sum over the dp rows takes across processes:
-        None on one process or one row, the whole mesh where processes
-        hold whole rows, else this process's column of processes."""
-        if self.world == 1 or self.n_dp == 1:
-            return None
-        return self.column or self
+    def rows_split(self) -> bool:
+        """True when some tp row spans two or more processes."""
+        k = self.n_shards // self.world
+        return self.world > 1 and k % self.n_tp > 0
 
 
 def _mesh_device(n: int, device) -> torch.device:
@@ -153,33 +140,114 @@ def make_mesh_2d(n_dp: int, n_tp: int, device="cuda") -> Mesh:
     table's axis), the n_dp rows the data-parallel replicas. Fewer than 2
     shards raise. In a process group of P processes (P dividing n_dp n_tp)
     each process holds k = n_dp n_tp / P consecutive shards: whole rows,
-    or a part of one row. Where rows are split, every process creates one
-    sub-group for each row and one for each column of processes (those
-    that hold the same tp indices), in one order, and the mesh carries its
-    own (``row``, ``column``); a k that would put parts of two rows in one
-    process raises."""
+    a part of one row, or parts of several (``Mesh.rows_split``), as the
+    JAX function reshapes any device list."""
     n_dp, n_tp = int(n_dp), int(n_tp)
     if n_dp < 1 or n_tp < 1:
         raise ValueError(f"mesh axes must be >= 1, got ({n_dp}, {n_tp})")
     n = n_dp * n_tp
-    world, rank = _processes(n)
-    dev = _mesh_device(n, device)
-    k = n // world
-    if k % n_tp == 0:
-        return Mesh(n, dev, n_dp, world, rank)
-    if n_tp % k:
-        raise ValueError(
-            f"an ({n_dp}, {n_tp}) mesh over {world} processes gives each "
-            f"{k} shards, parts of two tp rows; a process's shards must be "
-            f"whole rows or lie in one row (k a multiple or a divisor of "
-            f"n_tp)")
-    m = n_tp // k                        # processes a row
-    rows = [dist.new_group(list(range(d * m, (d + 1) * m)))
-            for d in range(n_dp)]
-    columns = [dist.new_group(list(range(c, world, m))) for c in range(m)]
-    row = Mesh(n_tp, dev, 1, m, rank % m, rows[rank // m])
-    column = Mesh(n_dp * k, dev, n_dp, n_dp, rank // m, columns[rank % m])
-    return Mesh(n, dev, n_dp, world, rank, row=row, column=column)
+    return Mesh(n, _mesh_device(n, device), n_dp, *_processes(n))
+
+
+@dataclass(frozen=True)
+class Slices:
+    """The ``n`` row slices of a table over a mesh's processes, as a zero
+    step holds them: this process holds the slices ``held`` (ascending),
+    stacked [len(held), ...], and counts those of them that no lower rank
+    holds (``counted``), so that a gather or a sum over the slices takes
+    each slice once. ``shared``: some slice is held by two or more
+    processes (the replicas of a 2-D mesh's rows), whose copies ``reduce``
+    sums. ``mesh`` None: one process.
+
+    Every method that crosses processes is one all-reduce over every
+    process of an [n, ...] buffer, each process writing its slices and
+    zeros elsewhere, and every process calls it."""
+
+    n: int
+    held: Tuple[int, ...]
+    counted: Tuple[bool, ...]
+    shared: bool = False
+    mesh: Optional[Mesh] = field(default=None, compare=False, repr=False)
+
+    @property
+    def whole(self) -> bool:
+        """True when this process holds every slice."""
+        return len(self.held) == self.n
+
+    def _counted(self) -> List[int]:
+        return [i for i, c in enumerate(self.counted) if c]
+
+    def _buffer(self, x: torch.Tensor, pos: Sequence[int]) -> torch.Tensor:
+        """[n, ...] zeros with ``x``'s slices at positions ``pos`` of
+        ``held`` written in, summed over every process."""
+        buf = x.new_zeros(self.n, *x.shape[1:])
+        buf[_index([self.held[i] for i in pos], x)] = \
+            x.detach()[_index(pos, x)]
+        dist.all_reduce(buf, group=self.mesh.group)
+        return buf
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's slices of a whole [n, ...] tensor: a view where
+        they are consecutive."""
+        lo, hi = self.held[0], self.held[-1] + 1
+        if hi - lo == len(self.held):
+            return x[lo:hi]
+        return x[_index(self.held, x)]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every slice, [n, ...], from the processes' [len(held), ...]
+        (``x`` itself where this process holds every slice)."""
+        if self.whole:
+            return x
+        return self._buffer(x, self._counted())
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Each held slice summed over the processes that hold it (the dp
+        sum of a 2-D mesh's replicas); ``x`` where no slice is shared."""
+        if not self.shared:
+            return x
+        return self.own(self._buffer(x, range(len(self.held))))
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the n slices of ``x`` [len(held), ...], each slice
+        once: the local sum in slice order where this process holds every
+        slice, else the counted slices' sum summed across the processes."""
+        if self.whole:
+            return psum(x)
+        if not all(self.counted):
+            x = x[_index(self._counted(), x)]
+        local = psum(x) if len(x) else x.new_zeros(x.shape[1:])
+        return psum([local], self.mesh)
+
+    def sq_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The squared L2 norm of the whole sliced tensor, each slice
+        once, as a 0-d tensor."""
+        if not all(self.counted):
+            x = x[_index(self._counted(), x)]
+        sq = torch.linalg.vector_norm(x).square()
+        return psum([sq], self.mesh) if spans(self.mesh) else sq
+
+
+def _index(pos: Sequence[int], x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(list(pos), dtype=torch.long, device=x.device)
+
+
+def table_slices(mesh: Mesh, by_tp: bool = False) -> Slices:
+    """The row slices that a zero step over ``mesh`` holds in this
+    process: one a shard (``by_tp`` False: zero1's n slices, each
+    shard's own), or one a tp index (``by_tp`` True: zero3's n_tp
+    slices, which every dp row replicates; a process holds the tp indices
+    of its shards, in every row it touches, and counts those of them whose
+    row-0 shard it holds)."""
+    local = mesh.local
+    if not by_tp:
+        return Slices(mesh.n_shards, tuple(local), (True,) * len(local),
+                      mesh=mesh if mesh.world > 1 else None)
+    n_tp, k = mesh.n_tp, len(local)
+    held = tuple(sorted({s % n_tp for s in local}))
+    return Slices(n_tp, held, tuple(t // k == mesh.rank for t in held),
+                  shared=mesh.world > 1 and mesh.n_dp > 1,
+                  mesh=mesh if mesh.world > 1 else None)
 
 
 # -- across processes: all-reduces, and one all-to-all ------------------------
@@ -355,15 +423,3 @@ def check_same_across(value: float, device, what: str) -> None:
     if both[0].item() != -both[1].item():
         raise RuntimeError(f"{what} differs across the processes "
                            f"({value!r} here): the replicas have diverged")
-
-
-def shard_groups(mesh: Mesh) -> List[range]:
-    """The flat shard indices of each tp group (one row of the mesh) that
-    this process holds: every row on one process; across processes its
-    own rows, or its part of a row split over processes (a 1-D mesh's one
-    row among them)."""
-    local = mesh.local
-    groups = [range(max(d * mesh.n_tp, local.start),
-                    min((d + 1) * mesh.n_tp, local.stop))
-              for d in range(mesh.n_dp)]
-    return [g for g in groups if len(g)]

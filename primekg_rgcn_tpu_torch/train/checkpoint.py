@@ -384,7 +384,7 @@ def _table_shapes(split) -> List[Tuple[int, ...]]:
     table = split.table
     live = (_live(table) if isinstance(table, torch.optim.Optimizer)
             else list(table.values()))
-    n = split.mesh.n_shards if split.mesh is not None else None
+    n = split.slices.n if split.slices is not None else None
     return [tuple(t.shape) if n is None or not t.dim()
             else (n,) + tuple(t.shape[1:]) for t in live]
 

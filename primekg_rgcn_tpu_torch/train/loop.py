@@ -58,8 +58,8 @@ from primekg_rgcn_tpu_torch.ops.rgcn_final_layer import (
     BatchRanges, FinalLayerPlan, final_layer_ranges, final_layer_restricted,
     resolve_final_plan)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
-from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, check_same_across,
-                                                  process_group_size, psum)
+from primekg_rgcn_tpu_torch.parallel.mesh import (check_same_across,
+                                                  process_group_size)
 from primekg_rgcn_tpu_torch.train import checkpoint as ckpt_lib
 from primekg_rgcn_tpu_torch.train.graphs import (StepGraphs, run_segments,
                                                  steps_per_graph)
@@ -133,25 +133,24 @@ def _keep_capturable(optimizer: torch.optim.Optimizer, *,
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float, *,
-                         sharded: Sequence[torch.Tensor] = (),
-                         mesh: Optional[Mesh] = None) -> torch.Tensor:
+                         sharded: Optional[torch.Tensor] = None,
+                         sharded_sq: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` where their global L2
     norm exceeds ``max_norm``, with no epsilon, as
     ``optax.clip_by_global_norm`` (``torch.nn.utils.clip_grad_norm_``
     divides by ``norm + 1e-6``). Returns the norm as a 0-d tensor on the
-    device, without a host synchronise. ``sharded`` are this process's
-    slices of gradients split over the processes of ``mesh``: their
-    squared norms are summed across the processes first, so the norm is
-    the global one, and they are scaled too."""
+    device, without a host synchronise. ``sharded`` is this process's
+    slices of a gradient split over processes, ``sharded_sq`` the whole
+    gradient's squared norm (``parallel/mesh.Slices.sq_norm``): it counts
+    in the norm, and ``sharded`` is scaled too."""
     norms = [torch.linalg.vector_norm(g) for g in grads]
-    if sharded:
-        sq = torch.stack([torch.linalg.vector_norm(g)
-                          for g in sharded]).square().sum()
-        norms.insert(0, psum([sq], mesh).sqrt())
+    if sharded is not None:
+        norms.insert(0, sharded_sq.sqrt())
     norm = torch.linalg.vector_norm(torch.stack(norms))
     factor = torch.where(norm > max_norm, max_norm / norm,
                          torch.ones_like(norm))
-    for g in (*sharded, *grads):
+    for g in ((sharded,) if sharded is not None else ()) + tuple(grads):
         g.mul_(factor)
     return norm
 

@@ -47,10 +47,12 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig
@@ -66,12 +68,11 @@ from primekg_rgcn_tpu_torch.models.rgcn import (Params, compute_dtype,
                                                 param_leaves)
 from primekg_rgcn_tpu_torch.ops.rgcn_segment import rgcn_layer_segment
 from primekg_rgcn_tpu_torch.ops.distmult import distmult_score
-from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, all_gather,
+from primekg_rgcn_tpu_torch.parallel.mesh import (Mesh, Slices, all_gather,
                                                   all_reduce_,
                                                   check_same_across,
                                                   make_mesh, make_mesh_2d,
-                                                  psum, psum_scatter,
-                                                  shard_groups)
+                                                  psum, table_slices)
 from primekg_rgcn_tpu_torch.train.graphs import (StepGraphs, run_segments,
                                                  steps_per_graph)
 from primekg_rgcn_tpu_torch.train.loop import (Candidates, Trainer,
@@ -239,7 +240,7 @@ def factored_slice_update(g: torch.Tensor, state: Dict[str, torch.Tensor],
                           row_valid: torch.Tensor, n_valid: int, lr: float,
                           decay_rate: float = 0.8, eps: float = 1e-30,
                           clip_threshold: float = 1.0,
-                          mesh: Optional[Mesh] = None):
+                          slices: Optional[Slices] = None):
     """Adafactor update of a row-sliced [N, D] table: ``(update, new_state)``
     (``factored_slice_update`` in the JAX package).
 
@@ -253,15 +254,18 @@ def factored_slice_update(g: torch.Tensor, state: Dict[str, torch.Tensor],
     unpadded dense table for any slicing. ``row_valid`` (float32, g's shape
     without D) masks the padded tail rows out of every cross-row statistic
     and out of the update; ``n_valid`` is the true row count N. The
-    statistics are float32. With a ``mesh`` whose processes split the
-    slices, ``g`` holds this process's and the two sums run across them.
+    statistics are float32. With ``slices`` (a table split over
+    processes), ``g`` holds this process's slices and the two sums run
+    over every slice of the table, each once (``Slices.total``).
     """
     g = g.float()
     sliced = axis_name is not None
 
     def across(x):
         # One total, read by every slice.
-        return psum(x, mesh).expand_as(x) if sliced else x
+        if not sliced:
+            return x
+        return (psum(x) if slices is None else slices.total(x)).expand_as(x)
 
     t = (state["count"] + 1).float()            # optax: count + 1
     decay = (1.0 - t ** (-decay_rate))[..., None]
@@ -331,17 +335,18 @@ class SplitOptimizer:
     (:func:`factored_slice_init`). ``state_dict`` holds both, so checkpoints
     and resume keep the per-slice state.
 
-    ``mesh``: where the slices are split over processes (each holds those
-    of its shards, ``mesh.local``), ``state_dict`` gathers every process's
-    slices of the table state (its tensors of one or more axes, stacked
-    over the slices), so a checkpoint holds all n as on one process, and
+    ``slices``: where the slices are split over processes (each holds
+    ``slices.held``), ``state_dict`` gathers every process's slices of the
+    table state (its tensors of one or more axes, stacked over the
+    slices), so a checkpoint holds all n as on one process, and
     ``load_state_dict`` keeps this process's."""
 
     def __init__(self, rest: torch.optim.Optimizer, table,
-                 mesh: Optional[Mesh] = None):
+                 slices: Optional[Slices] = None):
         self.rest = rest
         self.table = table
-        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.slices = (slices if slices is not None and not slices.whole
+                       else None)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.rest.zero_grad(set_to_none=set_to_none)
@@ -352,17 +357,15 @@ class SplitOptimizer:
         table = (self.table.state_dict()
                  if isinstance(self.table, torch.optim.Optimizer)
                  else dict(self.table))
-        if self.mesh is not None:
-            table = _map_slices(table, lambda t: all_gather(t,
-                                                            mesh=self.mesh))
+        if self.slices is not None:
+            table = _map_slices(table, self.slices.gather)
         return {"rest": self.rest.state_dict(), "table": table}
 
     def load_state_dict(self, state) -> None:
         self.rest.load_state_dict(state["rest"])
         table = state["table"]
-        if self.mesh is not None:
-            own = self.mesh.local
-            table = _map_slices(table, lambda t: t[own.start:own.stop])
+        if self.slices is not None:
+            table = _map_slices(table, self.slices.own)
         if isinstance(self.table, torch.optim.Optimizer):
             self.table.load_state_dict(table)
         else:
@@ -774,17 +777,17 @@ def build_sampled_train_step_zero1(csr, model_cfg: ModelConfig,
     n = mesh.n_shards
     n_nodes = model_cfg.num_nodes
     n_loc = -(-n_nodes // n)
+    slices = table_slices(mesh)
     # This process's slices hold the table's rows [lo, hi).
     lo = mesh.local.start * n_loc
     hi = max(min(mesh.local.stop * n_loc, n_nodes), lo)
 
     def init_optimizer(params: Params) -> SplitOptimizer:
         emb, rest = _split_emb(params)
-        slices = torch.zeros(len(mesh.local), n_loc, emb.shape[1],
-                             dtype=emb.dtype, device=emb.device)
+        own = torch.zeros(len(mesh.local), n_loc, emb.shape[1],
+                          dtype=emb.dtype, device=emb.device)
         return SplitOptimizer(make_optimizer(train_cfg, rest),
-                              make_optimizer(train_cfg, [slices]),
-                              mesh=mesh)
+                              make_optimizer(train_cfg, [own]), slices)
 
     def step(params: Params, optimizer: SplitOptimizer,
              pos_edges: torch.Tensor, generator: torch.Generator, *,
@@ -804,16 +807,16 @@ def build_sampled_train_step_zero1(csr, model_cfg: ModelConfig,
         if train_cfg.grad_clip and train_cfg.grad_clip > 0:
             # The full gradient's global norm, before the slices.
             clip_by_global_norm_(grads, train_cfg.grad_clip)
-        slices = optimizer.table.param_groups[0]["params"][0]
+        own = optimizer.table.param_groups[0]["params"][0]
         with torch.no_grad():
             # Each shard's row slice of the replicated table and of its
             # gradient; the pad rows stay zero.
-            d = slices.shape[-1]
-            slices.view(-1, d)[:hi - lo].copy_(emb[lo:hi])
-            slices.grad = torch.zeros_like(slices)
-            slices.grad.view(-1, d)[:hi - lo].copy_(emb.grad[lo:hi])
+            d = own.shape[-1]
+            own.view(-1, d)[:hi - lo].copy_(emb[lo:hi])
+            own.grad = torch.zeros_like(own)
+            own.grad.view(-1, d)[:hi - lo].copy_(emb.grad[lo:hi])
             optimizer.table.step()
-            emb.copy_(all_gather(slices, tiled=True, mesh=mesh)[:n_nodes])
+            emb.copy_(slices.gather(own).view(-1, d)[:n_nodes])
         optimizer.rest.step()
         return trio[0] / total, trio[1] / total
 
@@ -822,56 +825,118 @@ def build_sampled_train_step_zero1(csr, model_cfg: ModelConfig,
     return step
 
 
+@dataclass(frozen=True)
+class FetchRoute:
+    """Who serves whom in one :class:`ShardedRowFetch`. Owner o, a shard
+    this process holds, serves the row slice ``tp[o]`` of its tp row's
+    replica of the table (``slot[o]`` of the stacked slices of replica
+    ``replica[o]``, one replica for each of the ``n_rows`` tp rows that
+    this process touches) to the n_tp requesters of that row, ``first[o]``
+    to ``first[o] + n_tp - 1`` of a buffer of ``n_req`` requesters; this
+    process's requesters are ``mine`` of that buffer. ``mesh`` None: every
+    requester is local (one process, or processes that hold whole rows);
+    else the buffer is the mesh's n shards and its sums run across every
+    process."""
+
+    n_tp: int
+    tp: Tuple[int, ...]
+    slot: Tuple[int, ...]
+    replica: Tuple[int, ...]
+    first: Tuple[int, ...]
+    n_req: int
+    mine: range
+    mesh: Optional[Mesh] = field(default=None, compare=False)
+
+    @property
+    def n_rows(self) -> int:
+        return self.replica[-1] + 1
+
+    @staticmethod
+    def of(mesh: Mesh, slices: Slices) -> "FetchRoute":
+        """Every shard of this process: shard (d, t) owns slice t of row
+        d's replica and serves row d's requesters. The buffer is this
+        process's shards, or, where a tp row is split over processes
+        (``Mesh.rows_split``), all n shards of the mesh."""
+        n_tp, local = mesh.n_tp, mesh.local
+        split = mesh.rows_split
+        base = 0 if split else local.start
+        tps = tuple(s % n_tp for s in local)
+        return FetchRoute(n_tp, tps, tuple(slices.held.index(t) for t in tps),
+                          tuple(s // n_tp - local.start // n_tp
+                                for s in local),
+                          tuple(s - s % n_tp - base for s in local),
+                          mesh.n_shards if split else len(local),
+                          local if split else range(len(local)),
+                          mesh if split else None)
+
+
 class ShardedRowFetch(torch.autograd.Function):
-    """The rows a tp group's requesters ask of a row-sharded table
+    """The rows that a tp row's requesters ask of a row-sharded table
     (``_make_sharded_row_fetch``).
 
-    ``apply(emb_dm, owned, loc_ids)``: ``emb_dm`` [n, n_loc, D] is the
-    table's n slices; ``owned`` bool and ``loc_ids`` int32 [n, n * cap] say,
-    for each owner and each requested id (the requesters' frontiers
-    concatenated, their ``all_gather``), whether the owner holds that row
-    and at which local row (clipped into the slice). Forward: each owner's
-    masked take from its slice, and one ``psum_scatter`` routes requester r
-    its [cap, D] rows: [n, cap, D]. Backward: the ``all_gather`` of the
-    requesters' row cotangents, masked by the owner, then for each owner n
-    sorted segment-sums into its slice, one per requester's chunk, through
-    ``data/sampling._sorted_accumulate`` (kernel B2 on the card). Each
-    chunk is a frontier, sorted-unique, so its clipped local ids stay
-    sorted, and the rows an owner does not hold add zeros.
-
-    ``apply(emb_dm, owned, loc_ids, mesh)``, with a ``mesh`` whose
-    processes split the tp group: ``emb_dm``, ``owned`` and ``loc_ids``
-    hold this process's k owners (the same shards are its requesters) and
-    the forward returns its requesters' rows [k, cap, D]; the
-    ``psum_scatter`` and the cotangents' ``all_gather`` run across the
-    processes, and each owner still sums all n requesters' chunks.
+    ``apply(owned, loc_ids, route, *tables)``: ``tables`` are the
+    ``route.n_rows`` replicas, one a tp row, of the table's slices that
+    this process holds, each [S, n_loc, D] (``FetchRoute.of``); ``owned``
+    bool and ``loc_ids`` int32 [O, n_tp * cap] say, for each of the
+    route's O owners and each id that its row's requesters ask for (their
+    frontiers concatenated, their ``all_gather``), whether the owner holds
+    that row and at which local row (clipped into the slice). Forward:
+    each owner's masked take from its slice, added into its row's
+    requesters' [cap, D] rows of a buffer of all the route's requesters
+    (across processes one all-reduce of it, each process's owners writing
+    their rows' part), of which this process keeps its own:
+    [len(route.mine), cap, D]. Backward: the requesters' row cotangents
+    gathered the same way, masked by the owner, then for each owner n_tp
+    sorted segment-sums into its slice of its row's replica, one per
+    requester's chunk, through ``data/sampling._sorted_accumulate``
+    (kernel B2 on the card). Each chunk is a frontier, sorted-unique, so
+    its clipped local ids stay sorted, and the rows an owner does not
+    hold add zeros. Each replica's gradient is its row's partial
+    gradient, which the step sums over dp after scaling it, as the JAX
+    step does.
     """
 
     @staticmethod
-    def forward(ctx, emb_dm, owned, loc_ids, mesh=None):
+    def forward(ctx, owned, loc_ids, route: FetchRoute, *tables):
         ctx.save_for_backward(owned, loc_ids)
-        ctx.n_loc, ctx.dtype, ctx.mesh = emb_dm.shape[1], emb_dm.dtype, mesh
-        owner = torch.arange(emb_dm.shape[0], device=emb_dm.device)[:, None]
-        contrib = torch.where(owned[..., None], emb_dm[owner, loc_ids.long()],
-                              torch.zeros((), dtype=emb_dm.dtype,
-                                          device=emb_dm.device))
-        return psum_scatter(contrib, mesh)
+        ctx.shape, ctx.dtype, ctx.route = (tables[0].shape, tables[0].dtype,
+                                           route)
+        n_tp = route.n_tp
+        cap = owned.shape[1] // n_tp
+        zero = torch.zeros((), dtype=ctx.dtype, device=tables[0].device)
+        rows = tables[0].new_zeros(route.n_req, cap, ctx.shape[-1])
+        for o, (rep, slot, first) in enumerate(zip(route.replica, route.slot,
+                                                   route.first)):
+            take = torch.where(owned[o][:, None],
+                               tables[rep][slot][loc_ids[o].long()], zero)
+            rows[first:first + n_tp] += take.view(n_tp, cap, -1)
+        if route.mesh is not None:
+            dist.all_reduce(rows, group=route.mesh.group)
+        return rows[route.mine.start:route.mine.stop]
 
     @staticmethod
     def backward(ctx, g_rows):
         owned, loc_ids = ctx.saved_tensors
-        cap = g_rows.shape[1]
-        # psum_scatter's transpose: every owner sees every requester's rows.
-        g_all = all_gather(g_rows, tiled=True, mesh=ctx.mesh)
+        route, n_tp = ctx.route, ctx.route.n_tp
+        cap, d = g_rows.shape[1], g_rows.shape[2]
+        g_all = g_rows
+        if route.mesh is not None:
+            # psum_scatter's transpose: every owner sees its row's
+            # requesters' rows.
+            g_all = g_rows.new_zeros(route.n_req, cap, d)
+            g_all[route.mine.start:route.mine.stop] = g_rows
+            dist.all_reduce(g_all, group=route.mesh.group)
         zero = torch.zeros((), dtype=g_all.dtype, device=g_all.device)
-        slices = []
-        for o in range(owned.shape[0]):
-            g_o = torch.where(owned[o][:, None], g_all, zero)
-            parts = [sampling._sorted_accumulate(
+        grads = [g_all.new_zeros(ctx.shape[0], ctx.shape[1], d)
+                 for _ in range(route.n_rows)]
+        for o, (rep, slot, first) in enumerate(zip(route.replica, route.slot,
+                                                   route.first)):
+            g_o = torch.where(owned[o][:, None],
+                              g_all[first:first + n_tp].reshape(-1, d), zero)
+            grads[rep][slot] += psum([sampling._sorted_accumulate(
                 g_o[r * cap:(r + 1) * cap], loc_ids[o, r * cap:(r + 1) * cap],
-                ctx.n_loc) for r in range(g_all.shape[0] // cap)]
-            slices.append(psum(parts))
-        return torch.stack(slices).to(ctx.dtype), None, None, None
+                ctx.shape[1]) for r in range(n_tp)])
+        return (None, None, None, *(g.to(ctx.dtype) for g in grads))
 
 
 def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
@@ -885,12 +950,12 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     The table is a [n_tp, n_loc, D] leaf (``step.to_sharded`` /
     ``step.to_full`` convert it, ``step.shard_params`` /
     ``step.full_params`` a parameter dict), row slice t owned by tp index
-    t. Each
-    shard samples its frontier; each tp group gathers its shards' frontier
-    ids and fetches their rows from the owners (:class:`ShardedRowFetch`),
-    which feed ``encoder_apply_sampled(x0=rows)``. The gradient of each
-    slice is local: the owners' sorted sums of their rows' cotangents. On
-    an (n_dp, n_tp) mesh each dp row fetches from its own replica of the
+    t. Each shard samples its frontier; each tp row gathers its shards'
+    frontier ids and fetches their rows from the owners
+    (:class:`ShardedRowFetch`), which feed
+    ``encoder_apply_sampled(x0=rows)``. The gradient of each slice is
+    local: the owners' sorted sums of their rows' cotangents. On an
+    (n_dp, n_tp) mesh each dp row fetches from its own replica of the
     slices and serves only its own requesters; the replicas' slice
     gradients are then summed over dp. Clip: the global norm over the
     slices and the other leaves. ``table_opt="sgd"`` steps the slices with
@@ -902,16 +967,19 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     n_dp * n_tp mesh gives the same parameters as the (n_dp, n_tp) one, up
     to summation order.
 
-    Across processes: where a tp row is split over them (a 1-D mesh, or
-    an (n_dp, n_tp) mesh with more processes than rows) each process
-    holds the slices of its own shards' tp indices, [k, n_loc, D]
-    (``step.owners``), the fetch runs across the row's processes
-    (``mesh.tp_axis``) and the clip sums the slices' squared norms across
-    them; ``step.to_full`` and ``step.full_params`` gather the slices, so
-    every process calls them. The dp sum of the slice gradients runs
-    across the processes that hold the same slices (``mesh.dp_axis``); a
-    process that holds whole dp rows holds the whole table, and then only
-    that sum crosses processes.
+    Across processes each holds the slices of its shards' tp indices
+    (``step.slices``, ``parallel/mesh.table_slices``; ``step.owners`` is
+    ``step.slices.held``). A process whose shards are whole tp rows holds
+    the whole table, fetches locally, and only the dp sum of the slice
+    gradients crosses processes. One fetch serves every shard of the
+    process (``FetchRoute.of``), each tp row it touches from its own
+    replica of the slices. Where the rows are split (``Mesh.rows_split``:
+    a 1-D mesh, or a 2-D mesh whose processes hold a part of one row or
+    parts of several), each of the fetch's collectives is one all-reduce
+    over every process of a buffer of all n shards' rows; the dp sum and
+    the clip's squared norm run over the slices, each slice once.
+    ``step.to_full`` and ``step.full_params`` gather the slices, so every
+    process calls them.
     """
     if table_opt not in ("sgd", "adafactor"):
         raise ValueError(f"unknown table_opt {table_opt!r}")
@@ -928,24 +996,21 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
     n_nodes = model_cfg.num_nodes
     n_loc = -(-n_nodes // n_tp)
     pad_rows = n_tp * n_loc - n_nodes
-    # The mesh's axes that cross processes: a tp row split over them (a
-    # 1-D mesh's one row among them), the dp axis of several rows.
-    tp_across, dp_across = mesh.tp_axis, mesh.dp_axis
-    owners = tp_across.local if tp_across is not None else range(n_tp)
-    row_valid = (torch.arange(n_tp * n_loc, device=dev)
-                 < n_nodes).float().view(n_tp, n_loc)[owners.start:
-                                                      owners.stop]
-    offsets = torch.arange(owners.start, owners.stop,
-                           device=dev)[:, None] * n_loc
+    slices = table_slices(mesh, by_tp=True)
+    row_valid = slices.own((torch.arange(n_tp * n_loc, device=dev)
+                            < n_nodes).float().view(n_tp, n_loc))
+    route = FetchRoute.of(mesh, slices)
+    offsets = torch.tensor(route.tp, device=dev)[:, None] * n_loc
     ends = (offsets + n_loc).clamp(max=n_nodes)
+    requesters = (torch.tensor(route.first, device=dev)[:, None]
+                  + torch.arange(n_tp, device=dev))
 
     def to_sharded(emb_full: torch.Tensor) -> torch.Tensor:
-        return F.pad(emb_full, (0, 0, 0, pad_rows)).view(
-            n_tp, n_loc, -1)[owners.start:owners.stop]
+        return slices.own(F.pad(emb_full, (0, 0, 0, pad_rows)).view(
+            n_tp, n_loc, -1))
 
     def to_full(emb_dm: torch.Tensor) -> torch.Tensor:
-        return all_gather(emb_dm, mesh=tp_across).reshape(
-            n_tp * n_loc, -1)[:n_nodes]
+        return slices.gather(emb_dm).reshape(n_tp * n_loc, -1)[:n_nodes]
 
     def shard_params(params: Params) -> Params:
         """A new parameter dict whose table is a sharded copy of
@@ -960,33 +1025,28 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
         emb, rest = _split_emb(params)
         return _merge_emb(rest, to_full(emb))
 
-    def fetch(emb_dm: torch.Tensor, batches) -> torch.Tensor:
-        """One tp group's frontier rows, [n_tp, cap, D] (across processes
-        this process's requesters'). Sentinel ids and pad rows are owned
-        by nobody: their rows are zero."""
-        all_ids = all_gather([b.frontier for b in batches], tiled=True,
-                             mesh=tp_across)
-        owned = (all_ids >= offsets) & (all_ids < ends)
-        loc_ids = (all_ids - offsets).clamp(0, n_loc - 1).to(torch.int32)
-        return ShardedRowFetch.apply(emb_dm, owned, loc_ids, tp_across)
-
-    def fetch_all(replicas, shards) -> List[Optional[torch.Tensor]]:
-        """Each shard's frontier rows, by flat index (None: another
-        process's)."""
+    def fetch(tables, shards) -> List[Optional[torch.Tensor]]:
+        """Each shard's frontier rows from ``tables`` (one replica of the
+        slices a tp row, ``route.n_rows``), [cap, D] by flat index (None:
+        another process's). Sentinel ids and pad rows are owned by nobody:
+        their rows are zero."""
+        all_ids = all_gather([shards[s][1].frontier for s in mesh.local],
+                             mesh=route.mesh)
+        ids = all_ids[requesters].reshape(len(route.tp), -1)
+        owned = (ids >= offsets) & (ids < ends)
+        loc_ids = (ids - offsets).clamp(0, n_loc - 1).to(torch.int32)
         rows: List[Optional[torch.Tensor]] = [None] * mesh.n_shards
-        for emb_dm, group in zip(replicas, shard_groups(mesh)):
-            for s, r in zip(group, fetch(emb_dm,
-                                         [shards[s][1] for s in group])):
-                rows[s] = r
+        for s, r in zip(mesh.local, ShardedRowFetch.apply(
+                owned, loc_ids, route, *tables)):
+            rows[s] = r
         return rows
 
     def init_optimizer(params: Params) -> SplitOptimizer:
         emb_dm, rest = _split_emb(params)
         table = (factored_slice_init(n_loc, emb_dm.shape[-1], device=dev,
-                                     n_slices=len(owners)) if factored
+                                     n_slices=len(slices.held)) if factored
                  else make_optimizer(train_cfg, [emb_dm]))
-        return SplitOptimizer(make_optimizer(train_cfg, rest), table,
-                              mesh=tp_across)
+        return SplitOptimizer(make_optimizer(train_cfg, rest), table, slices)
 
     def step(params: Params, optimizer: SplitOptimizer,
              pos_edges: torch.Tensor, generator: torch.Generator, *,
@@ -996,14 +1056,14 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
                               enc_mask=enc_mask, local=_local(mesh))
         emb_dm, rest = _split_emb(params)
         optimizer.zero_grad(set_to_none=True)
-        # Each dp row's replica of the slices: a view of the one table with
-        # a gradient of its own, that row's partial gradient.
+        # Each tp row's replica of the slices: a view of the one table
+        # with a gradient of its own, that row's partial gradient.
         replicas = [emb_dm.detach().requires_grad_(True)
-                    for _ in shard_groups(mesh)]
+                    for _ in range(route.n_rows)]
         trio = _backward_stats(params, shards, model_cfg,
-                               x0s=fetch_all(replicas, shards), mesh=mesh)
+                               x0s=fetch(replicas, shards), mesh=mesh)
         total = trio[2].clamp(min=1.0)
-        g_emb = psum([r.grad / total for r in replicas], dp_across)
+        g_emb = slices.reduce(psum([r.grad / total for r in replicas]))
         rest_grads = [p.grad for p in param_leaves(rest) if p.grad is not None]
         all_reduce_(rest_grads, mesh)
         for g in rest_grads:
@@ -1011,19 +1071,20 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
         if train_cfg.grad_clip and train_cfg.grad_clip > 0:
             # The slices partition the rows: their squared norms add up to
             # the dense table's.
-            if tp_across is None:
+            if slices.whole:
                 clip_by_global_norm_([g_emb, *rest_grads],
                                      train_cfg.grad_clip)
             else:
                 clip_by_global_norm_(rest_grads, train_cfg.grad_clip,
-                                     sharded=[g_emb], mesh=tp_across)
+                                     sharded=g_emb,
+                                     sharded_sq=slices.sq_norm(g_emb))
         emb_dm.grad = g_emb
         with torch.no_grad():
             if factored:
                 upd, state = factored_slice_update(
                     g_emb, optimizer.table, axis_name="tp",
                     row_valid=row_valid, n_valid=n_nodes, lr=train_cfg.lr,
-                    mesh=tp_across)
+                    slices=None if slices.whole else slices)
                 emb_dm.add_(upd.to(emb_dm.dtype))
                 optimizer.table.update(state)
             else:
@@ -1044,10 +1105,10 @@ def build_sampled_train_step_zero3(csr, model_cfg: ModelConfig,
         with torch.no_grad():
             return psum([_shard_stats(
                 params, shards, model_cfg, train=False,
-                x0s=fetch_all([emb_dm] * len(shard_groups(mesh)), shards))],
-                mesh)
+                x0s=fetch([emb_dm] * route.n_rows, shards))], mesh)
 
-    step.sample, step.mesh, step.owners = sample, mesh, owners
+    step.sample, step.mesh = sample, mesh
+    step.slices, step.owners = slices, slices.held
     step.init_optimizer = init_optimizer
     step.to_full, step.to_sharded = to_full, to_sharded
     step.shard_params, step.full_params = shard_params, full_params

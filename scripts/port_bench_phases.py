@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """The bench-module phases of ``chip_smoke.py`` alone, on one CUDA card.
 
-    python3 scripts/port_bench_phases.py [grad] [suite] [traces] [probes] \
-        [scaling] [pod] [--rows ROW ...]
+    python3 scripts/port_bench_phases.py [grad] [suite] [roofline] \
+        [traces] [probes] [scaling] [pod] [psum] [--rows ROW ...]
 
-Run from the repository's root; no group runs all six. It builds the four
+Run from the repository's root; no group runs all eight. It builds the four
 kernels (and the C++ graph builder), then drives ``chip_smoke.py``'s own
 phase functions:
 
@@ -12,12 +12,18 @@ phase functions:
   the basis decomposition (``num_bases=2``) against the plain versions;
 - suite: ``bench_suite``, ``python -m primekg_rgcn_tpu_torch.bench.suite``
   over every row of its ``CONFIGS`` (or ``--rows``) as a child;
+- roofline: ``ici_roofline``, ``python -m
+  primekg_rgcn_tpu_torch.bench.ici_roofline`` over the suite's report at
+  the NVLink rate (run after suite, or every layout reads "not
+  measured");
 - traces: ``bench_trace``, 10-step traces of the primekg-bases and
   rmat-large rows;
 - probes: ``config3_probe`` and ``restricted_probe`` at scale 1.0;
 - scaling: ``scaling``, every sharded layout at 1-8 shards, scale 0.25;
 - pod: ``pod_scale``, config 5's node-sharded and zero3 steps, each in a
-  child.
+  child;
+- psum: ``psum_probe``, the mesh's collectives alone: one process on a
+  2-shard mesh, one through NCCL, two sharing the card through gloo.
 
 Each phase prints its ``chip_smoke.py`` lines, and a ``##`` line gives the
 seconds since the start.
@@ -33,7 +39,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-GROUPS = ("grad", "suite", "traces", "probes", "scaling", "pod")
+GROUPS = ("grad", "suite", "roofline", "traces", "probes", "scaling", "pod",
+          "psum")
 
 
 def main():
@@ -101,6 +108,9 @@ def main():
         if "suite" in groups:
             suite_rows = cs.phase_bench_suite(REPO, tmp, args.rows)
             mark("bench_suite")
+        if "roofline" in groups:
+            cs.phase_ici_roofline(REPO, tmp)
+            mark("ici_roofline")
         if "traces" in groups:
             cs.phase_bench_traces(tmp, suite_rows)
             mark("bench_traces")
@@ -113,6 +123,9 @@ def main():
         if "pod" in groups:
             cs.phase_pod_scale(REPO)
             mark("pod_scale")
+        if "psum" in groups:
+            cs.phase_psum_probe()
+            mark("psum_probe")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -1,6 +1,7 @@
 """One process of a gloo group on the CPU, for
-tests/test_torch_port_distributed.py and
-tests/test_torch_port_node_distributed.py:
+tests/test_torch_port_distributed.py,
+tests/test_torch_port_node_distributed.py and
+tests/test_torch_port_mesh2d.py:
 
     python tests/port_dist_worker.py <case> <rank> <world> <dir>
 
@@ -23,6 +24,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from primekg_rgcn_tpu_torch.config import ModelConfig, TrainConfig  # noqa
+from primekg_rgcn_tpu_torch.data import sampling  # noqa: E402
 from primekg_rgcn_tpu_torch.data.graph import build_rel_graph  # noqa: E402
 from primekg_rgcn_tpu_torch.evaluate import sharded_ranking  # noqa: E402
 from primekg_rgcn_tpu_torch.models.rgcn import (init_params,  # noqa: E402
@@ -31,7 +33,7 @@ from primekg_rgcn_tpu_torch.ops.cuda import halo  # noqa: E402
 from primekg_rgcn_tpu_torch.parallel import edge_shard  # noqa: E402
 from primekg_rgcn_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from primekg_rgcn_tpu_torch.parallel import node_shard  # noqa: E402
-from primekg_rgcn_tpu_torch.train import sampled  # noqa: E402
+from primekg_rgcn_tpu_torch.train import checkpoint, sampled  # noqa: E402
 from primekg_rgcn_tpu_torch.train.loop import make_optimizer  # noqa: E402
 
 SHARDS = 4
@@ -112,14 +114,16 @@ def case_collectives(rank, world, d):
         out["differing_raises"] = torch.tensor(False)
     except RuntimeError:
         out["differing_raises"] = torch.tensor(True)
-    for name, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
+    for name, shape in (("2x2", (2, 2)), ("1x4", (1, 4)), ("3x2", (3, 2))):
         m = pmesh.make_mesh_2d(*shape, "cpu")
-        out[f"groups_{name}"] = torch.tensor(
-            [list(g) for g in pmesh.shard_groups(m)])
-        # (world, rank, local) of each axis that crosses processes.
-        out[f"axes_{name}"] = [
-            None if a is None else (a.world, a.rank, list(a.local))
-            for a in (m.tp_axis, m.dp_axis)]
+        # The shards of each tp row held here (zero3's fetch replicas),
+        # whether a tp row spans processes, and zero3's table slices here.
+        sl = pmesh.table_slices(m, by_tp=True)
+        route = sampled.FetchRoute.of(m, sl)
+        out[f"groups_{name}"] = [
+            [s for s, rep in zip(m.local, route.replica) if rep == i]
+            for i in range(route.n_rows)]
+        out[f"axes_{name}"] = [m.rows_split, sl.held, sl.counted, sl.shared]
     try:
         pmesh.make_mesh(3, "cpu")
         out["odd_shards"] = torch.tensor(False)
@@ -149,15 +153,46 @@ def small_graph():
     return graph, np.stack([src, dst, rel], 1).astype(np.int64)
 
 
-def run_steps(layout, shape, mode, table_opt, *, steps=3, seed=9):
+def counting(module, names, counts):
+    """Wrap ``module``'s functions ``names`` to add each call to
+    ``counts[name]``; returns the originals."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    return saved
+
+
+# The calls that launch kernel B2 on the card (the dedup gathers' backward
+# through the wrapper, the fetch's and table gather's sums through
+# ``_sorted_accumulate``, which takes the plain version on the CPU) and B3.
+LAUNCHING = {"B2": ("dense_sorted_segment_sum",
+                    "dense_sorted_segment_sum_plain"),
+             "B3": ("window_rows_fetch",)}
+
+
+def run_steps(layout, shape, mode, table_opt, *, steps=3, seed=9, batch=64,
+              resume_at=None, slim=False):
     """``steps`` updates of one layout from the same parameters, batches
     and generator seed, on a mesh that spans the live group (or one
     process): losses, parameters and optimizer state (whole), the
-    generator's final state and the table's local shape."""
+    generator's final state, the table's local shape and the calls that
+    launch B2 and B3 on the card (from the sampling module, all steps).
+    ``resume_at`` i (zero3): after step i the step, its parameters and
+    optimizer are built anew from the whole table and the gathered
+    optimizer state, as a resumed trainer builds them. ``slim``: sample
+    over the slim combined CSR in granule-pairs form (block mode's window
+    fetches, B3)."""
     graph, edges = small_graph()
     cfg = ModelConfig(num_nodes=60, num_relations=3, embedding_dim=8,
                       hidden_dim=8, dropout=0.3)
-    tcfg = TrainConfig(batch_size=64, lr=1e-2, grad_clip=(
+    tcfg = TrainConfig(batch_size=batch, lr=1e-2, grad_clip=(
         0.0 if table_opt == "adafactor" else 1.0))
     mesh = (pmesh.make_mesh_2d(*shape, "cpu") if isinstance(shape, tuple)
             else pmesh.make_mesh(shape, "cpu"))
@@ -167,6 +202,7 @@ def run_steps(layout, shape, mode, table_opt, *, steps=3, seed=9):
     gen = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
     losses = []
+    calls = {n: 0 for names in LAUNCHING.values() for n in names}
     if layout == "edge":
         step = edge_shard.build_sharded_train_step(
             mesh, edge_shard.shard_rel_graph(graph, SHARDS), cfg, tcfg,
@@ -182,19 +218,50 @@ def run_steps(layout, shape, mode, table_opt, *, steps=3, seed=9):
     else:
         build = getattr(sampled, f"build_sampled_train_step_{layout}")
         kw = dict(table_opt=table_opt) if layout == "zero3" else {}
-        step = build(graph, cfg, tcfg, mesh, fanouts=(5, 3), mode=mode, **kw)
-        if layout == "zero3":
-            params = step.shard_params(params)
-        opt = step.init_optimizer(params)
-        for _ in range(steps):
-            pos = torch.from_numpy(edges[rng.integers(0, len(edges), 64)])
-            losses.append(step(params, opt, pos, gen)[0].item())
+
+        csr = (sampling.build_combined_csr(graph, slim=True,
+                                           window_pairs=True)
+               if slim else graph)
+
+        def fresh_step(params):
+            step = build(csr, cfg, tcfg, mesh, fanouts=(5, 3), mode=mode,
+                         **kw)
+            if layout == "zero3":
+                params = step.shard_params(params)
+            return step, params, step.init_optimizer(params)
+
+        step, params, opt = fresh_step(params)
+        saved = counting(sampling, calls, calls)
+        try:
+            for i in range(steps):
+                pos = torch.from_numpy(edges[rng.integers(0, len(edges),
+                                                          batch)])
+                losses.append(step(params, opt, pos, gen)[0].item())
+                if i + 1 == resume_at:
+                    state = opt.state_dict()
+                    step, params, opt = fresh_step(
+                        fresh(step.full_params(params)))
+                    opt.load_state_dict(state)
+        finally:
+            for name, fn in saved.items():
+                setattr(sampling, name, fn)
         full = step.full_params(params) if layout == "zero3" else params
-    return {"losses": torch.tensor(losses, dtype=torch.float64),
+    out = {}
+    if layout == "zero3":
+        # The optimizer state through the JAX checkpoint's tree and back.
+        state = opt.state_dict()
+        opt.load_state_dict(checkpoint.optimizer_state_from_jax(
+            opt, checkpoint.optimizer_state_to_jax(opt, params, tcfg),
+            params))
+        out["opt_via_jax"] = flat(opt.state_dict())
+        opt.load_state_dict(state)
+    return {**out, "losses": torch.tensor(losses, dtype=torch.float64),
             "params": flat(full), "opt": flat(opt.state_dict()),
             "gen": gen.get_state(),
             "table_rows": torch.tensor(
-                params["encoder"]["node_emb"].shape[0])}
+                params["encoder"]["node_emb"].shape[0]),
+            "launches": {k: sum(calls[n] for n in names)
+                         for k, names in LAUNCHING.items()}}
 
 
 def case_steps(rank, world, d):
@@ -218,15 +285,26 @@ class Replay:
 
 
 def case_given(rank, world, d):
-    given = torch.load(Path(d) / "given.pt", weights_only=False)
+    return run_given(torch.load(Path(d) / "given.pt", weights_only=False))
+
+
+def run_given(given):
+    """The zero3 step on the handed-over parameters and JAX draws, on the
+    given mesh (4 flat shards by default) over the live group: the table's
+    local rows, and each step's loss, accuracy, whole parameters and
+    gathered optimizer state."""
     src, dst, rel = given["edges"].T
     graph = build_rel_graph(src, dst, rel, given["num_nodes"],
                             given["num_relations"], bucket_pad_multiple=64)
     cfg = ModelConfig.from_dict(given["model_config"])
     tcfg = TrainConfig(**given["train_config"])
+    shape = given.get("shape", SHARDS)
+    mesh = (pmesh.make_mesh_2d(*shape, "cpu") if isinstance(shape, tuple)
+            else pmesh.make_mesh(shape, "cpu"))
     step = sampled.build_sampled_train_step_zero3(
-        graph, cfg, tcfg, pmesh.make_mesh(SHARDS, "cpu"), fanouts=(4, 3),
-        mode="block")
+        graph, cfg, tcfg, mesh, fanouts=(4, 3),
+        mode=given.get("mode", "block"),
+        table_opt=given.get("table_opt", "sgd"))
     params = given["params"]
     for p in param_leaves(params):
         p.requires_grad_(True)
@@ -431,9 +509,41 @@ def case_jax_resume(rank, world, d):
     return out
 
 
+# -- case "mesh2d": zero3 on 2-D meshes whose processes hold parts of two
+# tp rows -------------------------------------------------------------------
+
+# The mesh by world size: (3, 2) over 2 processes gives each 3 shards (a
+# whole row and half of the next), (2, 3) over 3 gives each 2 (process 1
+# holds the end of row 0 and the start of row 1).
+MESH2D = {2: (3, 2), 3: (2, 3)}
+MESH2D_BATCH = 60
+# (name, sampling mode, table rule); block mode over the slim CSR
+MESH2D_RUNS = [("sgd", "block", "sgd"), ("adafactor", "uniform", "adafactor")]
+
+
+def case_mesh2d(rank, world, d):
+    """Both table rules for 3 steps on this world's mesh, and again with
+    the step rebuilt after step 2 from the gathered state; the zero3 step
+    on the JAX draws in <dir>/given.pt; the mesh's slices here."""
+    shape = MESH2D[world]
+    out = {}
+    for name, mode, rule in MESH2D_RUNS:
+        kw = dict(batch=MESH2D_BATCH, slim=mode == "block")
+        out[name] = run_steps("zero3", shape, mode, rule, **kw)
+        out[f"{name}_resumed"] = run_steps("zero3", shape, mode, rule,
+                                           resume_at=2, **kw)
+    out["given"] = run_given(torch.load(Path(d) / "given.pt",
+                                        weights_only=False))
+    mesh = pmesh.make_mesh_2d(*shape, "cpu")
+    sl = pmesh.table_slices(mesh, by_tp=True)
+    out["mesh"] = {"local": list(mesh.local), "rows_split": mesh.rows_split,
+                   "held": sl.held, "counted": sl.counted}
+    return out
+
+
 CASES = {"collectives": case_collectives, "steps": case_steps,
          "given": case_given, "node": case_node, "node4": case_node4,
-         "jax_resume": case_jax_resume}
+         "jax_resume": case_jax_resume, "mesh2d": case_mesh2d}
 
 
 def main():

@@ -6,8 +6,9 @@ JAX package.
 - (1) The mesh collectives and their autograd forms at 2 processes
   (``tests/port_dist_worker.py``) against the one-process mesh, output
   and gradient, exactly (integer inputs); ``all_reduce_``,
-  ``check_same_across``, the 2-D meshes' groups and axes (whole rows a
-  process, and a row split over processes) and the mesh that raises.
+  ``check_same_across``, the 2-D meshes' groups and zero3 table slices
+  (whole rows a process, a row split over processes, and a process with
+  parts of two rows) and the mesh that raises.
 - (2) The 2-process zero3 block step against the JAX one-process 4-device
   ``build_sampled_train_step_zero3`` for two steps on the same parameters
   and draws (the JAX candidates, sampler uniforms and masks handed over),
@@ -137,14 +138,21 @@ def test_all_reduce_check_and_process_meshes(collectives):
     for r, got in enumerate(ranks):
         assert torch.equal(got["all_reduce_"], want)
         assert bool(got["differing_raises"])
-        # Whole rows a process on (2, 2): only the dp axis crosses
-        # processes. (1, 4) splits its row: the row's sub-group is both
-        # processes, and this one holds tp indices 2r, 2r + 1. 3 shards
-        # over 2 processes raise.
-        assert got["groups_2x2"].tolist() == [[2 * r, 2 * r + 1]]
-        assert got["axes_2x2"] == [None, (2, r, [2 * r, 2 * r + 1])]
-        assert got["groups_1x4"].tolist() == [[2 * r, 2 * r + 1]]
-        assert got["axes_1x4"] == [(2, r, [2 * r, 2 * r + 1]), None]
+        # (rows split, zero3's slices held, counted, shared). Whole rows a
+        # process on (2, 2): each holds the whole table, process 0 counts
+        # it, and the replicas are summed across the processes. (1, 4)
+        # splits its row: this process holds tp indices 2r, 2r + 1, no
+        # other holds them. (3, 2): a whole row and half of the next. 3
+        # shards over 2 processes raise.
+        mine = (True, True) if r == 0 else (False, False)
+        assert got["groups_2x2"] == [[2 * r, 2 * r + 1]]
+        assert got["axes_2x2"] == [False, (0, 1), mine, True]
+        assert got["groups_1x4"] == [[2 * r, 2 * r + 1]]
+        assert got["axes_1x4"] == [True, (2 * r, 2 * r + 1), (True, True),
+                                   False]
+        assert got["groups_3x2"] == ([[0, 1], [2]] if r == 0
+                                     else [[3], [4, 5]])
+        assert got["axes_3x2"] == [True, (0, 1), mine, True]
         assert bool(got["odd_shards"])
 
 

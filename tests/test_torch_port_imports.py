@@ -1,7 +1,8 @@
 """The port stands alone: no module of it, and no line of chip_smoke.py,
 imports jax, flax, optax, msgpack or the JAX package (a JAX checkpoint
-loads, and ``torch_interop export`` runs, where none of them can be
-imported); and no module of it imports pandas,
+loads, ``torch_interop export`` runs, and the bench modules psum_probe
+and ici_roofline import, where none of them can be imported); and no
+module of it imports pandas,
 sklearn, networkx or matplotlib when it is imported, so that the port runs
 where none of them is installed (matplotlib and networkx are imported
 inside the plotting functions only). The whole analysis suite runs on the
@@ -98,6 +99,40 @@ def test_the_import_walk_covers_the_bench_modules():
                  "bench.restricted_probe"):
         assert f"primekg_rgcn_tpu_torch.{name}" in seen["names"]
     assert seen["bad"] == []
+
+
+_BLOCKED_PROBES = r"""
+import json, sys
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "primekg_rgcn_tpu"):
+    sys.modules[name] = None          # import raises ImportError
+sys.path.insert(0, sys.argv[1])
+from primekg_rgcn_tpu_torch.bench import ici_roofline, psum_probe
+print(json.dumps({"rate": ici_roofline.link_rate("nvlink"),
+                  "forms": psum_probe.closed_forms(2, 2)["psum"],
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "optax")
+                                   and sys.modules[m] is not None)}))
+"""
+
+
+def test_psum_probe_and_ici_roofline_import_no_jax():
+    """The bench modules ``psum_probe`` and ``ici_roofline``: in the
+    import walk, and imported where jax, optax, flax, msgpack and the JAX
+    package cannot be."""
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("bench.psum_probe", "bench.ici_roofline"):
+        assert f"primekg_rgcn_tpu_torch.{name}" in seen["names"]
+    assert seen["bad"] == []
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_PROBES,
+                           str(REPO)], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "rate": 450e9, "forms": 2.0, "loaded": []}
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():

@@ -404,7 +404,9 @@ def test_sharded_row_fetch_matches_a_masked_gather(monkeypatch):
         return pds.dense_sorted_segment_sum(gp, ids, num_segments)
 
     monkeypatch.setattr(ps, "_sorted_accumulate", checked)
-    rows = psampled.ShardedRowFetch.apply(emb_dm, owned, loc_ids)
+    mesh = pmesh.make_mesh(n, "cpu")
+    route = psampled.FetchRoute.of(mesh, pmesh.table_slices(mesh, True))
+    rows = psampled.ShardedRowFetch.apply(owned, loc_ids, route, emb_dm)
     g = torch.from_numpy(rng.normal(size=(n, cap, d)).astype(np.float32))
     (rows * g).sum().backward()
     assert calls == [cap] * (n * n)
@@ -423,8 +425,11 @@ def test_sharded_row_fetch_matches_a_masked_gather(monkeypatch):
 def test_mesh_collectives_and_2d_mesh():
     mesh = pmesh.make_mesh_2d(2, 3, "cpu")
     assert (mesh.n_shards, mesh.n_dp, mesh.n_tp) == (6, 2, 3)
-    assert [list(g) for g in pmesh.shard_groups(mesh)] == [[0, 1, 2],
-                                                          [3, 4, 5]]
+    route = psampled.FetchRoute.of(mesh, pmesh.table_slices(mesh, True))
+    assert (route.n_rows, route.replica, route.first) == (
+        2, (0, 0, 0, 1, 1, 1), (0, 0, 0, 3, 3, 3))
+    assert [[s for s, r in zip(mesh.local, route.replica) if r == i]
+            for i in range(route.n_rows)] == [[0, 1, 2], [3, 4, 5]]
     assert pmesh.make_mesh(4, "cpu").n_tp == 4
     with pytest.raises(ValueError, match="at least 2"):
         pmesh.make_mesh_2d(1, 1, "cpu")

@@ -12,7 +12,15 @@ The reference's flags, plus --resume, --synthetic (train on a
 PrimeKG-statistics synthetic graph and write its splits under
 ``<output_dir>/synthetic_data``), --profile_dir (a ``torch.profiler`` trace
 of the run) and --device (default ``cuda``; without a card it raises unless
-``--device cpu`` is given). --sample_fanouts trains with neighbor
+``--device cpu`` is given). A --profile_dir trace carries the training
+epoch's spans by name, as ``user_annotation`` ranges on the kernels'
+clock (``utils/telemetry``): ``epoch.permute`` (the epoch's host
+permutation), ``epoch.upload`` (its batch indices to the device),
+``train.update`` (one update, or a graph segment of several),
+``restricted.host_read`` (the restricted final layer's one host read of
+its overflow flags an update), and ``graphs.warmup``, ``graphs.capture``
+and ``graphs.replay`` (a CUDA graph's eager first run, its capture and
+each replay). --sample_fanouts trains with neighbor
 sampling (``train/sampled.SampledTrainer``; --sample_mode, --sparse_emb,
 --table_opt, --val_sampled and --cache_layer1 as in the JAX CLI); with
 --shard (either
@@ -99,7 +107,8 @@ def parse_args(argv=None):
                    help="train on a PrimeKG-statistics synthetic graph")
     p.add_argument("--synthetic_scale", type=float, default=1.0)
     p.add_argument("--profile_dir", default=None,
-                   help="write a torch.profiler trace of the run here")
+                   help="write a torch.profiler trace of the run, with "
+                        "the epoch's named spans, here")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--sample_fanouts", type=int, nargs="+", default=None,
                    help="train with neighbor sampling at these per-relation "

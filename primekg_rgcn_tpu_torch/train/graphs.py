@@ -30,6 +30,17 @@ that live across replays (parameters, optimizer state, an epoch's batch
 indices on the device, a step counter that the body advances) and writes
 its results into such tensors: nothing that the host passes at a call
 reaches a replay.
+
+While the recorder of ``utils/telemetry`` is on (a ``torch.profiler`` is
+recording, or a ``recording()`` scope is open), each run on CUDA is a span
+named for what it does, ``graphs.warmup`` or ``graphs.replay``, and a pair
+of CUDA events on the current stream brackets its device work
+(``telemetry.graph_run``): a warm-up from before the side stream waits on
+the current one to after the current one waits on the side stream, a
+replay (the one after a capture included) around ``graph.replay()``. A
+capture is host work the device waits on, the span ``graphs.capture``.
+``telemetry.recorded()`` turns them into each run's device time and the
+gaps between runs. Off, a run costs one check.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ import time
 from typing import Any, Callable, Dict, Hashable, Optional, Tuple
 
 import torch
+
+from primekg_rgcn_tpu_torch.utils import telemetry
 
 # Work per replay when TrainConfig.steps_per_scan is 0, picked on one H100
 # (NVIDIA H100 80GB HBM3, 700 W; scripts/port_graphed_phases.py, phases
@@ -88,14 +101,20 @@ class StepGraphs:
         if not self.graphed:
             return body()
         entry = self._graphs.get(key)
+        kind = "replay"
         if entry is None:
             if key not in self._warm:
                 self._warm.add(key)
                 self.warmups += 1
-                return self._on_side_stream(body)
-            entry = self._graphs[key] = self._capture(body)
+                with telemetry.graph_run("graphs.warmup", key, "warmup",
+                                         self.device):
+                    return self._on_side_stream(body)
+            kind = "capture"
+            with telemetry.span("graphs.capture", wait=True):
+                entry = self._graphs[key] = self._capture(body)
         graph, out = entry
-        graph.replay()
+        with telemetry.graph_run("graphs.replay", key, kind, self.device):
+            graph.replay()
         self.replays += 1
         return out
 
@@ -131,10 +150,11 @@ class StepGraphs:
 
 def run_segments(graphs: Optional[StepGraphs], tag: str,
                  body: Callable[[], Any], n: int, k: int) -> None:
-    """``body`` ``n`` times: ``n // k`` runs of a ``k``-body segment, then
-    one segment of the remaining ``n % k`` (the JAX package's full and
-    remainder scan segments). Each segment is one graph key, ``(tag,
-    length)``; with ``graphs`` None every body runs eagerly."""
+    """``body`` (one optimizer update) ``n`` times: ``n // k`` runs of a
+    ``k``-body segment, then one segment of the remaining ``n % k`` (the
+    JAX package's full and remainder scan segments). Each segment is one
+    graph key, ``(tag, length)``, and a ``train.update`` span of ``length``
+    updates; with ``graphs`` None every body runs eagerly."""
     k = max(1, min(int(k), n))
 
     def segment(length):
@@ -147,4 +167,5 @@ def run_segments(graphs: Optional[StepGraphs], tag: str,
         if graphs is None:
             segment(length)()
         else:
-            graphs.run((tag, length), segment(length))
+            with telemetry.span("train.update", updates=length):
+                graphs.run((tag, length), segment(length))

@@ -66,6 +66,7 @@ from primekg_rgcn_tpu_torch.train.graphs import (StepGraphs, run_segments,
 from primekg_rgcn_tpu_torch.train.neg_sampling import (bce_stats,
                                                        candidate_batch)
 from primekg_rgcn_tpu_torch.train.torch_interop import state_dict_from_params
+from primekg_rgcn_tpu_torch.utils import telemetry
 from primekg_rgcn_tpu_torch.utils.telemetry import (MetricsLogger,
                                                     device_memory_stats)
 
@@ -344,7 +345,9 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
         for p, g in zip(leaves, grads):
             p.grad = g
         micro, rs, ok = graphs.run(("ranges",), lambda: ranges(gen))
-        for a, fits in enumerate(ok.tolist()):  # the update's one host read
+        with telemetry.span("restricted.host_read", wait=True):
+            flags = ok.tolist()  # the update's one host read
+        for a, fits in enumerate(flags):
             final_layer_restricted.fallbacks += not fits
             r = rs[a]._replace(fits=fits)
             # One graph per micro-batch and branch: each reads its own
@@ -354,8 +357,9 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
                        functools.partial(micro_step, a, micro[a], r, gen))
 
     def epoch_fn(host_gen: torch.Generator, device_gen: torch.Generator):
-        perm = torch.randperm(num_edges, generator=host_gen)
-        perm = torch.cat([perm, torch.full((pad,), num_edges)])
+        with telemetry.span("epoch.permute", wait=True):
+            perm = torch.randperm(num_edges, generator=host_gen)
+            perm = torch.cat([perm, torch.full((pad,), num_edges)])
         if graphs is None:
             batch_indices = perm.view(n_updates, accum, b).to(device)
             total = torch.zeros(3, device=device)
@@ -368,12 +372,14 @@ def build_train_epoch(graph: RelGraph, edges: np.ndarray,
         if device_gen is not graphs.generator:
             raise ValueError("the epoch's graphs draw from the generator "
                              "registered with them")
-        idx.copy_(perm.view(n_updates, accum, b))
+        with telemetry.span("epoch.upload", wait=True):
+            idx.copy_(perm.view(n_updates, accum, b))
         slot.zero_()
         stats.zero_()
         if final_plan is not None:
             for _ in range(n_updates):
-                restricted_update(device_gen)
+                with telemetry.span("train.update", updates=1):
+                    restricted_update(device_gen)
         else:
             run_segments(graphs, "updates", lambda: update(device_gen),
                          n_updates, steps_per_graph(

@@ -27,6 +27,12 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
    Three child processes hand it a CSR that does not cover ``src`` or a
    ``src`` id outside the table and must stop on the kernel's device-side
    assert; two more do the same to the bf16 variant.
+   kernel_b1_options: the options of the stacked relation transform
+   (strided table and output, per-row and per-segment scales, all
+   together) against the plain version, float32 and bf16 tables, bit
+   for bit on dyadic inputs (a row across many pieces, pieces drifting
+   through rows), one launch a call, the wide buffers' other columns
+   untouched.
 4. serve: the top-K serving entry point ``predict_cli.main`` on the full
    PrimeKG-shaped synthetic graph (30,926 nodes, 1,709,568 padded edges) and
    the default 64 -> 128 -> 128 model with random weights from seed 0, for
@@ -372,6 +378,7 @@ It needs one CUDA card and exits non-zero without one.
 import concurrent.futures
 import contextlib
 import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -684,6 +691,96 @@ def phase_kernel_bwd(graph, dev):
             max_err = max(max_err, err)
             emit("kernel_bwd_case", case=name, edges=e, max_abs_err=err)
     return rows, max_err
+
+
+def phase_kernel_b1_options(dev):
+    """B1's options of the stacked relation transform (strided table and
+    output, ``row_scale``, ``seg_scale``, and all of them together, as the
+    transform's forward and backward use them) against
+    the plain version, float32 and bf16 tables: on dyadic inputs (every
+    sum and product exact; ``seg_scale`` powers of two) bit for bit, at a
+    row of 50,000 edges across many pieces (the fix-up's path) and pieces
+    drifting through rows; on random inputs within TOL. Each call must be
+    one launch (one bf16 launch for a bf16 table), and the columns of the
+    wide buffers outside the block must stay as they were. Returns the
+    largest error."""
+    import numpy as np
+    import torch
+
+    from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
+
+    kern, plain = ss.gather_segment_sum, ss.gather_segment_sum_plain
+    rng = np.random.default_rng(25)
+    gen = torch.Generator(dev).manual_seed(25)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_row = next(k for k in range(1, 4096)
+                   if ss.piece_plan(4000, 4000 * k, sms)[0] == k + 1)
+    csrs = {
+        "long_row_50000": (4000, 1000, np.sort(np.concatenate(
+            [rng.integers(0, 1000, 5000), np.full(50000, 500)]))),
+        "drifting": (4000, 4000, np.repeat(np.arange(4000), per_row + 1)),
+        "random": (4000, 5000, np.sort(rng.integers(0, 5000, 40000))),
+    }
+
+    def values(shape, exact, powers=False):
+        if powers:  # 1/4, 1/2, 1, 2
+            return 2.0 ** torch.randint(-2, 2, shape, device=dev,
+                                        generator=gen).float()
+        if exact:  # multiples of 1/8 in [0, 7/8]
+            return torch.randint(0, 8, shape, device=dev,
+                                 generator=gen).float() / 8
+        return torch.rand(shape, device=dev, generator=gen)
+
+    max_err = 0.0
+    options = {"stride": {}, "row_scale": {"row_scale"},
+               "seg_scale": {"seg_scale"},
+               "edge_scale_seg": {"scale", "seg_scale"},
+               "all": {"row_scale", "seg_scale"}}
+    for (cname, (rows, s, dst)), dtype, (oname, opts) in itertools.product(
+            csrs.items(), (torch.float32, torch.bfloat16), options.items()):
+        exact = cname != "random"
+        d = 64 if cname == "drifting" else 128
+        src = torch.from_numpy(rng.integers(0, rows, dst.shape[0])
+                               .astype(np.int32)).to(dev)
+        rowptr = torch.from_numpy(np.searchsorted(
+            dst, np.arange(s + 1)).astype(np.int32)).to(dev)
+        wide_x = values((rows, 3 * d), exact).to(dtype)
+        x = wide_x[:, d:2 * d]  # column block 1 of 3
+        scale = values((src.numel(),), exact) if "scale" in opts else None
+        kw = {}
+        if "row_scale" in opts:
+            kw["row_scale"] = values((rows,), exact)
+        if "seg_scale" in opts:
+            kw["seg_scale"] = values((s,), exact, powers=True)
+        wide_out = values((s, 4 * d), exact)
+        before = wide_out.clone()
+        name = f"b1_options/{cname}/{oname}/{str(dtype)[6:]}"
+        with torch.no_grad():
+            want = plain(x, src, rowptr, scale, **kw,
+                         out=before[:, 2 * d:3 * d].clone())
+            reset_counts()
+            got = kern(x, src, rowptr, scale, **kw,
+                       out=wide_out[:, 2 * d:3 * d])
+        torch.cuda.synchronize()
+        launches = (ss.gather_segment_sum.launches,
+                    ss.gather_segment_sum.launches_bf16)
+        if launches != (1, int(dtype == torch.bfloat16)):
+            raise AssertionError(f"{name}: launches {launches}")
+        if got.data_ptr() != wide_out[:, 2 * d:].data_ptr():
+            raise AssertionError(f"{name}: not written into out")
+        others = torch.cat([wide_out[:, :2 * d], wide_out[:, 3 * d:]], 1)
+        if not torch.equal(others, torch.cat([before[:, :2 * d],
+                                              before[:, 3 * d:]], 1)):
+            raise AssertionError(f"{name}: wrote outside its column block")
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"{name}: not equal to the plain version on "
+                                 f"exact inputs")
+        err = close_scaled(got, want, name)
+        max_err = max(max_err, err)
+        emit("kernel_b1_options", case=name, edges=src.numel(), d=d,
+             rows=s, exact=exact, max_abs_err=err,
+             vec_lanes=ss.b1_width(d, x, got))
+    return max_err
 
 
 def b1_bf16_library(x, src, rowptr, scale):
@@ -7100,6 +7197,8 @@ def main():
              else "kernel_bad_input", case=name, exit_code=child.returncode,
              faulted=True)
 
+    b1_options_err = phase_kernel_b1_options(dev)
+
     # -- 4. serve -----------------------------------------------------------
     tr = raw["type_ranges"]
     heads = [tr["disease"][0], tr["disease"][0] + 100, tr["drug"][0],
@@ -7477,7 +7576,7 @@ def main():
             k: v["launches_per_step"] for k, v in kg_train.items()},
         "max_abs_err": max(max_err, bwd_err, grad_err, bases_err,
                            ngrad_err, kg_grad_err, edge_err, kg_ngrad_err,
-                           kg_egrad_err, cache_err),
+                           kg_egrad_err, cache_err, b1_options_err),
         "ms": total(main_rows, "kernel_ms"),
         "call_ms": total(main_rows, "kernel_call_ms"),
         "wrapper_call_ms": total(main_rows, "wrapper_call_ms"),

@@ -30,6 +30,20 @@
 // CSR over the source rows and scale the per-edge scales in that order, so
 // each edge carries its output row's gradient back to its source row.
 //
+// Options, for the stacked relation transform (ops/rgcn_segment.py), whose
+// buckets write column blocks of one [N+1, R*D] buffer and read them back:
+// - x_stride and out_stride: the row strides of the table and the output
+//   (elements), so that either may be a column block of a wider buffer;
+// - row_scale: a float32 weight per table row, w = row_scale[src[e]], used
+//   as a per-edge scale is (the dense-mode backward's 1/in-degree of each
+//   gathered destination); at most one of scale and row_scale is given;
+// - seg_scale: a float32 factor per output row, applied to the row's whole
+//   float32 sum, rounded once (the dense-mode forward's mean, the same
+//   product as the sum followed by a multiply).
+// They are a template parameter (OPTS) of both kernels: a call that sets
+// none runs instances compiled without them, the kernels as they were
+// before the options, whose registers the options would spill.
+//
 // Design: the work is split by edges, not by rows. The S row ends merged
 // with the E edges form one sequence of S + E items (a row's end comes
 // after its edges); a merge-path partition cuts it into pieces of equal
@@ -61,9 +75,10 @@
 // partial sum to a scratch carry buffer (the wrapper's, one [D] slot per
 // piece); the piece that reaches the row's end writes its own part, and a
 // second launch, gather_segment_sum_fixup_kernel, adds the row's carries
-// into it in piece order, one warp per row that has carries. The partition
-// depends only on S, E and the card's SM count, so two launches on the same
-// inputs add in the same order and give the same bits.
+// into it in piece order (and applies seg_scale to the whole sum), one warp
+// per row that has carries. The partition depends only on S, E and the
+// card's SM count, so two launches on the same inputs add in the same order
+// and give the same bits.
 //
 // Bound on the H100: memory. The function must move the node table, src,
 // rowptr (and scale) once and write the output once; at the serving path's
@@ -126,6 +141,14 @@ __device__ __forceinline__ float2 shfl_xor(float2 v, int m) {
 }
 __device__ __forceinline__ float4 shfl_xor(float4 v, int m) {
   return make_float4(shfl_xor(v.x, m), shfl_xor(v.y, m), shfl_xor(v.z, m), shfl_xor(v.w, m));
+}
+// v * s, each product rounded on its own (never fused into a later add).
+__device__ __forceinline__ float scaled(float v, float s) { return __fmul_rn(v, s); }
+__device__ __forceinline__ float2 scaled(float2 v, float s) {
+  return make_float2(__fmul_rn(v.x, s), __fmul_rn(v.y, s));
+}
+__device__ __forceinline__ float4 scaled(float4 v, float s) {
+  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s), __fmul_rn(v.w, s));
 }
 
 // The float32 accumulator of VEC elements.
@@ -254,13 +277,16 @@ __device__ __forceinline__ int load_window(const int32_t* __restrict__ rowptr, i
   return v;
 }
 
-template <typename Tin, int VEC, int LANES, bool SCALED>
+template <typename Tin, int VEC, int LANES, bool SCALED, bool OPTS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
 gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__ src,
                           const int32_t* __restrict__ rowptr, const float* __restrict__ scale,
-                          float* __restrict__ out, float* __restrict__ carry,
-                          int32_t* __restrict__ carry_row, int num_segments, int d,
-                          int num_rows, int num_edges, int items_per_piece, int num_pieces) {
+                          const float* __restrict__ row_scale,
+                          const float* __restrict__ seg_scale, float* __restrict__ out,
+                          float* __restrict__ carry, int32_t* __restrict__ carry_row,
+                          int num_segments, int d, int num_rows, int num_edges,
+                          int x_stride, int out_stride, int items_per_piece,
+                          int num_pieces) {
   using T = typename Vec<VEC>::T;
   using R = Row<Tin, VEC>;
   constexpr int kGroups = 32 / LANES;  // rows one load instruction gathers
@@ -280,6 +306,9 @@ gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__
   assert(piece != 0 || rowptr[0] == 0);
   assert(piece != num_pieces - 1 || rowptr[num_segments] == num_edges);
   const int dv = d / VEC;  // row length in vectors
+  // Row strides in vectors: without options the rows are contiguous.
+  const int xs = OPTS ? x_stride / VEC : dv;
+  const int os = OPTS ? out_stride / VEC : dv;
   const typename R::Raw* xv = reinterpret_cast<const typename R::Raw*>(x);
   T* outv = reinterpret_cast<T*>(out);
 
@@ -288,6 +317,9 @@ gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__
     const bool active = c < dv;
     int wbase = r0;  // lane l of wnd holds rowptr[wbase + l]
     int wnd = load_window(rowptr, wbase, num_segments, num_edges, lane);
+    // Row r0 began in an earlier piece when its first edge lies before e0:
+    // its part here is stored unscaled, and the fix-up scales the whole sum.
+    const bool r0_carried = OPTS && __shfl_sync(kFullMask, wnd, 0) < e0;
     int row = r0;
     int row_end = __shfl_sync(kFullMask, wnd, 1);
     int open_from = e0;  // first edge of the open row's part in this piece
@@ -297,7 +329,11 @@ gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__
     auto close_rows = [&](int consumed) {
       while (row < r1 && row_end == consumed) {
         const T sum = sum_groups<LANES>(acc);
-        if (group == 0 && active) outv[static_cast<int64_t>(row) * dv + c] = sum;
+        if (group == 0 && active)
+          outv[static_cast<int64_t>(row) * os + c] =
+              OPTS && seg_scale != nullptr && !(row == r0 && r0_carried)
+                  ? scaled(sum, seg_scale[row])
+                  : sum;
         acc = Vec<VEC>::zero();
         open_from = consumed;
         if (++row - wbase == 31) {
@@ -316,7 +352,7 @@ gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__
       if (lane < nb) {
         my_src = src[base + lane];
         assert(static_cast<unsigned>(my_src) < static_cast<unsigned>(num_rows));
-        if (SCALED) my_w = scale[base + lane];
+        if (SCALED) my_w = OPTS && row_scale != nullptr ? row_scale[my_src] : scale[base + lane];
       }
       const int used = (nb + kGroups - 1) / kGroups;  // load steps the batch needs
       for (int s0 = 0; s0 < used; s0 += kBatch) {
@@ -325,7 +361,7 @@ gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__
         for (int k = 0; k < kBatch; ++k) {
           const int j = (s0 + k) * kGroups + group;
           const int s = __shfl_sync(kFullMask, my_src, j);
-          v[k] = (active && j < nb) ? __ldg(xv + static_cast<int64_t>(s) * dv + c) : R::zero();
+          v[k] = (active && j < nb) ? __ldg(xv + static_cast<int64_t>(s) * xs + c) : R::zero();
         }
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
@@ -354,12 +390,15 @@ gather_segment_sum_kernel(const Tin* __restrict__ x, const int32_t* __restrict__
 }
 
 // Adds the carries of every row that crosses pieces into the part that the
-// row's last piece wrote, in piece order: one warp per run of pieces that
-// carry into the same row (the run's first piece leads).
-template <int VEC>
+// row's last piece wrote, in piece order, then applies seg_scale to the
+// row's whole sum: one warp per run of pieces that carry into the same row
+// (the run's first piece leads).
+template <int VEC, bool OPTS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_segment_sum_fixup_kernel(float* __restrict__ out, const float* __restrict__ carry,
-                                const int32_t* __restrict__ carry_row, int d, int num_pieces) {
+                                const int32_t* __restrict__ carry_row,
+                                const float* __restrict__ seg_scale, int d, int out_stride,
+                                int num_pieces) {
   using T = typename Vec<VEC>::T;
   const int piece = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (piece >= num_pieces) return;
@@ -378,7 +417,7 @@ gather_segment_sum_fixup_kernel(float* __restrict__ out, const float* __restrict
   }
   const int dv = d / VEC;
   const T* cv = reinterpret_cast<const T*>(carry) + static_cast<int64_t>(piece) * dv;
-  T* ov = reinterpret_cast<T*>(out) + static_cast<int64_t>(row) * dv;
+  T* ov = reinterpret_cast<T*>(out) + static_cast<int64_t>(row) * (OPTS ? out_stride / VEC : dv);
   for (int c = lane; c < dv; c += 32) {
     T sum = Vec<VEC>::zero();
     int i = 0;
@@ -392,7 +431,7 @@ gather_segment_sum_fixup_kernel(float* __restrict__ out, const float* __restrict
     for (; i < count; ++i) add_to(sum, cv[static_cast<int64_t>(i) * dv + c]);
     T o = ov[c];
     add_to(o, sum);
-    ov[c] = o;
+    ov[c] = OPTS && seg_scale != nullptr ? scaled(o, seg_scale[row]) : o;
   }
 }
 
@@ -402,31 +441,44 @@ struct Args {
   const int32_t* src;
   const int32_t* rowptr;
   const float* scale;
+  const float* row_scale;
+  const float* seg_scale;
   float* out;
   float* carry;
   int32_t* carry_row;
-  int num_segments, d, num_rows, num_edges, items_per_piece, num_pieces;
+  int num_segments, d, num_rows, num_edges, x_stride, out_stride, items_per_piece, num_pieces;
   cudaStream_t stream;
 };
 
-template <typename Tin, int VEC, int LANES>
-int launch(const Args<Tin>& a) {
+template <typename Tin, int VEC, int LANES, bool OPTS>
+int launch_instances(const Args<Tin>& a) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((a.num_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (a.scale != nullptr) {
-    gather_segment_sum_kernel<Tin, VEC, LANES, true><<<grid, block, 0, a.stream>>>(
-        a.x, a.src, a.rowptr, a.scale, a.out, a.carry, a.carry_row, a.num_segments, a.d,
-        a.num_rows, a.num_edges, a.items_per_piece, a.num_pieces);
+  if (a.scale != nullptr || a.row_scale != nullptr) {
+    gather_segment_sum_kernel<Tin, VEC, LANES, true, OPTS><<<grid, block, 0, a.stream>>>(
+        a.x, a.src, a.rowptr, a.scale, a.row_scale, a.seg_scale, a.out, a.carry, a.carry_row,
+        a.num_segments, a.d, a.num_rows, a.num_edges, a.x_stride, a.out_stride,
+        a.items_per_piece, a.num_pieces);
   } else {
-    gather_segment_sum_kernel<Tin, VEC, LANES, false><<<grid, block, 0, a.stream>>>(
-        a.x, a.src, a.rowptr, nullptr, a.out, a.carry, a.carry_row, a.num_segments, a.d,
-        a.num_rows, a.num_edges, a.items_per_piece, a.num_pieces);
+    gather_segment_sum_kernel<Tin, VEC, LANES, false, OPTS><<<grid, block, 0, a.stream>>>(
+        a.x, a.src, a.rowptr, nullptr, nullptr, a.seg_scale, a.out, a.carry, a.carry_row,
+        a.num_segments, a.d, a.num_rows, a.num_edges, a.x_stride, a.out_stride,
+        a.items_per_piece, a.num_pieces);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gather_segment_sum_fixup_kernel<VEC><<<grid, block, 0, a.stream>>>(
-      a.out, a.carry, a.carry_row, a.d, a.num_pieces);
+  gather_segment_sum_fixup_kernel<VEC, OPTS><<<grid, block, 0, a.stream>>>(
+      a.out, a.carry, a.carry_row, a.seg_scale, a.d, a.out_stride, a.num_pieces);
   return cudaGetLastError();
+}
+
+// The instances with the options only where the call sets one.
+template <typename Tin, int VEC, int LANES>
+int launch(const Args<Tin>& a) {
+  const bool opts = a.row_scale != nullptr || a.seg_scale != nullptr || a.x_stride != a.d ||
+                    a.out_stride != a.d;
+  return opts ? launch_instances<Tin, VEC, LANES, true>(a)
+              : launch_instances<Tin, VEC, LANES, false>(a);
 }
 
 template <typename Tin, int VEC>
@@ -448,45 +500,38 @@ int launch_lanes(int lanes, const Args<Tin>& a) {
 // with -DB1_TABLE_BF16 this file exports gather_segment_sum_bf16, else
 // gather_segment_sum_f32 (ops/cuda/segment_sum.LIBRARY and LIBRARY_BF16),
 // so that the two sets of kernel instances compile in parallel. x has
-// num_rows rows, src and
-// scale num_edges entries. vec (elements per lane: 1, 2 or 4) must divide d and lanes be a power of two up to 32 (the wrapper
-// picks both, ops/cuda/segment_sum.b1_width, and checks the alignment of x
-// and out); carry holds num_pieces * d floats and carry_row num_pieces ints
-// of scratch (ops/cuda/segment_sum.piece_plan). Launches the kernel and its
-// fix-up on `stream` and allocates nothing. Returns cudaGetLastError() after
-// each launch (0 when both were accepted), or -1 for a vec or lanes it does
-// not take.
+// num_rows rows of x_stride elements, out num_segments rows of out_stride
+// floats; src, and scale, num_edges entries; row_scale num_rows and
+// seg_scale num_segments floats; each of scale, row_scale and seg_scale may
+// be null (scale and row_scale not both). vec (elements per lane: 1, 2 or
+// 4) must divide d and both strides, and lanes be a power of two up to 32
+// (the wrapper picks both, ops/cuda/segment_sum.b1_width, and checks the
+// alignment of x and out); carry holds num_pieces * d floats and carry_row
+// num_pieces ints of scratch (ops/cuda/segment_sum.piece_plan).
+// Launches the kernel and its fix-up on `stream` and allocates nothing.
+// Returns cudaGetLastError() after each launch (0 when both were accepted),
+// or -1 for a vec or lanes it does not take.
 #ifndef B1_TABLE_BF16
-extern "C" int gather_segment_sum_f32(const float* x, const int32_t* src, const int32_t* rowptr,
-                                      const float* scale, float* out, float* carry,
-                                      int32_t* carry_row, int num_segments, int d, int num_rows,
-                                      int num_edges, int vec, int lanes, int items_per_piece,
-                                      int num_pieces, void* stream) {
-  if (num_segments <= 0) return 0;
-  const Args<float> a{x, src, rowptr, scale, out, carry, carry_row, num_segments, d, num_rows,
-                      num_edges, items_per_piece, num_pieces, static_cast<cudaStream_t>(stream)};
-  switch (vec) {
-    case 4: return launch_lanes<float, 4>(lanes, a);
-    case 2: return launch_lanes<float, 2>(lanes, a);
-    case 1: return launch_lanes<float, 1>(lanes, a);
-    default: return -1;
-  }
-}
+using Table = float;
+#define B1_ENTRY gather_segment_sum_f32
 #else
-extern "C" int gather_segment_sum_bf16(const __nv_bfloat16* x, const int32_t* src,
-                                       const int32_t* rowptr, const float* scale, float* out,
-                                       float* carry, int32_t* carry_row, int num_segments, int d,
-                                       int num_rows, int num_edges, int vec, int lanes,
-                                       int items_per_piece, int num_pieces, void* stream) {
+using Table = __nv_bfloat16;
+#define B1_ENTRY gather_segment_sum_bf16
+#endif
+extern "C" int B1_ENTRY(const Table* x, const int32_t* src, const int32_t* rowptr,
+                        const float* scale, const float* row_scale, const float* seg_scale,
+                        float* out, float* carry, int32_t* carry_row, int num_segments,
+                        int d, int num_rows, int num_edges, int x_stride, int out_stride,
+                        int vec, int lanes, int items_per_piece, int num_pieces,
+                        void* stream) {
   if (num_segments <= 0) return 0;
-  const Args<__nv_bfloat16> a{x, src, rowptr, scale, out, carry, carry_row, num_segments, d,
-                              num_rows, num_edges, items_per_piece, num_pieces,
-                              static_cast<cudaStream_t>(stream)};
+  const Args<Table> a{x, src, rowptr, scale, row_scale, seg_scale, out, carry, carry_row,
+                      num_segments, d, num_rows, num_edges, x_stride, out_stride,
+                      items_per_piece, num_pieces, static_cast<cudaStream_t>(stream)};
   switch (vec) {
-    case 4: return launch_lanes<__nv_bfloat16, 4>(lanes, a);
-    case 2: return launch_lanes<__nv_bfloat16, 2>(lanes, a);
-    case 1: return launch_lanes<__nv_bfloat16, 1>(lanes, a);
+    case 4: return launch_lanes<Table, 4>(lanes, a);
+    case 2: return launch_lanes<Table, 2>(lanes, a);
+    case 1: return launch_lanes<Table, 1>(lanes, a);
     default: return -1;
   }
 }
-#endif

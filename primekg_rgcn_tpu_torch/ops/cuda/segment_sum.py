@@ -9,6 +9,17 @@ either, as the TPU kernel summed bf16 rows in float32 under bf16 compute
 rounded to bf16 before it is added, as the JAX layer rounds its float32
 messages to bf16 on the way into that kernel.
 
+Options of the stacked relation transform (``ops/rgcn_segment.py``), which
+writes each bucket's sum into a column block of one wide buffer and
+gathers the backward's rows from column blocks of its gradient: the table
+and ``out`` may be views whose rows are strided (unit column stride);
+``row_scale`` weighs each edge by its gathered row, ``row_scale[src[e]]``,
+as ``scale`` weighs it by the edge; ``seg_scale`` multiplies each output
+row's float32 sum, ``out[d] = sum * seg_scale[d]``. None of them changes
+the launches: one main kernel and its fix-up a call, over all S output
+rows; a call that sets none runs the kernel's instances compiled without
+them.
+
 This is the counterpart of ``primekg_rgcn_tpu/ops/pallas/segment_sum.py``:
 it replaces the TPU kernel ``_segment_kernel`` (reached through
 ``sorted_segment_sum_pallas``) together with the row gather in front of it.
@@ -43,7 +54,7 @@ from primekg_rgcn_tpu_torch.ops.cuda.build import (CudaLibrary, call_on_stream,
                                                    check_rc)
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-_ARGS = (_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p)
+_ARGS = (_p,) * 9 + (_i,) * 10 + (_p,)
 LIBRARY = CudaLibrary("gather_segment_sum.cu",
                       {"gather_segment_sum_f32": _ARGS})
 LIBRARY_BF16 = CudaLibrary("gather_segment_sum.cu",
@@ -89,7 +100,8 @@ def carry_scratch(num_pieces: int, d: int, device
 def b1_width(d: int, *tensors: torch.Tensor) -> Tuple[int, int]:
     """``(vec, lanes)`` of the kernel's row loads: ``vec`` elements per
     lane, 4 where D % 4 == 0 and every tensor is aligned to its own vector
-    of 4 elements (16 bytes of float32, 8 of bf16), else 2 or 1; ``lanes``
+    of 4 elements (16 bytes of float32, 8 of bf16), its row stride a
+    multiple of 4 too, else 2 or 1; ``lanes``
     the lanes that share one gathered row, the least power of two that
     covers D / vec, at most the warp's 32. A warp then loads 32 / lanes
     rows in one instruction: one row at D = 128, two at D = 64 (a half-warp
@@ -99,7 +111,7 @@ def b1_width(d: int, *tensors: torch.Tensor) -> Tuple[int, int]:
     vec = 1
     for v in (4, 2):
         if d % v == 0 and all(t.data_ptr() % (t.element_size() * v) == 0
-                              for t in tensors):
+                              and t.stride(0) % v == 0 for t in tensors):
             vec = v
             break
     lanes = 1
@@ -108,7 +120,14 @@ def b1_width(d: int, *tensors: torch.Tensor) -> Tuple[int, int]:
     return vec, lanes
 
 
-def _check(x, src, rowptr, scale) -> None:
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """Rows of unit column stride, one after another: contiguous, or a
+    column block of a wider row-major buffer."""
+    return t.stride(1) == 1 and t.stride(0) >= t.shape[1]
+
+
+def _check(x, src, rowptr, scale, row_scale=None, seg_scale=None,
+           out=None) -> None:
     if x.dim() != 2 or x.shape[1] < 1 or x.dtype not in TABLE_DTYPES:
         raise ValueError(f"x must be float32 or bfloat16 [rows, D>=1], got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -118,18 +137,41 @@ def _check(x, src, rowptr, scale) -> None:
     if rowptr.dim() != 1 or rowptr.shape[0] < 1 or rowptr.dtype != torch.int32:
         raise ValueError(f"rowptr must be int32 [S+1], got {rowptr.dtype} "
                          f"{tuple(rowptr.shape)}")
-    tensors = [x, src, rowptr]
-    if scale is not None:
-        if scale.dtype != torch.float32 or scale.shape != src.shape:
-            raise ValueError(f"scale must be float32 {tuple(src.shape)}, got "
-                             f"{scale.dtype} {tuple(scale.shape)}")
-        tensors.append(scale)
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("x, src, rowptr and scale must share one device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("x, src, rowptr and scale must be contiguous")
-    # The partition indexes the merged rows and edges with int32.
-    if x.numel() >= 2 ** 31 or rowptr.shape[0] + src.shape[0] >= 2 ** 30:
+    tensors = [src, rowptr]
+    for name, t, size in (("scale", scale, src.shape[0]),
+                          ("row_scale", row_scale, x.shape[0]),
+                          ("seg_scale", seg_scale, rowptr.shape[0] - 1)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.shape != (size,):
+            raise ValueError(f"{name} must be float32 ({size},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.requires_grad:
+            raise ValueError(f"{name} is a constant of the graph and must "
+                             f"not require a gradient")
+        tensors.append(t)
+    if scale is not None and row_scale is not None:
+        raise ValueError("give scale or row_scale, not both")
+    s, d = rowptr.shape[0] - 1, x.shape[1]
+    if out is not None:
+        if out.dtype != torch.float32 or out.shape != (s, d):
+            raise ValueError(f"out must be float32 {(s, d)}, got {out.dtype} "
+                             f"{tuple(out.shape)}")
+        if not _rows_contiguous(out):
+            raise ValueError("out must have contiguous rows")
+    if any(t.device != x.device for t in tensors + [out if out is not None
+                                                    else x]):
+        raise ValueError("x, src, rowptr, out and the scales must share one "
+                         "device")
+    if not (all(t.is_contiguous() for t in tensors) and _rows_contiguous(x)):
+        raise ValueError("src, rowptr and the scales must be contiguous, x "
+                         "and out of contiguous rows")
+    # The partition indexes the merged rows and edges with int32; the
+    # kernel takes the row count and the row strides as int32 and offsets
+    # rows in int64.
+    if (x.shape[0] >= 2 ** 31 or x.stride(0) >= 2 ** 31
+            or rowptr.shape[0] + src.shape[0] >= 2 ** 30
+            or (out is not None and out.stride(0) >= 2 ** 31)):
         raise ValueError("sizes beyond int32 indexing are not supported")
 
 
@@ -145,14 +187,19 @@ def _check_csr_ends(src, rowptr) -> None:
 
 def gather_segment_sum_plain(x: torch.Tensor, src: torch.Tensor,
                              rowptr: torch.Tensor,
-                             scale: Optional[torch.Tensor] = None
+                             scale: Optional[torch.Tensor] = None, *,
+                             row_scale: Optional[torch.Tensor] = None,
+                             seg_scale: Optional[torch.Tensor] = None,
+                             out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """Plain PyTorch version: index_add_ of the gathered (scaled) rows in
     float32; a bf16 table is converted to float32, and its scaled products
-    rounded to bf16 and back. The table is converted before the gather, so
-    that autograd's backward of this version (``rgcn_segment.
-    aggregate_plain``) sums a bf16 table's gradient in float32, as the
-    kernel's backward does.
+    (by ``scale[e]`` or ``row_scale[src[e]]``) rounded to bf16 and back. The
+    table is converted before the gather, so that autograd's backward of
+    this version (``rgcn_segment.aggregate_plain``) sums a bf16 table's
+    gradient in float32, as the kernel's backward does. Then each row's sum
+    times ``seg_scale``, written to ``out`` (and ``out`` returned); without
+    ``out`` a new tensor.
 
     The CSR covers src: ``rowptr[0] == 0`` and ``rowptr[-1] == len(src)``.
     """
@@ -161,53 +208,75 @@ def gather_segment_sum_plain(x: torch.Tensor, src: torch.Tensor,
     dst = torch.repeat_interleave(torch.arange(s, device=x.device), counts,
                                   output_size=src.shape[0])
     msg = x.float()[src]
-    if scale is not None:
-        msg = (msg * scale[:, None]).to(x.dtype).float()
-    return torch.zeros(s, x.shape[1], dtype=torch.float32,
-                       device=x.device).index_add_(0, dst, msg)
+    w = scale if row_scale is None else row_scale[src]
+    if w is not None:
+        msg = (msg * w[:, None]).to(x.dtype).float()
+    total = torch.zeros(s, x.shape[1], dtype=torch.float32,
+                        device=x.device).index_add_(0, dst, msg)
+    if seg_scale is not None:
+        total = total * seg_scale[:, None]
+    if out is None:
+        return total
+    return out.copy_(total)
 
 
 def gather_segment_sum(x: torch.Tensor, src: torch.Tensor,
                        rowptr: torch.Tensor,
-                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       scale: Optional[torch.Tensor] = None, *,
+                       row_scale: Optional[torch.Tensor] = None,
+                       seg_scale: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[d] = sum_{e in [rowptr[d], rowptr[d+1])} x[src[e]] * scale[e]``.
 
     Args:
-        x: float32 or bfloat16 [rows, D] table; every ``src`` id must index
-            a row.
+        x: float32 or bfloat16 [rows, D] table of contiguous rows (it may be
+            a column block of a wider buffer); every ``src`` id must index a
+            row.
         src: int32 [E] gather ids in destination order.
         rowptr: int32 [S+1] CSR row pointers over src (``rowptr[0] == 0``,
             ``rowptr[-1] == E``, non-decreasing).
         scale: optional float32 [E] per-edge weights.
+        row_scale: optional float32 [rows] weights of the gathered rows
+            (edge e weighs ``row_scale[src[e]]``); not with ``scale``.
+        seg_scale: optional float32 [S] factors of the output rows' sums.
+        out: optional float32 [S, D] of contiguous rows (a column block of
+            a wider buffer too) to write.
 
-    Returns float32 [S, D]. On a CPU tensor this runs the plain version; on
-    a CUDA tensor it launches the kernel or raises. A CSR that breaks the
-    contract above raises ``ValueError`` on the CPU; on the card the kernel
-    stops on a device-side assert, reported at the next synchronise.
+    Returns float32 [S, D]: ``out`` when given. On a CPU tensor this runs
+    the plain version; on a CUDA tensor it launches the kernel or raises. A
+    CSR that breaks the contract above raises ``ValueError`` on the CPU; on
+    the card the kernel stops on a device-side assert, reported at the next
+    synchronise.
     """
-    _check(x, src, rowptr, scale)
-    if scale is not None and scale.requires_grad:
-        raise ValueError("scale is a constant of the graph and must not "
-                         "require a gradient")
+    _check(x, src, rowptr, scale, row_scale, seg_scale, out)
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError(
             "gather_segment_sum records no gradient; differentiate through "
             "GatherSegmentSum.apply with the transpose CSR")
+    kw = dict(row_scale=row_scale, seg_scale=seg_scale, out=out)
     if x.device.type == "cpu":
         _check_csr_ends(src, rowptr)
-        return gather_segment_sum_plain(x, src, rowptr, scale)
+        return gather_segment_sum_plain(x, src, rowptr, scale, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return launch(x, src, rowptr, scale)
+    return launch(x, src, rowptr, scale, **kw)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
-           scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+           scale: Optional[torch.Tensor] = None, *,
+           row_scale: Optional[torch.Tensor] = None,
+           seg_scale: Optional[torch.Tensor] = None,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel and its fix-up on CUDA tensors that
     ``gather_segment_sum`` has checked, the entry of x's dtype; counts one
     launch per call (and one bf16 launch for a bf16 table)."""
     s, d = rowptr.shape[0] - 1, x.shape[1]
-    out = torch.empty(s, d, dtype=torch.float32, device=x.device)
+    if out is None:
+        out = torch.empty(s, d, dtype=torch.float32, device=x.device)
     if s == 0:
         return out
     vec, lanes = b1_width(d, x, out)
@@ -218,9 +287,10 @@ def launch(x: torch.Tensor, src: torch.Tensor, rowptr: torch.Tensor,
              else LIBRARY.load().gather_segment_sum_f32)
     rc = call_on_stream(
         entry, x.get_device(), x.data_ptr(), src.data_ptr(),
-        rowptr.data_ptr(), None if scale is None else scale.data_ptr(),
-        out.data_ptr(), carry.data_ptr(), carry_row.data_ptr(),
-        s, d, x.shape[0], src.shape[0], vec, lanes, per_piece, pieces)
+        rowptr.data_ptr(), _ptr(scale), _ptr(row_scale), _ptr(seg_scale),
+        out.data_ptr(), carry.data_ptr(), carry_row.data_ptr(), s, d,
+        x.shape[0], src.shape[0], x.stride(0), out.stride(0), vec, lanes,
+        per_piece, pieces)
     check_rc(rc, "gather_segment_sum")
     gather_segment_sum.launches += 1
     gather_segment_sum.launches_bf16 += bf16

@@ -13,9 +13,29 @@ in ``ops/cuda/segment_sum.py``, or its plain version on the CPU).
   land in the dummy output row, which is dropped.
 - **Mean normalisation.** Dense mode multiplies the aggregate by the
   ``1/in-degree`` table after the sum; edge mode passes the per-edge scale
-  into the kernel, which multiplies each gathered row. The matmuls, the
-  dense-mode multiply and the padding stay outside the Function, where
-  autograd differentiates them.
+  into the kernel, which multiplies each gathered row.
+- **Stacked relation transform** (:class:`StackedRelationTransform`), the
+  float32 aggregate-first path with the default ``agg_fn``: each non-empty
+  bucket's B1 call writes its N+1 rows into column block r of one float32
+  ``T`` [N+1, R'·Din] (dense mode's ``1/in-degree`` applied to each row's
+  sum at the store), and one GEMM adds ``T[:N] @ W_stack`` to the root
+  term, ``W_stack`` the non-empty relations' weights as [R'·Din, Dout].
+  Backward: one GEMM each for ``grad_T`` and ``grad_W_stack``, then each
+  bucket's B1 over its transpose CSR gathers column block r of
+  ``grad_T`` (dense mode: each row weighed by its destination's
+  ``1/in-degree``) and writes its gradient of ``x_pad`` over block r - 1,
+  which bucket r - 1 has read; one sum over the blocks ends it. The
+  relation sum is cuBLAS's over (relation, Din) forward and
+  ``torch.sum``'s backward, not relation by relation. ``T`` holds at most
+  ``MAX_STACKED`` floats: past that the relations go in groups, one
+  transform each, added in relation order. ``rgcn_layer_segment.stacked``
+  and ``.looped`` count the layer applications of each path (at a CUDA
+  graph's warm-up and capture, not at its replays).
+- **The per-relation loop** takes every other call: a caller's own
+  ``agg_fn`` (the plain reference passes :func:`aggregate_plain`), Din >
+  Dout, and bf16 compute, whose flow below the stacked buffer does not
+  keep. The matmuls, the dense-mode multiply and the padding stay outside
+  ``GatherSegmentSum`` there, where autograd differentiates them.
 - **bf16 compute** (``compute_dtype=torch.bfloat16``) keeps the dtype of
   every intermediate of the JAX package's Pallas path (``impl="pallas"``,
   the one the TPU ran), not of its XLA CPU path, which sums in bf16:
@@ -78,6 +98,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from primekg_rgcn_tpu_torch.data.graph import RelGraph
+from primekg_rgcn_tpu_torch.ops.cuda import segment_sum as ss
 from primekg_rgcn_tpu_torch.ops.cuda.segment_sum import (
     GatherSegmentSum, gather_segment_sum_plain)
 
@@ -142,6 +163,89 @@ def build_layer_agg_ops(graph: RelGraph) -> List[Optional[AggOp]]:
     return ops
 
 
+# The most float32 elements of one stacked buffer ``T`` (4 GiB): full
+# PrimeKG's conv2, 129,376 rows of 30 x 128, takes 0.5 of it.
+MAX_STACKED = 2 ** 30
+
+
+class StackedRelationTransform(torch.autograd.Function):
+    """``base + T[:N] @ w_stack``, ``T`` the non-empty buckets' float32
+    aggregates of ``x_pad`` side by side (the module docstring).
+
+    ``apply(base, x_pad, w_stack, ops, inv_deg)``: ``base`` float32 [N,
+    Dout] (the root term), ``x_pad`` float32 [N+1, Din] with its zero dummy
+    row, ``w_stack`` float32 [R'·Din, Dout], ``ops`` the R' non-empty
+    buckets' :class:`AggOp` in relation order and ``inv_deg`` their float32
+    [N+1] ``1/in-degree`` rows in dense mode (``None`` in edge mode, whose
+    scales are in the ops). Gradients for the three tensors; B1 runs
+    through ``ss.gather_segment_sum``, the kernel on the card and the plain
+    version on the CPU, once a bucket each way.
+    """
+
+    @staticmethod
+    def forward(ctx, base, x_pad, w_stack, ops, inv_deg):
+        n, din = base.shape[0], x_pad.shape[1]
+        t = x_pad.new_empty(n + 1, len(ops) * din)
+        for i, op in enumerate(ops):
+            ss.gather_segment_sum(
+                x_pad, op.src, op.rowptr, op.scale,
+                seg_scale=None if inv_deg is None else inv_deg[i],
+                out=t[:, i * din:(i + 1) * din])
+        ctx.save_for_backward(t, w_stack)
+        ctx.ops, ctx.inv_deg = ops, inv_deg
+        return torch.addmm(base, t[:n], w_stack)
+
+    @staticmethod
+    def backward(ctx, g):
+        t, w_stack = ctx.saved_tensors
+        n, din = g.shape[0], t.shape[1] // len(ctx.ops)
+        g = g.contiguous()
+        grad_x = grad_w = None
+        if ctx.needs_input_grad[1]:
+            # Row N of grad_t is the dropped dummy row's: zero, so that the
+            # padding edges, which gather it, add nothing.
+            grad_t = t.new_empty(t.shape)
+            torch.mm(g, w_stack.t(), out=grad_t[:n])
+            grad_t[n:].zero_()
+            grad_x = t.new_empty(n + 1, din)
+            k = len(ctx.ops)
+            for i, op in enumerate(ctx.ops):
+                # Bucket i's gradient of x_pad goes over block i - 1 of
+                # grad_t, which bucket i - 1 has read (bucket 0's to grad_x).
+                ss.gather_segment_sum(
+                    grad_t[:, i * din:(i + 1) * din], op.t_ids, op.t_rowptr,
+                    op.t_scale,
+                    row_scale=None if ctx.inv_deg is None else ctx.inv_deg[i],
+                    out=grad_x if i == 0 else
+                    grad_t[:, (i - 1) * din:i * din])
+            if k > 1:
+                grad_x += grad_t[:, :(k - 1) * din].view(
+                    n + 1, k - 1, din).sum(1)
+        if ctx.needs_input_grad[2]:
+            grad_w = t[:n].t().mm(g)
+        return g, grad_x, grad_w, None, None
+
+
+def stacked_relations(x_pad: torch.Tensor, w_rel: torch.Tensor,
+                      base: torch.Tensor, graph: RelGraph,
+                      agg_ops: List[Optional[AggOp]]) -> torch.Tensor:
+    """The relation terms of the layer added to ``base`` through
+    :class:`StackedRelationTransform` (float32, aggregate first), in groups
+    of relations whose ``T`` holds at most ``MAX_STACKED`` floats."""
+    rels = [r for r, op in enumerate(agg_ops) if op is not None]
+    din, dout = w_rel.shape[1], w_rel.shape[2]
+    size = max(1, MAX_STACKED // (x_pad.shape[0] * din))
+    for i in range(0, len(rels), size):
+        group = rels[i:i + size]
+        w_stack = (w_rel.reshape(-1, dout) if len(group) == len(agg_ops)
+                   else torch.cat([w_rel[r] for r in group]))
+        inv_deg = (None if graph.norm_mode == "edge" else
+                   [graph.inv_in_deg[r] for r in group])
+        base = StackedRelationTransform.apply(
+            base, x_pad, w_stack, [agg_ops[r] for r in group], inv_deg)
+    return base
+
+
 def rgcn_layer_segment(
     layer_params: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -182,6 +286,11 @@ def rgcn_layer_segment(
     edge_norm = graph.norm_mode == "edge"
     out = xc @ w_root + bias[None, :]
     aggregate_first = din <= dout
+    if (agg_fn is aggregate and aggregate_first
+            and compute_dtype == torch.float32):
+        rgcn_layer_segment.stacked += 1
+        return stacked_relations(x_pad, w_rel, out, graph, agg_ops)
+    rgcn_layer_segment.looped += 1
     for r in range(graph.num_relations):
         op = agg_ops[r]
         if op is None:
@@ -203,3 +312,7 @@ def rgcn_layer_segment(
             agg = agg_fn((x_pad @ w_rel[r]).contiguous(), op)[:n]
             out = out + agg * inv_deg
     return out.float()
+
+
+rgcn_layer_segment.stacked = 0
+rgcn_layer_segment.looped = 0
